@@ -1,0 +1,47 @@
+"""Command line: ``python -m sparseeventid_tpu_torch --config-name <recipe>
+mode=inference [overrides]``.
+
+Only inference mode is ported so far.  It runs on the card unless
+``run.compute_mode=CPU`` is given, and prints the mean metrics as one JSON
+line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+from pathlib import Path
+
+from .config import load_config
+from .config.schema import ModeKind
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config-name", default="synthetic",
+                        help="recipe name under recipes/")
+    parser.add_argument("--recipes-dir", default=None,
+                        help="override the recipes directory")
+    parser.add_argument("overrides", nargs="*",
+                        help="hydra-style dotted overrides key=value")
+    args = parser.parse_args(argv)
+    cfg = load_config(
+        args.config_name, args.overrides,
+        recipes_dir=Path(args.recipes_dir) if args.recipes_dir else None,
+    )
+    if cfg.mode.name != ModeKind.inference:
+        raise NotImplementedError(
+            f"mode={cfg.mode.name.name} is not ported yet (ROADMAP: the "
+            "trainer and CLI train mode); use mode=inference"
+        )
+    from .train.evaluate import validate
+
+    metrics = validate(cfg)
+    print(json.dumps(metrics, sort_keys=True))
+    return metrics
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    main()

@@ -1,0 +1,114 @@
+"""Model assembly: the flagship sparse ResNet encoder + 4-head classifier
+(JAX counterpart: ``models/build.py``; the sparse family only)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+from torch import nn
+
+from ..config.schema import (
+    OUTPUT_SHAPE,
+    ConvRepresentation,
+    SparseEventIDConfig,
+    sparse_capacity,
+)
+from ..ops import SparseTensor
+from ..ops.window.query import WindowTuning
+from .encoder import Encoder, capacity_schedule
+from .heads import MultiHeadOutput, pool_encoded
+
+
+class SparseEventClassifier(nn.Module):
+    """forward(st) -> (logits keyed by label, dropped), ``dropped`` being
+    the encoder's count of sites and conv pairs lost to static capacities."""
+
+    def __init__(
+        self,
+        encoder_cfg: ConvRepresentation,
+        output_shape: Mapping[str, int] = OUTPUT_SHAPE,
+        dimension: int = 3,
+        capacities: Tuple[int, ...] = (),
+        head_hidden: int = 256,
+        head_dropout: float = 0.5,
+        backend: str = "xla",
+        tuning: WindowTuning = WindowTuning(),
+    ):
+        super().__init__()
+        if encoder_cfg.per_label_final_series:
+            raise NotImplementedError(
+                "per-label final series are not ported yet (ROADMAP: the "
+                "other models and tasks)"
+            )
+        self.encoder = Encoder(
+            encoder_cfg, dimension, capacities, backend=backend, tuning=tuning
+        )
+        self.head = MultiHeadOutput(
+            encoder_cfg.n_output_filters, output_shape, head_hidden,
+            head_dropout,
+        )
+
+    def forward(self, st: SparseTensor) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        encoded, dropped = self.encoder(st)
+        return self.head(pool_encoded(encoded)), dropped
+
+
+def build_sparse_classifier(
+    cfg: SparseEventIDConfig,
+    output_shape: Mapping[str, int] | None = None,
+) -> SparseEventClassifier:
+    """The flagship model from a config tree, with uninitialised weights
+    (see ``init_parameters``)."""
+    enc = cfg.encoder
+    if not isinstance(enc, ConvRepresentation):
+        raise TypeError("sparse classifier requires encoder=convnet")
+    caps = capacity_schedule(
+        sparse_capacity(cfg), enc.depth, cfg.framework.capacity_shrink,
+        cfg.framework.min_capacity,
+    )
+    return SparseEventClassifier(
+        encoder_cfg=enc,
+        output_shape=output_shape or OUTPUT_SHAPE,
+        dimension=cfg.data.dimension,
+        capacities=caps,
+        head_hidden=cfg.head.hidden,
+        head_dropout=cfg.head.dropout,
+        backend=cfg.framework.sparse_backend,
+        tuning=WindowTuning.from_config(cfg.framework.tuning),
+    )
+
+
+def _trunc_normal_fan_in(t: torch.Tensor, fan_in: int, scale: float,
+                         gen: torch.Generator) -> None:
+    # flax variance_scaling(scale, "fan_in", "truncated_normal"): a normal
+    # truncated at 2 sigma, rescaled so the variance is scale / fan_in
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, seed: int) -> nn.Module:
+    """Initialise every parameter from one seeded generator, in the flax
+    families: conv weights [K, C, CO] He-style over K*C, Linear weights
+    LeCun-style over their inputs, biases and norm offsets 0, norm scales 1.
+    The draws differ from flax's for the same seed."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("b", "bias", "initial_b", "bottleneck_b"):
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        elif p.dim() == 3:  # conv weights [K, C, CO]
+            cpu = torch.empty(p.shape)
+            _trunc_normal_fan_in(cpu, p.shape[0] * p.shape[1], 2.0, gen)
+            p.copy_(cpu)
+        elif p.dim() == 2:  # nn.Linear weight [out, in]
+            cpu = torch.empty(p.shape)
+            _trunc_normal_fan_in(cpu, p.shape[1], 1.0, gen)
+            p.copy_(cpu)
+        else:
+            raise ValueError(f"no initialiser for parameter {name}")
+    return model

@@ -1,0 +1,17 @@
+from .conv import apply_conv, gather_neighbors, strided_conv, submanifold_conv  # noqa: F401
+from .norm import apply_norm, masked_batch_stats  # noqa: F401
+from .pool import global_avg_pool  # noqa: F401
+from .rulebook import (  # noqa: F401
+    Rulebook,
+    build_downsample_rulebook,
+    build_submanifold_rulebook,
+    downsample_sites,
+    kernel_offsets,
+)
+from .sparse_tensor import (  # noqa: F401
+    INVALID_KEY,
+    SparseTensor,
+    build_sparse_tensor,
+    linearize,
+    unlinearize,
+)

@@ -1,0 +1,387 @@
+"""Wrappers of the window-engine CUDA kernels, each with its plain PyTorch
+version beside it.
+
+A wrapper dispatches on the device of its tensors: a CPU tensor goes to the
+plain version, a CUDA tensor to the kernel (built from ``csrc/`` on first
+use), and a failed build or launch raises.  There is no fallback from the
+kernel to the plain version.  Each wrapper counts its kernel launches in
+``<wrapper>.launches`` and each plain version its calls in
+``<plain>.calls``, plain integers that a caller may reset.
+
+JAX counterparts (``sparseeventid_tpu/ops/pallas/window_conv.py``):
+``window_plan`` (:607), ``window_conv_apply`` (:993), ``overflow_apply``
+(:1783) and ``_ov_bound`` (:1722).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from ..sparse_tensor import INVALID_KEY
+from . import _native
+from .query import (
+    ANCHOR_A,
+    INVALID_QUERY,
+    PLAN_R,
+    START_ALIGN,
+    TILE_T,
+    _cdiv,
+    _live_tiles,
+    _pad_rows,
+    _round_up,
+    conv_max_start,
+)
+
+_BIG = 2**30  # "no candidate" sentinel of the plan minima
+
+
+def _use_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no window kernel for device {dev}")
+
+
+def _check(t: torch.Tensor, name: str, dtype=None, ndim=None) -> None:
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# window_plan
+# --------------------------------------------------------------------------
+
+def window_plan_plain(
+    padded_keys: torch.Tensor,  # i32[B, Npad] sorted, INVALID_KEY padded
+    qkeys: torch.Tensor,  # i32[B, N, K]
+    n_active: torch.Tensor,  # i32[B] live rows on the query side
+    window_r: int,
+    table_cap: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`window_plan` (the same result, bit for bit).
+
+    The TPU kernel's window compares become binary searches: on the sorted
+    keys, #(window keys < q) is the lower bound of q clamped to the window."""
+    window_plan_plain.calls += 1
+    b, npad = padded_keys.shape
+    table_cap = npad if table_cap is None else table_cap
+    _, n, k = qkeys.shape
+    n_tiles = _cdiv(n, TILE_T)
+    max_start = conv_max_start(table_cap, window_r)
+    keys = padded_keys.long().contiguous()
+    q = _pad_rows(qkeys, n_tiles * TILE_T, INVALID_QUERY).long()
+    qf = q.reshape(b, -1)
+    anchors = keys[:, ::ANCHOR_A][:, : npad // ANCHOR_A]
+    anchors = torch.where(anchors == INVALID_KEY, 2**40, anchors).contiguous()
+    shape = (b, n_tiles, TILE_T, k)
+    bl = torch.searchsorted(anchors, qf, right=True).reshape(shape) - 1
+    q = q.reshape(shape)
+    valid = q >= 0
+    pos_blk = bl * ANCHOR_A
+    coarse = torch.where(valid & (bl >= 0), pos_blk, _BIG).amin(dim=2)
+    coarse = coarse.clamp(max=npad - PLAN_R)
+    coarse = coarse.clamp(max=(max_start // ANCHOR_A) * ANCHOR_A).clamp(min=0)
+    c = coarse[:, :, None, :]
+    cov = (bl >= 0) & (pos_blk >= c) & (pos_blk + ANCHOR_A <= c + PLAN_R)
+    lb = torch.searchsorted(keys, qf).reshape(shape)
+    pos = torch.minimum(torch.maximum(lb, c), c + PLAN_R)
+    at = torch.gather(keys, 1, pos.clamp(max=npad - 1).reshape(b, -1))
+    hit = (pos < c + PLAN_R) & (at.reshape(shape) == q)
+    live_min = torch.where(valid & cov & hit, pos, _BIG).amin(dim=2)
+    start = (live_min // START_ALIGN) * START_ALIGN
+    start = torch.minimum(start, coarse + PLAN_R - window_r)
+    start = torch.maximum(start, coarse).clamp(max=max_start)
+    s = start[:, :, None, :]
+    inwin = hit & (pos >= s) & (pos < s + window_r)
+    uncov = valid & (bl >= 0) & ~inwin & (hit | ~cov)
+    alive = (
+        torch.arange(n_tiles, device=keys.device)[None, :]
+        < _live_tiles(n_active, n)[:, None]
+    )
+    start = torch.where(alive[..., None], start, 0).to(torch.int32)
+    uncov = (uncov & alive[:, :, None, None]).to(torch.int32)
+    return start, uncov.reshape(b, n_tiles * TILE_T, k)[:, :n]
+
+
+window_plan_plain.calls = 0
+
+
+def window_plan(
+    padded_keys: torch.Tensor,  # i32[B, Npad] sorted, INVALID_KEY padded
+    qkeys: torch.Tensor,  # i32[B, N, K]
+    n_active: torch.Tensor,  # i32[B] live rows on the query side
+    window_r: int,
+    table_cap: int | None = None,  # unpadded table length (conv bound)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (start i32[B, n_tiles, K], uncovered i32[B, N, K]).
+
+    ``padded_keys`` must reach every plan window: Npad >= round128(N_table)
+    + PLAN_R (``query._padded_table``)."""
+    if not _use_kernel(padded_keys, qkeys, n_active):
+        return window_plan_plain(
+            padded_keys, qkeys, n_active, window_r, table_cap
+        )
+    b, npad = padded_keys.shape
+    table_cap = npad if table_cap is None else table_cap
+    _, n, k = qkeys.shape
+    _check(padded_keys, "padded_keys", torch.int32, 2)
+    _check(qkeys, "qkeys", torch.int32, 3)
+    _check(n_active, "n_active", torch.int32, 1)
+    if npad % ANCHOR_A or npad < PLAN_R:
+        raise ValueError(f"padded_keys length {npad} is not a plan table")
+    n_tiles = _cdiv(n, TILE_T)
+    start = torch.empty((b, n_tiles, k), dtype=torch.int32, device=qkeys.device)
+    uncov = torch.empty((b, n, k), dtype=torch.int32, device=qkeys.device)
+    fn = _native.lib("window_plan").seid_window_plan
+    err = fn(_ptr(padded_keys), npad, _ptr(qkeys), n, k, _ptr(n_active),
+             _ptr(start), _ptr(uncov), b, n_tiles, int(window_r),
+             conv_max_start(table_cap, window_r), _stream(qkeys))
+    window_plan.launches += 1
+    _native.check(err, "window_plan")
+    return start, uncov
+
+
+window_plan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# window_conv_apply
+# --------------------------------------------------------------------------
+
+def _query_rows_bound(m: int, q_bound: int | None) -> int:
+    """Rows of the query side the conv may produce (the rest are 0)."""
+    if q_bound is None:
+        return m
+    return min(m, _round_up(q_bound, TILE_T))
+
+
+def window_conv_apply_plain(
+    keys: torch.Tensor,
+    feats: torch.Tensor,
+    qmeta: torch.Tensor,
+    start: torch.Tensor,
+    w: torch.Tensor,
+    q_active: torch.Tensor,
+    dkeys: Sequence[int],
+    kmap: Sequence[int] | None = None,
+    *,
+    window_r: int,
+    q_bound: int | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`window_conv_apply`: per offset, a lookup of
+    every query's key, kept only where the row lies in the query tile's
+    window, then a gather and a float32 matmul."""
+    window_conv_apply_plain.calls += 1
+    b, _, m = qmeta.shape
+    k = len(dkeys)
+    c = feats.shape[-1]
+    n_in = keys.shape[1]
+    dev = feats.device
+    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
+    mb = _query_rows_bound(m, q_bound)
+    rows_m = torch.arange(m, device=dev)
+    tile = rows_m // TILE_T
+    row_ok = (tile[None, :] < _live_tiles(q_active, mb)[:, None]) & (
+        rows_m < mb
+    )[None, :]
+    keys64 = keys.long().contiguous()
+    base = qmeta[:, 0, :].long()
+    acc = torch.zeros((b, m, w.shape[-1]), dtype=torch.float32, device=dev)
+    for kk, col in enumerate(cols):
+        word = qmeta[:, 1 + col // 32, :]
+        live = ((word >> (col % 32)) & 1) != 0
+        q = base + int(dkeys[col])
+        s = start[:, tile, col].long()
+        lb = torch.searchsorted(keys64, q.contiguous())
+        at = torch.gather(keys64, 1, lb.clamp(max=n_in - 1))
+        found = (
+            live & row_ok & (lb >= s) & (lb < s + window_r) & (lb < n_in)
+            & (at == q)
+        )
+        rows = torch.where(found, lb, 0)
+        g = torch.gather(feats, 1, rows[..., None].expand(-1, -1, c)).float()
+        g = torch.where(found[..., None], g, 0.0)
+        acc += torch.matmul(g, w[kk].float())
+    return acc.to(feats.dtype)
+
+
+window_conv_apply_plain.calls = 0
+
+
+def window_conv_apply(
+    keys: torch.Tensor,  # i32[B, N_in] sorted keys of the table site set
+    feats: torch.Tensor,  # [B, N_in, C] table features
+    qmeta: torch.Tensor,  # i32[B, 1+nw, M] packed query meta
+    start: torch.Tensor,  # i32[B, n_tiles, K] from window_plan
+    w: torch.Tensor,  # [K, C, CO], the feature type
+    q_active: torch.Tensor,  # i32[B] live rows on the query side
+    dkeys: Sequence[int],  # per-offset key deltas (query.key_deltas)
+    kmap: Sequence[int] | None = None,  # kernel slot -> query column
+    *,
+    window_r: int,
+    q_bound: int | None = None,
+) -> torch.Tensor:
+    """-> [B, M, CO]: the in-window contributions only.  Matches outside
+    [start, start + window_r) belong to the plan's overflow list and are
+    left to the sidecar.  ``window_r`` must be the plan's."""
+    if not _use_kernel(keys, feats, qmeta, start, w, q_active):
+        return window_conv_apply_plain(
+            keys, feats, qmeta, start, w, q_active, dkeys, kmap,
+            window_r=window_r, q_bound=q_bound,
+        )
+    b, nw1, m = qmeta.shape
+    k = len(dkeys)
+    n_in, c = feats.shape[1], feats.shape[2]
+    co = w.shape[-1]
+    dtype = feats.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"window_conv_apply: unsupported dtype {dtype}")
+    _check(keys, "keys", torch.int32, 2)
+    _check(feats, "feats", dtype, 3)
+    _check(qmeta, "qmeta", torch.int32, 3)
+    _check(start, "start", torch.int32, 3)
+    _check(w, "w", dtype, 3)
+    _check(q_active, "q_active", torch.int32, 1)
+    if w.shape[:2] != (k, c) or keys.shape != (b, n_in):
+        raise ValueError("window_conv_apply: inconsistent shapes")
+    if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
+        raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
+    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
+    out = torch.empty((b, m, co), dtype=dtype, device=feats.device)
+    arr = ctypes.c_int * k
+    name = "seid_window_conv_bf16" if dtype == torch.bfloat16 else "seid_window_conv_f32"
+    fn = getattr(_native.lib("window_conv"), name)
+    err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
+             _ptr(start), start.shape[1], k, _ptr(w), co, _ptr(q_active),
+             _query_rows_bound(m, q_bound), int(window_r), _ptr(out),
+             arr(*[int(d) for d in dkeys]), arr(*cols), b, _stream(feats))
+    window_conv_apply.launches += 1
+    _native.check(err, "window_conv_apply")
+    return out
+
+
+window_conv_apply.launches = 0
+
+
+# --------------------------------------------------------------------------
+# overflow sidecar
+# --------------------------------------------------------------------------
+
+def _ov_bound(valid: torch.Tensor) -> torch.Tensor:
+    """i32[B]: last valid index + 1 per batch element (0 if none).  Lists
+    built on the device can hold invalid holes inside the prefix, so this
+    is not a popcount; the kernels still check each entry."""
+    s = valid.shape[1]
+    idx = torch.arange(1, s + 1, device=valid.device, dtype=torch.int32)
+    return (valid.to(torch.int32) * idx).amax(dim=1).to(torch.int32)
+
+
+def overflow_apply_plain(base, table, w, src, dst, kk, valid, n_bound=None):
+    """Plain version of :func:`overflow_apply`, in place on ``base``.
+
+    Entries are applied in list order with the output rounded after each,
+    as the kernel does: entries are grouped into rounds that hold at most
+    one entry per output row, and rounds run in order."""
+    overflow_apply_plain.calls += 1
+    b, m, co = base.shape
+    s = src.shape[1]
+    if n_bound is None:
+        n_bound = _ov_bound(valid)
+    idx = torch.arange(s, device=src.device)
+    ok = valid & (idx[None, :] < n_bound[:, None])
+    bi, si = torch.nonzero(ok, as_tuple=True)  # list order within each b
+    if bi.numel() == 0:
+        return base
+    rows = table[bi, src[bi, si].long()].float()  # [E, C]
+    contrib = torch.bmm(rows[:, None, :], w[kk[bi, si].long()].float())[:, 0]
+    target = bi * m + dst[bi, si].long()
+    order = torch.argsort(target, stable=True)
+    ts = target[order]
+    pos = torch.arange(ts.numel(), device=ts.device)
+    first = torch.ones_like(ts, dtype=torch.bool)
+    first[1:] = ts[1:] != ts[:-1]
+    group_start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - group_start
+    flat = base.view(b * m, co)
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        t = target[sel]
+        flat[t] = (flat[t].float() + contrib[sel]).to(base.dtype)
+    return base
+
+
+overflow_apply_plain.calls = 0
+
+
+def launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound):
+    """The sidecar kernel (csrc/overflow_apply.cu), in place on ``base``."""
+    b, m, co = base.shape
+    k, c, _ = w.shape
+    n, s = table.shape[1], src.shape[1]
+    dtype = table.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"overflow_apply: unsupported dtype {dtype}")
+    _check(base, "base", dtype, 3)
+    _check(table, "table", dtype, 3)
+    _check(w, "w", dtype, 3)
+    for name, t in (("src", src), ("dst", dst), ("kk", kk), ("n_bound", n_bound)):
+        _check(t, name, torch.int32)
+    _check(valid, "valid", torch.bool, 2)
+    if w.shape[1] != c or w.shape[2] != co or table.shape[0] != b:
+        raise ValueError("overflow_apply: inconsistent shapes")
+    name = (
+        "seid_overflow_apply_bf16" if dtype == torch.bfloat16
+        else "seid_overflow_apply_f32"
+    )
+    fn = getattr(_native.lib("overflow_apply"), name)
+    err = fn(_ptr(base), m, co, _ptr(table), n, c, _ptr(w), k, _ptr(src),
+             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b,
+             _stream(base))
+    _native.check(err, "overflow_apply")
+    return base
+
+
+def overflow_apply(
+    base: torch.Tensor,  # [B, M, CO] conv output, updated IN PLACE
+    table: torch.Tensor,  # [B, N, C] table features
+    w: torch.Tensor,  # [K, C, CO], the table's type
+    src: torch.Tensor,  # i32[B, S]
+    dst: torch.Tensor,  # i32[B, S]
+    kk: torch.Tensor,  # i32[B, S]
+    valid: torch.Tensor,  # bool[B, S]
+    n_bound: torch.Tensor | None = None,  # i32[B]; default _ov_bound(valid)
+) -> torch.Tensor:
+    """base[b, dst] += W[kk]^T table[b, src] over the valid pairs, in list
+    order.  Adds IN PLACE onto ``base`` and returns it."""
+    if n_bound is None:
+        n_bound = _ov_bound(valid)
+    if not _use_kernel(base, table, w, src, dst, kk, valid, n_bound):
+        return overflow_apply_plain(base, table, w, src, dst, kk, valid, n_bound)
+    out = launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound)
+    overflow_apply.launches += 1
+    return out
+
+
+overflow_apply.launches = 0

@@ -1,0 +1,159 @@
+"""Inference mode: run the validation split once, report the mean loss and
+per-head accuracy, and write the per-event softmax to ``mode.output_file``
+(.npz) when it is set (JAX counterpart: ``Trainer.validate``, supervised
+task only).
+
+Entry points run on the card.  They use the CPU only when asked, by
+``device="cpu"`` or ``run.compute_mode=CPU``; otherwise a machine without a
+CUDA device raises.
+"""
+
+from __future__ import annotations
+
+import logging
+import zlib
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..config.schema import (
+    OUTPUT_SHAPE,
+    ComputeMode,
+    Detector,
+    LossBalanceScheme,
+    OptimizerConfig,
+    Precision,
+    SparseEventIDConfig,
+    image_size,
+)
+from ..io import SyntheticDataset, SyntheticEventConfig, larcv_batch_to_sparse_3d
+from ..models import build_sparse_classifier, init_parameters
+from .supervised import eval_metrics
+
+logger = logging.getLogger(__name__)
+
+_LARCV_ITEM = "ROADMAP: larcv IO and checkpoint restore"
+
+
+def resolve_device(cfg: SparseEventIDConfig | None = None,
+                   device: torch.device | str | None = None) -> torch.device:
+    """The explicit ``device`` if given, the CPU for run.compute_mode=CPU,
+    else the card; raises when the card is wanted and none is present."""
+    if device is not None:
+        dev = torch.device(device)
+    elif cfg is not None and cfg.run.compute_mode == ComputeMode.CPU:
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' or run.compute_mode=CPU to "
+            "run on the host"
+        )
+    return dev
+
+
+def feature_dtype(cfg: SparseEventIDConfig) -> torch.dtype:
+    """bf16 features for bfloat16/mixed/float16 precision, else float32."""
+    low = (Precision.bfloat16, Precision.mixed, Precision.float16)
+    return torch.bfloat16 if cfg.run.precision in low else torch.float32
+
+
+def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
+    """The synthetic dataset of a split, seeded as the JAX trainer seeds it."""
+    if cfg.data.detector != Detector.synthetic or getattr(cfg.data, split, ""):
+        raise NotImplementedError(
+            f"larcv data files are not read by this package yet ({_LARCV_ITEM})"
+        )
+    return SyntheticDataset(
+        cfg.data.synthetic_events,
+        SyntheticEventConfig(
+            image_size=image_size(cfg),
+            max_voxels=cfg.data.max_voxels,
+            normalize=cfg.data.normalize,
+        ),
+        seed=(zlib.crc32(split.encode()) + cfg.run.seed) % 2**31,
+    )
+
+
+def _class_weights(scheme, device):
+    if scheme != LossBalanceScheme.even:
+        return None
+    return {
+        k: torch.tensor([0.582, 1.417], device=device)
+        for k, n in OUTPUT_SHAPE.items() if n == 2
+    }
+
+
+def validate(
+    cfg: SparseEventIDConfig,
+    dataset=None,
+    params: Mapping[str, torch.Tensor] | None = None,
+    device: torch.device | str | None = None,
+) -> Dict[str, float]:
+    """Run the validation split once -> mean metrics (``overflow/dropped``
+    is the total over the run).
+
+    ``dataset`` defaults to the config's synthetic split; ``params`` is a
+    ``state_dict`` (e.g. from ``convert.params_from_jax``), default a
+    seeded random initialisation."""
+    if cfg.name != "supervised_eventID":
+        raise NotImplementedError(
+            f"task {cfg.name!r} is not ported yet (ROADMAP: the other models "
+            "and tasks)"
+        )
+    if cfg.mode.weights_location:
+        raise NotImplementedError(
+            f"mode.weights_location: checkpoints are not restored yet "
+            f"({_LARCV_ITEM}); pass params= instead"
+        )
+    dev = resolve_device(cfg, device)
+    if dataset is None:
+        dataset = build_dataset(cfg, "val" if "val" in cfg.data.active else "test")
+    model = build_sparse_classifier(cfg)
+    if params is None:
+        init_parameters(model, cfg.run.seed)
+    else:
+        model.load_state_dict(params)
+    model.to(dev).eval()
+    dtype = feature_dtype(cfg)
+    grid = (
+        tuple(dataset.image_size()) if hasattr(dataset, "image_size")
+        else image_size(cfg)
+    )
+    cap0 = model.encoder.capacities[0]
+    opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
+    scheme = opt_cfg.loss_balance_scheme
+    class_weights = _class_weights(scheme, dev)
+    output_file = getattr(cfg.mode, "output_file", "")
+
+    bs = cfg.run.minibatch_size
+    n_batches = max(len(dataset) // bs, 1)
+    per_batch = []
+    outputs = {k: [] for k in OUTPUT_SHAPE}
+    for i in range(n_batches):
+        batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
+        st = larcv_batch_to_sparse_3d(batch["image"], grid, capacity=cap0, device=dev)
+        st = st.with_feats(st.feats.to(dtype))
+        labels = {k: torch.from_numpy(batch[k]).to(dev) for k in OUTPUT_SHAPE}
+        with torch.no_grad():
+            logits, dropped = model(st)
+            m = eval_metrics(logits, labels, dropped, scheme, class_weights)
+        per_batch.append({k: float(v) for k, v in m.items()})
+        if output_file:
+            for k in OUTPUT_SHAPE:
+                outputs[k].append(torch.softmax(logits[k], dim=-1).cpu().numpy())
+    mean = {
+        k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]
+    }
+    mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
+    logger.info("validation over %d batches: %s", n_batches, mean)
+    if output_file:
+        if str(output_file).endswith(".h5"):
+            raise NotImplementedError(
+                f"larcv-style .h5 output is not written yet ({_LARCV_ITEM})"
+            )
+        np.savez(output_file, **{k: np.concatenate(v) for k, v in outputs.items()})
+        logger.info("wrote softmax outputs to %s", output_file)
+    return mean

@@ -1,0 +1,90 @@
+"""The port stands alone: no module of it, nor chip_smoke.py, imports JAX,
+flax, optax or the JAX package; and its entry points refuse to fall back to
+the CPU unless asked."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "sparseeventid_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", "")
+              == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_has_modules():
+    assert len(PORT_FILES) > 20
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_no_jax_imports(rel):
+    for mod in _imported_modules(ROOT / rel):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{rel} imports {mod}"
+
+
+def test_validate_needs_cuda_unless_asked(monkeypatch):
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.train.evaluate import resolve_device, validate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config("synthetic", ["mode=inference"])
+    assert cfg.run.compute_mode.name == "CUDA"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validate(cfg)
+    for mode in ("TPU", "CUDA"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(load_config("synthetic", [f"run.compute_mode={mode}"]))
+    assert resolve_device(load_config("synthetic", ["run.compute_mode=CPU"])).type == "cpu"
+    assert resolve_device(cfg, device="cpu").type == "cpu"
+
+
+def test_cli_needs_cuda_unless_asked(monkeypatch):
+    from sparseeventid_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config-name", "synthetic", "mode=inference"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--config-name", "synthetic", "mode=train"])
+
+
+def test_unported_inputs_raise_naming_the_roadmap():
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.train.evaluate import validate
+
+    cfg = load_config("synthetic", ["mode=inference", "run.compute_mode=CPU",
+                                    "mode.weights_location=ckpt"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        validate(cfg)
+    cfg = load_config("dune3d", ["mode=inference", "run.compute_mode=CPU"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        validate(cfg)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from sparseeventid_tpu_torch.ops.window import kernels
+
+    x = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no window kernel"):
+        kernels.window_plan(x, torch.zeros((1, 4, 1), dtype=torch.int32,
+                                           device="meta"),
+                            torch.zeros((1,), dtype=torch.int32, device="meta"),
+                            window_r=160)
