@@ -15,9 +15,11 @@ Phases, one JSON line each; any failure exits non-zero:
   4. main     full-width dune3d inference (B=8, 50k-voxel cap, depth 5,
               filters 32->192, bf16) through train.evaluate.validate:
               finite loss and softmax, no dropped pairs, every kernel
-              launched and no plain version called; then one batch at fp32,
-              window kernels against the plain rulebook backend on the card
-  5. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
+              launched and no plain version called; a profiled batch
+  5. fp32     one batch at fp32, window kernels against the plain rulebook
+              backend on the card, and the same check on two planted
+              faults of the overflow sidecar, which it must catch
+  6. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/.
@@ -177,11 +179,10 @@ def phase_kernels(dataset):
 
     from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
     from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import engine as E
     from sparseeventid_tpu_torch.ops import rulebook as rb
     from sparseeventid_tpu_torch.ops.window import kernels as K
     from sparseeventid_tpu_torch.ops.window import query as Q
-    from sparseeventid_tpu_torch.ops.engine import _overflow_cap
-    from sparseeventid_tpu_torch.ops.window.engine import _compact_overflow
     from sparseeventid_tpu_torch.ops.window.sidecar import overflow_apply_batched
 
     dev = torch.device(DEVICE)
@@ -214,31 +215,40 @@ def phase_kernels(dataset):
         w = torch.randn((k, c, co), generator=gen, device=dev) / (k * c) ** 0.5
         return w.to(bf16).contiguous()
 
-    cases = []  # (label, table st, query st, ksz, strided, window_r, C, CO)
-    cases.append(("initial 5^3 1->32", st0, st0, (5, 5, 5), False,
+    cases = []  # (label, table st, ksz, strided, window_r, C, CO)
+    cases.append(("initial 5^3 1->32", st0, (5, 5, 5), False,
                   tuning.window_r_initial, 1, 32))
-    cases.append(("L0 series 3^3 32->32", st0, st0, (3, 3, 3), False,
+    cases.append(("L0 series 3^3 32->32", st0, (3, 3, 3), False,
                   tuning.for_level(0), 32, 32))
-    cases.append(("L5 series 3^3 192->192", levels[5], levels[5], (3, 3, 3),
-                  False, tuning.for_level(5), 192, 192))
-    cases.append(("L0 downsample 2^3 32->64", st0, levels[1], (2, 2, 2), True,
+    cases.append(("L5 series 3^3 192->192", levels[5], (3, 3, 3), False,
+                  tuning.for_level(5), 192, 192))
+    cases.append(("L0 downsample 2^3 32->64", st0, (2, 2, 2), True,
                   tuning.window_r_strided, 32, 64))
 
     results = {n: [] for n in REPLACES}
-    for label, tab, qst, ksz, strided, r, c, co in cases:
+    for label, tab, ksz, strided, r, c, co in cases:
+        # the plan as the main path builds it (ops.engine), list included
+        if strided:
+            qst, (plan, _), _ = E.build_downsample_plan(
+                tab, ksz, caps[1], backend=E.WINDOW, tuning=tuning)
+        else:
+            qst, plan = tab, E.build_series_plan(tab, ksz, backend=E.WINDOW,
+                                                 window_r=r)
+        require(plan.window_r == r, f"plan window {plan.window_r} at {label}")
         offs = rb.kernel_offsets(ksz, centered=not strided)
         keys = tab.keys()
         if strided:
             qkeys = Q.compute_strided_query_keys(qst, tab.grid_shape, ksz, offs)
-            qmeta = Q.compute_strided_query_meta(qst, tab.grid_shape, ksz, offs)
             full = rb.build_downsample_rulebook(tab, qst, ksz)
         else:
             qkeys = Q.compute_query_keys(qst, offs)
-            qmeta = Q.compute_query_meta(qst, offs)
             full = rb.build_submanifold_rulebook(tab, ksz)
-        dkeys = Q.key_deltas(tab.grid_shape, offs)
         pk = Q._padded_table(keys)
         k = len(offs)
+        # rows this run's data touches: active table rows, live query rows
+        n_tab = int(tab.n_active.sum())
+        n_q = int(qst.n_active.sum())
+        live_tiles = int(((qst.n_active + Q.TILE_T - 1) // Q.TILE_T).sum())
 
         # ---- window_plan: bit-equal on the real site sets
         args = (pk, qkeys, qst.n_active)
@@ -248,39 +258,49 @@ def phase_kernels(dataset):
         torch.cuda.synchronize()
         require(torch.equal(start, start_p) and torch.equal(uncov, uncov_p),
                 f"window_plan differs from its plain version at {label}")
+        require(torch.equal(start, plan.start),
+                f"window_plan differs from the engine's plan at {label}")
         ms = timed_ms(lambda: K.window_plan(*args, window_r=r,
                                             table_cap=tab.capacity))
         plain_ms = timed_ms(lambda: K.window_plan_plain(
             *args, window_r=r, table_cap=tab.capacity), iters=3, warmup=1)
         qf = qkeys.reshape(qkeys.shape[0], -1)
         lib_ms = timed_ms(lambda: torch.searchsorted(keys, qf))
-        b_ms, b_by = bound(nbytes(pk, qkeys, qst.n_active, start, uncov), 0)
+        # reads: the active keys, the live queries' keys; writes: start and
+        # uncovered in full (the function defines every entry)
+        b_ms, b_by = bound(
+            4 * n_tab + 4 * k * n_q + nbytes(qst.n_active, start, uncov), 0)
+        candidates = uncov.ne(0).sum(dim=(1, 2))
         results["window_plan"].append(dict(
             shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            uncovered=int(uncov.sum()),
+            uncovered=int(candidates.sum()),
         ))
 
-        # the plan's overflow list, as the engine compacts it
-        src, dst, kk, valid, dropped = _compact_overflow(
-            keys, qkeys, uncov, _overflow_cap(tab.capacity)
-        )
-        require(int(dropped.sum()) == 0, f"overflow list clamped at {label}")
+        # the plan's overflow list, as the engine compacted it
+        src, dst, kk, valid = plan.ov_src, plan.ov_dst, plan.ov_k, plan.ov_valid
+        require(int(plan.ov_dropped.sum()) == 0, f"overflow list clamped at {label}")
         n_ov = int(valid.sum())
         pairs_total = int(full.hit.sum())
         pairs_in = pairs_total - n_ov
+        occupancy = {
+            "list_width": valid.shape[1],
+            "candidates_max_per_event": int(candidates.max()),
+            "real_pairs_max_per_event": int(valid.sum(dim=1).max()),
+        }
 
         # ---- window_conv_apply: bit-equal on integer data
         w_int = _int_like((k, c, co), gen, dev, bf16)
         x_int = int_feats(tab, c)
-        cargs = (keys, x_int, qmeta, start, w_int, qst.n_active, dkeys)
+        cargs = (keys, x_int, plan.qmeta, start, w_int, qst.n_active, plan.dkeys)
         out = K.window_conv_apply(*cargs, window_r=r)
         out_p = K.window_conv_apply_plain(*cargs, window_r=r)
         torch.cuda.synchronize()
         require(torch.equal(out, out_p),
                 f"window_conv_apply differs from its plain version at {label}")
         x_real, w_real = real_feats(tab, c), real_w(k, c, co)
-        rargs = (keys, x_real, qmeta, start, w_real, qst.n_active, dkeys)
+        rargs = (keys, x_real, plan.qmeta, start, w_real, qst.n_active,
+                 plan.dkeys)
         err = (K.window_conv_apply(*rargs, window_r=r).float()
                - K.window_conv_apply_plain(*rargs, window_r=r).float()
                ).abs().max().item()
@@ -298,8 +318,13 @@ def phase_kernels(dataset):
             return torch.matmul(g, w2)
 
         lib_ms = timed_ms(library)
+        # reads: keys and features of the active table rows, the live
+        # queries' meta, the live tiles' starts, W; writes: the output in
+        # full (rows past the live ones are defined as 0)
+        nw1 = plan.qmeta.shape[1]
         b_ms, b_by = bound(
-            nbytes(keys, x_real, qmeta, start, w_real, out),
+            (4 + 2 * c) * n_tab + 4 * nw1 * n_q + 4 * k * live_tiles
+            + nbytes(qst.n_active, w_real, out),
             2.0 * pairs_in * c * co,
         )
         results["window_conv_apply"].append(dict(
@@ -310,7 +335,7 @@ def phase_kernels(dataset):
 
         # ---- sidecar on this plan's overflow list (C == 1: serial entry)
         name = "overflow_apply" if c == 1 else "overflow_apply_batched"
-        if name in results and (c == 1 or label.startswith("L0 series")):
+        if c == 1 or label.startswith("L0 series"):
             nb = K._ov_bound(valid)
 
             def side(base, x, w, kernel=True):
@@ -336,6 +361,7 @@ def phase_kernels(dataset):
                                 iters=3, warmup=1)
             bi, si = torch.nonzero(valid, as_tuple=True)
             target = bi * qst.capacity + dst[bi, si].long()
+            source = bi * tab.capacity + src[bi, si].long()
             rows = x_real[bi, src[bi, si].long()]
             wk = w_real[kk[bi, si].long()]
             flat = scratch.view(-1, co)
@@ -345,18 +371,22 @@ def phase_kernels(dataset):
                 flat.index_add_(0, target, contrib)
 
             lib_ms = timed_ms(library)
+            # reads: the valid flags of the walked prefix, (src, dst, k) of
+            # the valid entries, each distinct source row once, W; each
+            # distinct output row is read and written once (in place)
             b_ms, b_by = bound(
-                nbytes(src, dst, kk, valid, w_real)
-                + n_ov * (c + 2 * co) * 2,
+                int(nb.sum()) + 12 * n_ov + nbytes(nb, w_real)
+                + 2 * c * int(torch.unique(source).numel())
+                + 2 * 2 * co * int(torch.unique(target).numel()),
                 2.0 * n_ov * c * co,
             )
             results[name].append(dict(
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                entries=n_ov,
+                entries=n_ov, walked=int(nb.sum()),
             ))
         emit({"phase": "kernel", "shape": label, "window_r": r,
-              "pairs": pairs_total, "overflow_entries": n_ov,
+              "pairs": pairs_total, "overflow_entries": n_ov, **occupancy,
               "rows": {n: v[-1] for n, v in results.items()
                        if v and v[-1]["shape"] == label}})
     return results
@@ -394,8 +424,6 @@ def phase_main(dataset, out_dir: Path):
 
     from sparseeventid_tpu_torch.config import load_config
     from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
-    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
-    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
     from sparseeventid_tpu_torch.ops.window import kernels as K
     from sparseeventid_tpu_torch.ops.window import sidecar as S
     from sparseeventid_tpu_torch.train.evaluate import validate
@@ -442,45 +470,93 @@ def phase_main(dataset, out_dir: Path):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
     profile_one_batch(cfg, dataset)
+    return launches
 
-    # one batch at fp32: window kernels vs the plain rulebook backend.  At
-    # random init the eval-mode norms are identities and the final series'
-    # features reach ~1e3, so both checks scale atol with the reference's
-    # magnitude: fp32 sums in another order differ by ~1e-6 of it per level
-    # (tools/fp32_divergence.py).
+
+# fp32 agreement of the window kernels with the plain rulebook backend.
+# At random init the eval-mode norms are identities and the final series'
+# features reach ~1e3, so their check scales atol with the reference's
+# magnitude; the logits (a pool over the grid volume, then the heads) are
+# ~1e-2 and keep the absolute atol.  Planted faults show where the limits
+# sit: a fault must fail the feature check.
+FP32_RTOL = 1e-3
+FP32_ATOL_LOGITS = 1e-3
+FP32_ATOL_FEATS_PER_SCALE = 1e-3
+
+
+def phase_fp32(dataset) -> None:
+    import torch
+
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
+    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
+    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
+    from sparseeventid_tpu_torch.ops.window import engine as WE
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    feats, logits = {}, {}
-    batch = dataset.batch([0])
-    for backend in ("window", "xla"):
+    image = dataset.batch([0])["image"]
+
+    def model_of(backend):
         c32 = load_config("dune3d", [
             "mode=inference", "run.precision=float32",
             f"framework.sparse_backend={backend}",
         ])
-        model = init_parameters(build_sparse_classifier(c32), SEED).to(DEVICE).eval()
-        st = larcv_batch_to_sparse_3d(batch["image"], GRID,
+        return init_parameters(build_sparse_classifier(c32), SEED).to(DEVICE).eval()
+
+    def forward(model, what):
+        st = larcv_batch_to_sparse_3d(image, GRID,
                                       capacity=model.encoder.capacities[0],
                                       device=DEVICE)
+        got = {}
         hook = model.encoder.final_series.register_forward_hook(
-            lambda mod, inp, out, b=backend: feats.__setitem__(b, out.feats.cpu())
+            lambda mod, inp, out: got.__setitem__("feats", out.feats.cpu())
         )
         with torch.no_grad():
             lg, dropped = model(st)
         hook.remove()
-        require(int(dropped) == 0, f"{backend}: dropped {int(dropped)}")
-        logits[backend] = torch.cat([lg[k] for k in OUTPUT_SHAPE], dim=1).cpu()
-        del model, st
-    report = {"phase": "fp32_compare", "rtol": 1e-3}
-    for what, got in (("final_series_feats", feats), ("logits", logits)):
-        a, b = got["window"], got["xla"]
-        scale = b.abs().max().item()
-        diff = (a - b).abs().max().item()
-        require(torch.allclose(a, b, rtol=1e-3, atol=1e-3 * scale),
-                f"fp32 {what} differ by {diff} (scale {scale})")
-        report[what] = {"max_abs_diff": diff, "max_abs": scale,
-                        "atol": 1e-3 * scale}
+        require(int(dropped) == 0, f"{what}: dropped {int(dropped)}")
+        return got["feats"], torch.cat([lg[k] for k in OUTPUT_SHAPE], dim=1).cpu()
+
+    ref_feats, ref_logits = forward(model_of("xla"), "xla")
+    scale = ref_feats.abs().max().item()
+    limits = {"final_series_feats": FP32_ATOL_FEATS_PER_SCALE * scale,
+              "logits": FP32_ATOL_LOGITS}
+
+    def compare(feats, logits):
+        row = {}
+        for what, a, b in (("final_series_feats", feats, ref_feats),
+                           ("logits", logits, ref_logits)):
+            row[what] = {"max_abs_diff": (a - b).abs().max().item(),
+                         "max_abs": b.abs().max().item(),
+                         "atol": limits[what],
+                         "within": torch.allclose(a, b, rtol=FP32_RTOL,
+                                                  atol=limits[what])}
+        return row
+
+    window = model_of("window")
+    report = {"phase": "fp32_compare", "rtol": FP32_RTOL,
+              "sound": compare(*forward(window, "window"))}
+    for what, row in report["sound"].items():
+        require(row["within"], f"fp32 {what} differ: {row}")
+
+    # planted faults: out-of-window pairs lost, or counted twice (what a
+    # conv that ignored its window would do)
+    apply = WE._apply_overflow
+    faults = {
+        "sidecar_skipped": lambda out, table, w, plan: out,
+        "sidecar_twice": lambda out, table, w, plan: apply(
+            apply(out, table, w, plan), table, w, plan),
+    }
+    for fault, patched in faults.items():
+        WE._apply_overflow = patched
+        try:
+            report[fault] = compare(*forward(window, fault))
+        finally:
+            WE._apply_overflow = apply
+        require(not report[fault]["final_series_feats"]["within"],
+                f"fp32 check blind to the planted fault {fault}: {report[fault]}")
     emit(report)
-    return launches
 
 
 def main() -> int:
@@ -505,6 +581,7 @@ def main() -> int:
         dataset = make_dataset()
         rows = phase_kernels(dataset)
         launches = phase_main(dataset, out_dir)
+        phase_fp32(dataset)
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")

@@ -56,11 +56,12 @@ def _overflow_cap(capacity: int) -> int:
     hold only real out-of-window pairs (capacity // 6, at most 16384).  A
     list built on the device also holds the unmatched candidates of query
     tiles whose anchor block escaped the plan window, and at dune3d
-    occupancy those outnumber the real pairs 2-3x on the downsample plans:
-    ``tools/overflow_occupancy.py`` finds up to 0.40 x capacity candidates
-    per event on the level-0 downsample and 0.30 x on the initial 5^3 plan,
-    past the JAX caps.  The width costs no kernel time (the sidecar walks
-    only to the last valid entry), so the list is as wide as the level."""
+    occupancy those outnumber the real pairs 2-3x on the downsample plans,
+    and the candidates pass the JAX caps on the level-0 downsample and the
+    initial 5^3 plan (``chip_smoke.py`` prints the counts of each plan it
+    checks).  The width costs no kernel time (the sidecar walks only to the
+    last valid entry), so the list is as wide as the level.  This is the one
+    place the width is decided: the plan builders take it as an argument."""
     return max(256, capacity)
 
 

@@ -92,10 +92,13 @@ def build_submanifold_window_plan(
     st: SparseTensor,
     kernel_size,
     window_r: int,
-    overflow_cap: int = 2048,
+    overflow_cap: int,
     q_bound: int | None = None,
 ) -> WindowPlan:
-    """Plan of a submanifold conv (output sites == input sites)."""
+    """Plan of a submanifold conv (output sites == input sites).
+
+    ``overflow_cap`` is the overflow list's width; the model's policy for
+    it is ``ops.engine._overflow_cap``."""
     offs = kernel_offsets(kernel_size, centered=True)
     qkeys = compute_query_keys(st, offs)
     keys = st.keys()
@@ -118,7 +121,7 @@ def build_strided_window_plans(
     st: SparseTensor,
     skeleton: SparseTensor,
     stride,
-    overflow_cap: int = 2048,
+    overflow_cap: int,
     q_bound: int | None = None,
     rev_q_bound: int | None = None,
     tuning: WindowTuning = WindowTuning(),

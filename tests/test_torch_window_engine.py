@@ -13,6 +13,7 @@ from sparseeventid_tpu.ops.pallas import window_engine as jwe
 from sparseeventid_tpu.ops.rulebook import build_downsample_rulebook as jdr
 from sparseeventid_tpu.ops.rulebook import downsample_sites as jds
 from sparseeventid_tpu.ops.rulebook import kernel_offsets
+from sparseeventid_tpu_torch.ops import engine as teng
 from sparseeventid_tpu_torch.ops import rulebook as trb
 from sparseeventid_tpu_torch.ops.window import engine as twe
 from sparseeventid_tpu_torch.ops.window import query as tq
@@ -56,10 +57,36 @@ def test_strided_plans_bit_equal():
     skj = jds(sj, (2, 2, 2), 512)
     skt = trb.downsample_sites(st, (2, 2, 2), 512)
     fj, rj = jwe.build_strided_window_plans(sj, skj, (2, 2, 2), interpret=True)
-    ft, rt = twe.build_strided_window_plans(st, skt, (2, 2, 2))
+    ft, rt = twe.build_strided_window_plans(st, skt, (2, 2, 2),
+                                            overflow_cap=2048)
     assert (ft.window_r, rt.window_r) == (320, 160)
     _assert_plans_equal(ft, fj)
     _assert_plans_equal(rt, rj)
+
+
+@pytest.mark.parametrize("which", ["initial 5^3", "series 3^3", "downsample 2^3"])
+def test_engine_plans_are_level_wide_and_bit_equal(which):
+    """ops.engine sets the overflow-list width (the level capacity) and its
+    plans equal the JAX builders' given that width."""
+    coords, feats = random_coo(8, n=512, grid=(16, 16, 16), c=1, density=0.1)
+    sj, st = both(coords, feats, (16, 16, 16))
+    cap = teng._overflow_cap(st.capacity)
+    if which == "downsample 2^3":
+        _, (ft, rt), _ = teng.build_downsample_plan(
+            st, (2, 2, 2), 512, backend=teng.WINDOW)
+        fj, rj = jwe.build_strided_window_plans(
+            sj, jds(sj, (2, 2, 2), 512), (2, 2, 2), overflow_cap=cap,
+            interpret=True)
+        pairs = ((ft, fj), (rt, rj))
+    else:
+        ksz, r = ((5, 5, 5), 176) if which == "initial 5^3" else ((3, 3, 3), 160)
+        pt = teng.build_series_plan(st, ksz, backend=teng.WINDOW, window_r=r)
+        pj = jwe.build_submanifold_window_plan(
+            sj, ksz, overflow_cap=cap, interpret=True, window_r=r)
+        pairs = ((pt, pj),)
+    for pt, pj in pairs:
+        assert pt.ov_valid.shape[1] == cap == st.capacity
+        _assert_plans_equal(pt, pj)
 
 
 @pytest.mark.parametrize("ksz", [(3, 3, 3), (5, 5, 5)])
@@ -123,7 +150,8 @@ def test_window_submanifold_conv_matches_jax(integer, geometry):
         sj, jops.build_submanifold_rulebook(sj, (3, 3, 3)), jnp.asarray(w),
         jnp.asarray(bias),
     )
-    pt = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=r)
+    pt = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=r,
+                                           overflow_cap=2048)
     if geometry == "forced_overflow":
         assert int(pt.ov_valid.sum()) > 0
     with torch.no_grad():
@@ -157,7 +185,8 @@ def test_window_strided_conv_matches_jax(integer):
         jnp.asarray(w),
     )
     skt = trb.downsample_sites(st, (2, 2, 2), 512)
-    ft, rt = twe.build_strided_window_plans(st, skt, (2, 2, 2))
+    ft, rt = twe.build_strided_window_plans(st, skt, (2, 2, 2),
+                                            overflow_cap=2048)
     with torch.no_grad():
         got = twe.window_strided_conv(st, skt, ft, rt, torch.from_numpy(w)).feats
     if integer:
@@ -173,7 +202,8 @@ def test_window_strided_conv_matches_jax(integer):
 def test_window_conv_under_autograd_raises():
     coords, feats = random_coo(6, n=128, grid=(8, 8, 8), c=2, density=0.1)
     _, st = both(coords, feats, (8, 8, 8))
-    plan = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=160)
+    plan = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=160,
+                                             overflow_cap=2048)
     w = torch.zeros((27, 2, 4), requires_grad=True)
     with pytest.raises(NotImplementedError, match="slice 2"):
         twe.window_submanifold_conv(st, plan, w)
