@@ -7,19 +7,32 @@ Phases, one JSON line each; any failure exits non-zero:
 
   1. device   the card's name, count, and nvidia-smi's name and power limit
   2. build    every CUDA kernel of csrc/ built with nvcc (sm_90a), in parallel
-  3. kernel   each kernel against its plain PyTorch version on the card, at
-              the main path's shapes from one synthetic dune3d batch:
-              bit-equal on integer-valued bf16 data, max abs error on
-              real-valued data, and times (kernel, plain version, a one-call
-              PyTorch yardstick) beside the card's least time for the work
-  4. main     full-width dune3d inference (B=8, 50k-voxel cap, depth 5,
+  3. kernel   each kernel, forward and backward, against its plain PyTorch
+              version on the card, at the main path's shapes from one
+              synthetic dune3d batch: bit-equal on integer-valued bf16 data,
+              max abs error on real-valued data, and times (kernel, plain
+              version, a PyTorch yardstick) beside the card's least time
+  4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
+              of the window autograd Functions equal the plain rulebook
+              backend's autograd exactly (level-0 series plan and level-0
+              downsample plans, the latter also with a reverse window
+              narrow enough to fill the reverse list), and two planted
+              faults of the backward's overflow complement are caught
+  5. main     full-width dune3d inference (B=8, 50k-voxel cap, depth 5,
               filters 32->192, bf16) through train.evaluate.validate:
-              finite loss and softmax, no dropped pairs, every kernel
-              launched and no plain version called; a profiled batch
-  5. fp32     one batch at fp32, window kernels against the plain rulebook
-              backend on the card, and the same check on two planted
-              faults of the overflow sidecar, which it must catch
-  6. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
+              finite loss and softmax, no dropped pairs, every forward
+              kernel launched and no plain version called; a profiled batch
+  6. train    the supervised train step at the same width through
+              train.trainer.train (bf16, dropout on): one warm-up and three
+              timed steps; finite loss, no dropped pairs, a finite gradient
+              on every parameter and a non-zero one on every conv weight,
+              running statistics moved, the launch counts of every kernel
+              as expected; a profiled step
+  7. fp32     one batch at fp32, window kernels against the plain rulebook
+              backend on the card: forward features and logits, then every
+              parameter gradient of one train step; each check must also
+              catch two planted faults of the overflow sidecars
+  8. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/.
@@ -50,13 +63,36 @@ REPLACES = {
     "window_conv_apply": "sparseeventid_tpu/ops/pallas/window_conv.py:993",
     "overflow_apply_batched": "sparseeventid_tpu/ops/pallas/window_sidecar.py:266",
     "overflow_apply": "sparseeventid_tpu/ops/pallas/window_conv.py:1783",
+    "window_bwd_strided": "sparseeventid_tpu/ops/pallas/window_conv.py:1506",
+    "window_dw": "sparseeventid_tpu/ops/pallas/window_conv.py:1264",
+    "overflow_dw_batched": "sparseeventid_tpu/ops/pallas/window_sidecar.py:377",
+    "overflow_dw": "sparseeventid_tpu/ops/pallas/window_conv.py:1881",
 }
 SOURCES = {
     "window_plan": "sparseeventid_tpu_torch/csrc/window_plan.cu",
     "window_conv_apply": "sparseeventid_tpu_torch/csrc/window_conv.cu",
     "overflow_apply_batched": "sparseeventid_tpu_torch/csrc/overflow_apply.cu",
     "overflow_apply": "sparseeventid_tpu_torch/csrc/overflow_apply.cu",
+    "window_bwd_strided": "sparseeventid_tpu_torch/csrc/window_bwd.cu",
+    "window_dw": "sparseeventid_tpu_torch/csrc/window_dw.cu",
+    "overflow_dw_batched": "sparseeventid_tpu_torch/csrc/overflow_dw.cu",
+    "overflow_dw": "sparseeventid_tpu_torch/csrc/overflow_dw.cu",
 }
+# kernels the inference path launches; the others only the train step does
+FORWARD_KERNELS = ("window_plan", "window_conv_apply", "overflow_apply_batched",
+                   "overflow_apply")
+# launches per dune3d train step: 17 plans (1 initial + 6 series + 5 x 2
+# strided), 54 convs (1 + 48 + 5), each with a forward sidecar; the backward
+# runs the fused kernel for the 53 convs with C > 1 and window_dw for the
+# initial one, a dX sidecar for the 53 (the image needs no gradient) and a
+# dW sidecar for all 54
+LAUNCHES_PER_TRAIN_STEP = {
+    "window_plan": 17, "window_conv_apply": 54, "overflow_apply_batched": 106,
+    "overflow_apply": 1, "window_bwd_strided": 53, "window_dw": 1,
+    "overflow_dw_batched": 53, "overflow_dw": 1,
+}
+TRAIN_STEPS = 4  # one warm-up, three timed
+FP32_GRAD_EVENTS = 2  # the plain backend's fp32 backward keeps ~7 GB an event
 
 
 def emit(obj) -> None:
@@ -183,7 +219,11 @@ def phase_kernels(dataset):
     from sparseeventid_tpu_torch.ops import rulebook as rb
     from sparseeventid_tpu_torch.ops.window import kernels as K
     from sparseeventid_tpu_torch.ops.window import query as Q
-    from sparseeventid_tpu_torch.ops.window.sidecar import overflow_apply_batched
+    from sparseeventid_tpu_torch.ops.window.engine import _mirror_perm
+    from sparseeventid_tpu_torch.ops.window.sidecar import (
+        overflow_apply_batched,
+        overflow_dw_batched,
+    )
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -229,11 +269,12 @@ def phase_kernels(dataset):
     for label, tab, ksz, strided, r, c, co in cases:
         # the plan as the main path builds it (ops.engine), list included
         if strided:
-            qst, (plan, _), _ = E.build_downsample_plan(
+            qst, (plan, rev), _ = E.build_downsample_plan(
                 tab, ksz, caps[1], backend=E.WINDOW, tuning=tuning)
         else:
             qst, plan = tab, E.build_series_plan(tab, ksz, backend=E.WINDOW,
                                                  window_r=r)
+            rev = None
         require(plan.window_r == r, f"plan window {plan.window_r} at {label}")
         offs = rb.kernel_offsets(ksz, centered=not strided)
         keys = tab.keys()
@@ -385,6 +426,170 @@ def phase_kernels(dataset):
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 entries=n_ov, walked=int(nb.sum()),
             ))
+        # ---- backward kernels.  gy lives on the OUTPUT sites (qst).
+        gy_int = int_feats(qst, co)
+        gy_real = real_feats(qst, co)
+        nbr = full.neighbor_idx.long()  # [B, M, K] rows of tab per output row
+        hit4 = full.hit[..., None]
+        flat_rows = (nbr + torch.arange(tab.batch_size, device=dev)[:, None, None]
+                     * tab.capacity).reshape(-1)
+
+        def library_bwd(x, gy, w, want_dx=True):
+            """PyTorch formulation over the full rulebook: one gather and
+            one contraction for dW; one contraction and one index_add_ for
+            dX."""
+            xg = torch.gather(
+                x, 1, nbr.reshape(tab.batch_size, -1, 1).expand(-1, -1, c)
+            ).reshape(*nbr.shape, c) * hit4
+            dw = torch.einsum("bmkc,bmo->kco", xg, gy)
+            if not want_dx:
+                return dw
+            dxk = torch.einsum("bmo,kco->bmkc", gy, w) * hit4
+            dx = torch.zeros((tab.batch_size * tab.capacity, c), dtype=x.dtype,
+                             device=dev)
+            return dx.index_add_(0, flat_rows, dxk.reshape(-1, c)), dw
+
+        nw1 = plan.qmeta.shape[1]
+        if c > 1:
+            # kernel 5: the fused backward.  Submanifold: window_bwd_subm on
+            # the forward plan; strided: window_bwd_strided on the reverse
+            # plan (queries are the INPUT rows, the table is gy's).
+            bp = rev if strided else plan
+            perm = None if strided else _mirror_perm(plan.offsets)
+            bkeys = qst.keys()
+
+            def fused(x, gy, w, kernel=True):
+                wk = w if strided else w[torch.as_tensor(perm, device=dev)].contiguous()
+                f = K.window_bwd_strided if kernel else K.window_bwd_strided_plain
+                return f(bkeys, gy, x, bp.qmeta, bp.start, wk, bp.q_active,
+                         bp.dkeys, window_r=bp.window_r)
+
+            before = K.window_bwd_strided.launches
+            if not strided:  # the thin call the engine makes
+                got = K.window_bwd_subm(
+                    bkeys, x_int, gy_int, bp.qmeta, bp.start, w_int,
+                    bp.q_active, perm, bp.dkeys, window_r=bp.window_r)
+            else:
+                got = fused(x_int, gy_int, w_int)
+            require(K.window_bwd_strided.launches == before + 1,
+                    "window_bwd_strided did not count its launch")
+            want = fused(x_int, gy_int, w_int, kernel=False)
+            torch.cuda.synchronize()
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                    f"window_bwd_strided differs from its plain version at {label}")
+            require(float(got[1].abs().sum()) > 0, f"dw is all 0 at {label}")
+            rk, rp = fused(x_real, gy_real, w_real), fused(x_real, gy_real,
+                                                           w_real, False)
+            err = max((rk[0].float() - rp[0].float()).abs().max().item(),
+                      (rk[1] - rp[1]).abs().max().item())
+            ms = timed_ms(lambda: fused(x_real, gy_real, w_real))
+            plain_ms = timed_ms(lambda: fused(x_real, gy_real, w_real, False),
+                                iters=2, warmup=1)
+            lib_ms = timed_ms(lambda: library_bwd(x_real, gy_real, w_real),
+                              iters=3, warmup=1)
+            # in-window pairs of the plan the kernel walks
+            n_rev_ov = int(bp.ov_valid.sum())
+            pairs_bwd = pairs_total - n_rev_ov
+            rows_x = int(tab.n_active.sum())  # query side: the input rows
+            rows_gy = int(qst.n_active.sum())
+            tiles_x = int(((tab.n_active + Q.TILE_T - 1) // Q.TILE_T).sum())
+            # reads: keys and gy of the active gy rows, x and meta of the
+            # live input rows, the live tiles' starts, W; writes: dx in
+            # full (dead rows are defined as 0) and dw
+            b_ms, b_by = bound(
+                (4 + 2 * co) * rows_gy
+                + (2 * c + 4 * bp.qmeta.shape[1]) * rows_x + 4 * k * tiles_x
+                + nbytes(bp.q_active, w_real, rk[0], rk[1]),
+                4.0 * pairs_bwd * c * co,
+            )
+            results["window_bwd_strided"].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                pairs_in_window=pairs_bwd,
+                entry="window_bwd_strided" if strided else "window_bwd_subm",
+            ))
+        else:
+            # kernel 6: window_dw over the forward plan (the initial conv)
+            dargs = (keys, x_int, plan.qmeta, start, gy_int, qst.n_active,
+                     plan.dkeys)
+            got = K.window_dw(*dargs, window_r=r)
+            want = K.window_dw_plain(*dargs, window_r=r)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"window_dw differs from its plain version at {label}")
+            require(float(got.abs().sum()) > 0, f"dw is all 0 at {label}")
+            rargs_dw = (keys, x_real, plan.qmeta, start, gy_real, qst.n_active,
+                        plan.dkeys)
+            err = (K.window_dw(*rargs_dw, window_r=r)
+                   - K.window_dw_plain(*rargs_dw, window_r=r)).abs().max().item()
+            ms = timed_ms(lambda: K.window_dw(*rargs_dw, window_r=r))
+            plain_ms = timed_ms(lambda: K.window_dw_plain(*rargs_dw, window_r=r),
+                                iters=2, warmup=1)
+            lib_ms = timed_ms(
+                lambda: library_bwd(x_real, gy_real, w_real, want_dx=False),
+                iters=3, warmup=1)
+            b_ms, b_by = bound(
+                (4 + 2 * c) * n_tab + (4 * nw1 + 2 * co) * n_q
+                + 4 * k * live_tiles + nbytes(qst.n_active, got),
+                2.0 * pairs_in * c * co,
+            )
+            results["window_dw"].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                pairs_in_window=pairs_in,
+            ))
+
+        # ---- dW sidecar on the list the backward walks: the forward list
+        # with src and dst swapped for the fused submanifold backward, the
+        # forward list as it is for C == 1
+        dname = "overflow_dw" if c == 1 else "overflow_dw_batched"
+        if c == 1 or label.startswith("L0 series"):
+            nb = K._ov_bound(valid)
+            s_, d_ = (src, dst) if c == 1 else (dst, src)
+
+            def side_dw(x, gy, kernel=True):
+                sargs = (x, gy, k, s_, d_, kk, valid, nb)
+                if not kernel:
+                    return K.overflow_dw_plain(*sargs)
+                return K.overflow_dw(*sargs) if c == 1 else overflow_dw_batched(*sargs)
+
+            got = side_dw(x_int, gy_int)
+            want = side_dw(x_int, gy_int, kernel=False)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"{dname} differs from its plain version at {label}")
+            require(float(got.abs().sum()) > 0, f"sidecar dw is all 0 at {label}")
+            err = (side_dw(x_real, gy_real)
+                   - side_dw(x_real, gy_real, False)).abs().max().item()
+            ms = timed_ms(lambda: side_dw(x_real, gy_real))
+            plain_ms = timed_ms(lambda: side_dw(x_real, gy_real, False),
+                                iters=3, warmup=1)
+            bi, si = torch.nonzero(valid, as_tuple=True)
+            xs = x_real[bi, s_[bi, si].long()]
+            gs = gy_real[bi, d_[bi, si].long()]
+            kidx = kk[bi, si].long()
+            acc = torch.zeros((k, c, co), dtype=torch.float32, device=dev)
+
+            def library_dw():
+                acc.index_add_(0, kidx, (xs[:, :, None] * gs[:, None, :]).float())
+
+            lib_ms = timed_ms(library_dw)
+            xrows = bi * tab.capacity + s_[bi, si].long()
+            grows = bi * qst.capacity + d_[bi, si].long()
+            # reads: the valid flags of the walked prefix, (src, dst, k) of
+            # the valid entries, each distinct x and gy row once; writes dw
+            b_ms, b_by = bound(
+                int(nb.sum()) + 12 * n_ov + nbytes(nb, got)
+                + 2 * c * int(torch.unique(xrows).numel())
+                + 2 * co * int(torch.unique(grows).numel()),
+                2.0 * n_ov * c * co,
+            )
+            results[dname].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                entries=n_ov, walked=int(nb.sum()),
+            ))
+        del gy_int, gy_real, nbr, hit4, flat_rows
         emit({"phase": "kernel", "shape": label, "window_r": r,
               "pairs": pairs_total, "overflow_entries": n_ov, **occupancy,
               "rows": {n: v[-1] for n, v in results.items()
@@ -392,30 +597,298 @@ def phase_kernels(dataset):
     return results
 
 
-def profile_one_batch(cfg, dataset) -> None:
-    """Device time by kernel over one bf16 batch through validate(), and
-    the share of the wall time the device was busy."""
+def _swap_dx_list(apply, is_dx_call):
+    """The dX sidecar as it was once wrong: the twin list TRANSPOSED and the
+    weights left unpermuted, instead of the list as it is with permuted
+    weights.  ``is_dx_call(out, table, plan)`` picks the calls to break."""
+    import dataclasses
+
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window.engine import _mirror_perm
+
+    def patched(out, table, w, plan):
+        if is_dx_call(out, table, plan):
+            perm = torch.as_tensor(_mirror_perm(plan.offsets), device=w.device)
+            plan = dataclasses.replace(plan, ov_src=plan.ov_dst,
+                                       ov_dst=plan.ov_src)
+            w = w[perm].contiguous()  # perm is an involution: undoes it
+        return apply(out, table, w, plan)
+
+    return patched
+
+
+def _no_dw_sidecar(x, gy, src, dst, plan):
+    """The dW sidecar left out."""
+    import torch
+
+    return torch.zeros((plan.num_offsets, x.shape[-1], gy.shape[-1]),
+                       device=x.device)
+
+
+def phase_grad_check(dataset) -> None:
+    """dX and dW of the window autograd Functions against the plain rulebook
+    backend's autograd, integer-valued fp32 data: exact equality, then two
+    planted faults that the equality must catch."""
+    import torch
+
+    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
+    from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import conv as C
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import engine as WE
+    from sparseeventid_tpu_torch.ops.window import query as Q
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    caps = capacity_schedule(MAX_VOXELS, 5, 0.5, 1024)
+    st = larcv_batch_to_sparse_3d(dataset.batch([0])["image"], GRID,
+                                  capacity=caps[0], device=dev)
+    tuning = Q.WindowTuning()
+    c_in, c_out = 32, 48  # unequal, so the planted fault can tell dX's call
+
+    def ints(shape, mask=None):
+        x = _int_like(shape, gen, dev, torch.float32)
+        return x if mask is None else x * mask[..., None]
+
+    def grads(conv, x0, w0, gy):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        conv(st.with_feats(x), w).feats.backward(gy)
+        torch.cuda.synchronize()
+        return x.grad, w.grad
+
+    x0 = ints((st.batch_size, st.capacity, c_in), st.row_mask())
+    plan = E.build_series_plan(st, (3, 3, 3), backend=E.WINDOW,
+                               window_r=tuning.for_level(0))
+    book = rb.build_submanifold_rulebook(st, (3, 3, 3))
+    sk, (fwd, rev), _ = E.build_downsample_plan(
+        st, (2, 2, 2), caps[1], backend=E.WINDOW, tuning=tuning)
+    dbook = rb.build_downsample_rulebook(st, sk, (2, 2, 2))
+    # at the main path's reverse window nearly every parent is in-window;
+    # a 64-row window puts tens of thousands of pairs on the reverse list
+    _, (nfwd, nrev), _ = E.build_downsample_plan(
+        st, (2, 2, 2), caps[1], backend=E.WINDOW,
+        tuning=Q.WindowTuning(window_r=64))
+    entries = {"series": int(plan.ov_valid.sum()),
+               "down_fwd": int(fwd.ov_valid.sum()),
+               "down_rev": int(rev.ov_valid.sum()),
+               "down_rev_narrow": int(nrev.ov_valid.sum())}
+    require(min(entries["series"], entries["down_fwd"],
+                entries["down_rev_narrow"]) > 1000,
+            f"overflow lists are too short to test the sidecars: {entries}")
+    for p in (plan, fwd, rev, nfwd, nrev):
+        require(int(p.ov_dropped.sum()) == 0, "an overflow list was clamped")
+    cases = {
+        "submanifold": (
+            lambda s, w: WE.window_submanifold_conv(s, plan, w),
+            lambda s, w: C.submanifold_conv(s, book, w),
+            ints((27, c_in, c_out)),
+            ints((st.batch_size, st.capacity, c_out), st.row_mask()),
+        ),
+        "strided": (
+            lambda s, w: WE.window_strided_conv(s, sk, fwd, rev, w),
+            lambda s, w: C.strided_conv(s, sk, dbook, w),
+            ints((8, c_in, c_out)),
+            ints((sk.batch_size, sk.capacity, c_out), sk.row_mask()),
+        ),
+    }
+    cases["strided_narrow_reverse"] = (
+        lambda s, w: WE.window_strided_conv(s, sk, nfwd, nrev, w),
+        *cases["strided"][1:],
+    )
+    report = {"phase": "grad_check", "dtype": "float32", "entries": entries}
+    want = {}
+    for name, (win, ref, w0, gy) in cases.items():
+        got = grads(win, x0, w0, gy)
+        want[name] = grads(ref, x0, w0, gy)
+        same = [torch.equal(g, r) for g, r in zip(got, want[name])]
+        report[name] = {"dx_equal": same[0], "dw_equal": same[1],
+                        "dx_abs_sum": float(got[0].abs().sum()),
+                        "dw_abs_sum": float(got[1].abs().sum())}
+        require(all(same), f"{name} conv gradients differ from the plain "
+                f"backend's: dx, dw equal = {same}")
+        require(report[name]["dw_abs_sum"] > 0, f"{name}: dw is all 0")
+
+    # planted faults, on the submanifold case
+    win, _, w0, gy = cases["submanifold"]
+    faults = {
+        "dw_sidecar_skipped": ("_overflow_dw", _no_dw_sidecar, 1),
+        # c_in != c_out tells the dX call from the forward's
+        "twin_list_transposed": ("_apply_overflow", _swap_dx_list(
+            WE._apply_overflow,
+            lambda out, table, p: out.shape[-1] == c_in != table.shape[-1]), 0),
+    }
+    for fault, (attr, patched, broken) in faults.items():
+        sound = getattr(WE, attr)
+        setattr(WE, attr, patched)
+        try:
+            got = grads(win, x0, w0, gy)
+        finally:
+            setattr(WE, attr, sound)
+        same = [torch.equal(g, r) for g, r in zip(got, want["submanifold"])]
+        report[fault] = {"dx_equal": same[0], "dw_equal": same[1],
+                         "max_abs_diff": float(
+                             (got[broken] - want["submanifold"][broken]).abs().max())}
+        require(not same[broken],
+                f"the exact gradient check is blind to the fault {fault}")
+    emit(report)
+
+
+def train_config(extra=()):
+    from sparseeventid_tpu_torch.config import load_config
+
+    return load_config("dune3d", [
+        "mode=train", f"run.minibatch_size={BATCH}", f"run.seed={SEED}",
+        "framework.sparse_backend=window", "data.mode=serial_access",
+        *extra,
+    ])
+
+
+def _kernel_counters():
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import sidecar as S
+
+    wrappers = [K.window_plan, K.window_conv_apply, K.overflow_apply,
+                S.overflow_apply_batched, K.window_bwd_strided, K.window_dw,
+                S.overflow_dw_batched, K.overflow_dw]
+    plains = [K.window_plan_plain, K.window_conv_apply_plain,
+              K.overflow_apply_plain, K.window_bwd_strided_plain,
+              K.window_dw_plain, K.overflow_dw_plain]
+    return wrappers, plains
+
+
+def phase_train(dataset):
+    """The train step at full width through the trainer's loop -> the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    cfg = train_config(["run.precision=bfloat16",
+                        f"mode.iterations={TRAIN_STEPS}"])
+    require(cfg.head.dropout > 0, "the train phase runs with dropout on")
+    wrappers, plains = _kernel_counters()
+    for f in wrappers:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = train(cfg, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in wrappers}
+    plain_calls = {f.__name__: f.calls for f in plains}
+    history, state = run.history, run.state
+    require(len(history) == TRAIN_STEPS == state.step, "steps taken")
+    for i, m in enumerate(history):
+        require(np.isfinite(m["loss/loss"]), f"step {i}: loss not finite: {m}")
+        require(m["overflow/dropped"] == 0, f"step {i}: dropped pairs: {m}")
+    expected = {k: v * TRAIN_STEPS for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+    require(launches == expected,
+            f"launch counts {launches} differ from the expected {expected}")
+    require(all(v == 0 for v in plain_calls.values()),
+            f"plain version called on the train path: {plain_calls}")
+    # every update moved Adam's moments by that step's gradient: a moment
+    # that is finite shows finite gradients, one that is 0 everywhere a
+    # gradient that was 0 at every step
+    conv_weights, zero_grad, not_finite = 0, [], []
+    for name, p in state.model.named_parameters():
+        moments = state.optimizer.state[p]
+        if not (torch.isfinite(moments["exp_avg"]).all()
+                and torch.isfinite(moments["exp_avg_sq"]).all()
+                and torch.isfinite(p).all()):
+            not_finite.append(name)
+        if p.dim() == 3:
+            conv_weights += 1
+            if float(moments["exp_avg_sq"].max()) == 0.0:
+                zero_grad.append(name)
+    require(not not_finite, f"gradient or parameter not finite: {not_finite}")
+    require(conv_weights == 55 and not zero_grad,
+            f"{conv_weights} conv weights, gradient 0 on {zero_grad}")
+    stats = [(n, b) for n, b in state.model.named_buffers()]
+    still = [n for n, b in stats
+             if torch.equal(b, torch.zeros_like(b) if n.endswith("mean")
+                            else torch.ones_like(b))]
+    require(stats and not still, f"running statistics did not move: {still}")
+    timed = [m["time/step_s"] for m in history[1:]]
+    steps_per_s = len(timed) / sum(timed)
+    emit({"phase": "train", "steps": TRAIN_STEPS, "step_s": [m["time/step_s"]
+                                                            for m in history],
+          "loss": [m["loss/loss"] for m in history],
+          "lr": [m["opt/lr"] for m in history],
+          "launches": launches, "launches_per_step": LAUNCHES_PER_TRAIN_STEP,
+          "plain_calls": plain_calls, "conv_weights": conv_weights,
+          "running_stats": len(stats),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(json.dumps({"train_steps_per_s": steps_per_s,
+                      "train_events_per_s": steps_per_s * BATCH,
+                      "timed_steps": len(timed), "batch": BATCH,
+                      "precision": "bfloat16"}), flush=True)
+    profile_train_step(dataset)
+    return launches
+
+
+def _device_profile(fn):
+    """Run ``fn`` under torch.profiler -> (wall ms, device-busy ms, the 15
+    kernels with the most device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sparseeventid_tpu_torch.train.evaluate import validate
-
-    one = CachedDataset(GRID, {0: dataset.batch([0])}, BATCH)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        validate(cfg, dataset=one, device=DEVICE)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    return wall_ms, busy_ms, [
+        {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+         "count": e.count} for e in top]
+
+
+def profile_train_step(dataset) -> None:
+    """Device time by kernel over one bf16 train step (input preparation
+    included, as in the loop), and the share of the wall time the device
+    was busy.  The step before it warms the new model up."""
+    import torch
+
+    from sparseeventid_tpu_torch.train.evaluate import feature_dtype, prepare_batch
+    from sparseeventid_tpu_torch.train.trainer import build_training
+
+    cfg = train_config(["run.precision=bfloat16"])
+    dev = torch.device(DEVICE)
+    state, step, _ = build_training(cfg, N_BATCHES, None, dev)
+    generator = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cap0 = state.model.encoder.capacities[0]
+
+    def one_step(first):
+        st, labels = prepare_batch(dataset.batch([first]), GRID, cap0,
+                                   feature_dtype(cfg), dev)
+        return float(step(st, labels, generator)["loss/loss"])
+
+    one_step(0)
+    wall_ms, busy_ms, top = _device_profile(lambda: one_step(BATCH))
+    emit({"phase": "profile_train", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+          "top_kernels": top})
+
+
+def profile_one_batch(cfg, dataset) -> None:
+    """Device time by kernel over one bf16 batch through validate(), and
+    the share of the wall time the device was busy."""
+    from sparseeventid_tpu_torch.train.evaluate import validate
+
+    one = CachedDataset(GRID, {0: dataset.batch([0])}, BATCH)
+    wall_ms, busy_ms, top = _device_profile(
+        lambda: validate(cfg, dataset=one, device=DEVICE))
     emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / wall_ms,
-          "top_kernels": [
-              {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-               "count": e.count} for e in top]})
+          "device_busy_share": busy_ms / wall_ms, "top_kernels": top})
 
 
 def phase_main(dataset, out_dir: Path):
@@ -424,8 +897,6 @@ def phase_main(dataset, out_dir: Path):
 
     from sparseeventid_tpu_torch.config import load_config
     from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
-    from sparseeventid_tpu_torch.ops.window import kernels as K
-    from sparseeventid_tpu_torch.ops.window import sidecar as S
     from sparseeventid_tpu_torch.train.evaluate import validate
 
     out_file = out_dir / "chip_smoke_softmax.npz"
@@ -434,10 +905,8 @@ def phase_main(dataset, out_dir: Path):
         f"run.minibatch_size={BATCH}", "framework.sparse_backend=window",
         f"run.seed={SEED}", f"mode.output_file={out_file}",
     ])
-    counters = [K.window_plan, K.window_conv_apply, K.overflow_apply,
-                S.overflow_apply_batched]
-    plains = [K.window_plan_plain, K.window_conv_apply_plain,
-              K.overflow_apply_plain]
+    wrappers, plains = _kernel_counters()
+    counters = [f for f in wrappers if f.__name__ in FORWARD_KERNELS]
     # warm-up on the first batch (allocator, cuBLAS handles), then the run
     warm = CachedDataset(GRID, {0: dataset.batch([0])}, BATCH)
     validate(cfg, dataset=warm, device=DEVICE)
@@ -559,6 +1028,117 @@ def phase_fp32(dataset) -> None:
     emit(report)
 
 
+# fp32 agreement of one train step's parameter gradients, window kernels
+# against the plain rulebook backend: per tensor, the L2 norm of the
+# difference over the L2 norm of the reference gradient, and the worst
+# tensor decides.  The conv biases ahead of a batch norm are left out: their
+# true gradient is 0 and both backends return rounding noise (1e-11 of the
+# largest gradient).  At random init the backward passes 53 batch norms in
+# train mode, each a cancellation, so float32 summation order alone moves a
+# tensor's gradient by several 1e-3 of its norm (the plain backend does not
+# repeat its own gradients bit for bit either: its gather's backward adds
+# atomically); the planted faults move it by 0.2 and more.
+FP32_GRAD_LIMIT = 0.04
+
+
+def phase_fp32_grad(dataset) -> None:
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
+    from sparseeventid_tpu_torch.ops.window import engine as WE
+    from sparseeventid_tpu_torch.train.evaluate import prepare_batch
+    from sparseeventid_tpu_torch.train.losses import multi_head_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    batch = {k: v[:FP32_GRAD_EVENTS] for k, v in dataset.batch([0]).items()}
+
+    def model_of(backend):
+        cfg = train_config(["run.precision=float32", "head.dropout=0.0",
+                            f"framework.sparse_backend={backend}"])
+        model = init_parameters(build_sparse_classifier(cfg), SEED)
+        return cfg, model.to(dev).train()
+
+    in_backward = {"on": False}  # read by the twin-list fault below
+
+    def gradients(cfg, model, what):
+        model.zero_grad(set_to_none=True)
+        st, labels = prepare_batch(batch, GRID, model.encoder.capacities[0],
+                                   torch.float32, dev)
+        logits, dropped = model(st)
+        scheme = cfg.mode.optimizer.loss_balance_scheme
+        loss, _ = multi_head_loss(logits, labels, scheme)
+        in_backward["on"] = True
+        try:
+            loss.backward()
+        finally:
+            in_backward["on"] = False
+        torch.cuda.synchronize()
+        require(int(dropped) == 0, f"{what}: dropped {int(dropped)}")
+        loss = float(loss.detach())
+        require(np.isfinite(loss), f"{what}: loss {loss}")
+        return loss, {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    cfg_x, model_x = model_of("xla")
+    ref_loss, ref = gradients(cfg_x, model_x, "xla")
+    del model_x
+    torch.cuda.empty_cache()
+    compared = [n for n in ref if not n.endswith(".b")]
+    require(all(float(ref[n].norm()) > 0 for n in compared),
+            "a reference gradient is all 0")
+
+    def compare(loss, grads):
+        worst, worst_name, worst_max = 0.0, "", 0.0
+        for name, g in grads.items():
+            if name.endswith(".b"):  # a conv bias ahead of a batch norm
+                continue
+            diff = g - ref[name]
+            rel = float(diff.norm()) / float(ref[name].norm())
+            if rel > worst:
+                worst, worst_name = rel, name
+            worst_max = max(worst_max, float(diff.abs().max())
+                            / float(ref[name].abs().max()))
+        return {"loss": loss, "worst_rel_l2": worst, "worst_tensor": worst_name,
+                "worst_rel_max_abs": worst_max,
+                "within": worst <= FP32_GRAD_LIMIT}
+
+    cfg_w, model_w = model_of("window")
+    report = {"phase": "fp32_grad_compare", "events": FP32_GRAD_EVENTS,
+              "limit": FP32_GRAD_LIMIT, "tensors": len(compared),
+              "tensors_left_out": len(ref) - len(compared), "ref_loss": ref_loss,
+              "sound": compare(*gradients(cfg_w, model_w, "window"))}
+
+    # the twin-list fault breaks the dX sidecar of the series convs only in
+    # the backward: the forward's calls of the same function stay sound
+    faults = {
+        "dw_sidecar_skipped": ("_overflow_dw", _no_dw_sidecar),
+        "twin_list_transposed": ("_apply_overflow", _swap_dx_list(
+            WE._apply_overflow,
+            lambda out, table, p: in_backward["on"] and len(p.offsets) == 27)),
+    }
+
+    def run_fault(fault):
+        attr, patched = faults[fault]
+        sound = getattr(WE, attr)
+        setattr(WE, attr, patched)
+        try:
+            return gradients(cfg_w, model_w, fault)
+        finally:
+            setattr(WE, attr, sound)
+
+    for fault in faults:
+        report[fault] = compare(*run_fault(fault))
+    emit(report)
+    require(report["sound"]["within"], f"fp32 gradients differ: {report['sound']}")
+    for fault in faults:
+        require(not report[fault]["within"],
+                f"fp32 gradient check blind to the planted fault {fault}: "
+                f"{report[fault]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -580,8 +1160,11 @@ def main() -> int:
         phase_build()
         dataset = make_dataset()
         rows = phase_kernels(dataset)
+        phase_grad_check(dataset)
         launches = phase_main(dataset, out_dir)
+        train_launches = phase_train(dataset)
         phase_fp32(dataset)
+        phase_fp32_grad(dataset)
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")
@@ -592,7 +1175,13 @@ def main() -> int:
             )
             kernels.append(dict(
                 name=kname, route="cuda", source=SOURCES[kname],
-                replaces=REPLACES[kname], launches=launches[kname],
+                replaces=REPLACES[kname],
+                # the count of the path that is the kernel's own: the
+                # inference run for the forward kernels, the train run for
+                # the backward ones
+                launches=(launches[kname] if kname in FORWARD_KERNELS
+                          else train_launches[kname]),
+                launches_train=train_launches[kname],
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

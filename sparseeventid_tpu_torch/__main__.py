@@ -1,9 +1,9 @@
 """Command line: ``python -m sparseeventid_tpu_torch --config-name <recipe>
-mode=inference [overrides]``.
+mode=train|inference [overrides]``.
 
-Only inference mode is ported so far.  It runs on the card unless
-``run.compute_mode=CPU`` is given, and prints the mean metrics as one JSON
-line.
+Both modes run on the card unless ``run.compute_mode=CPU`` is given.
+Inference prints the mean metrics as one JSON line; train prints the metrics
+of its last step.
 """
 
 from __future__ import annotations
@@ -30,14 +30,19 @@ def main(argv=None) -> dict:
         args.config_name, args.overrides,
         recipes_dir=Path(args.recipes_dir) if args.recipes_dir else None,
     )
-    if cfg.mode.name != ModeKind.inference:
-        raise NotImplementedError(
-            f"mode={cfg.mode.name.name} is not ported yet (ROADMAP: the "
-            "trainer and CLI train mode); use mode=inference"
-        )
-    from .train.evaluate import validate
+    if cfg.mode.name == ModeKind.train:
+        from .train.trainer import train
 
-    metrics = validate(cfg)
+        metrics = train(cfg).history[-1]
+    elif cfg.mode.name == ModeKind.inference:
+        from .train.evaluate import validate
+
+        metrics = validate(cfg)
+    else:
+        raise NotImplementedError(
+            f"mode={cfg.mode.name.name} is not ported yet (ROADMAP: the full "
+            "trainer); use mode=train or mode=inference"
+        )
     print(json.dumps(metrics, sort_keys=True))
     return metrics
 

@@ -25,38 +25,17 @@
 // 128 matched rows and W[k] in shared memory, 32 input channels at a time,
 // as a small GEMM with a 4 x 4 register tile per thread.  Accumulation is
 // float32 over k and C; the output is cast once to the feature type.
-// Key arithmetic is in 64 bits: base + dkey is only formed where the bit
-// is set, but no signed int32 overflow can occur either way.
+// The matching itself (validity bit, 64-bit key arithmetic, the search in
+// the window) is window_match.cuh's, shared with the backward kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_match.cuh"
 
 namespace {
 
-constexpr int kTile = 128;  // queries per tile (the plan's tile)
-constexpr int kCo = 32;     // output channels per block
-constexpr int kCc = 32;     // input channels staged per step
-constexpr int kThreads = 256;
-constexpr int kMaxK = 128;
+using namespace seid;
 
-struct Offsets {
-  int dkey[kMaxK];  // key delta per query column
-  int col[kMaxK];   // query column (meta bit and start column) per slot
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
+constexpr int kCo = kChunk;  // output channels per block
+constexpr int kCc = kChunk;  // input channels staged per step
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -78,9 +57,7 @@ conv_kernel(const int* __restrict__ keys, int n_in,
   const int ty = t >> 3;  // output rows ty + 32 i
   const long long m0 = (long long)tile * kTile;
 
-  int live = (q_active[b] + kTile - 1) / kTile;
-  const int bound_tiles = (m_bound + kTile - 1) / kTile;
-  live = live < bound_tiles ? live : bound_tiles;
+  const int live = live_tiles(q_active[b], m_bound);
 
   float acc[4][4];
 #pragma unroll
@@ -100,22 +77,9 @@ conv_kernel(const int* __restrict__ keys, int n_in,
       const int col = offs.col[k];
       if (t < kTile) {
         int row = -1;
-        if (q_in) {
-          const int word = meta_b[(long long)(1 + (col >> 5)) * M + mq];
-          if ((word >> (col & 31)) & 1) {
-            const long long q = (long long)base + offs.dkey[col];
-            const long long s = start_t[col];
-            long long lo = s > 0 ? s : 0;
-            long long end = s + window_r;
-            end = end < n_in ? end : n_in;
-            long long hi = end;
-            while (lo < hi) {  // lower bound of q in keys[s, end)
-              const long long mid = (lo + hi) >> 1;
-              if ((long long)keys_b[mid] < q) lo = mid + 1; else hi = mid;
-            }
-            if (lo < end && (long long)keys_b[lo] == q) row = (int)lo;
-          }
-        }
+        if (q_in)
+          row = match_row(keys_b, n_in, meta_b, M, mq, base, col,
+                          offs.dkey[col], start_t[col], window_r);
         nbr[t] = row;
       }
       const int any = __syncthreads_or(t < kTile && nbr[t] >= 0);
@@ -173,10 +137,7 @@ int launch(const void* keys, int n_in, const void* feats, int C,
            void* stream) {
   if (K > kMaxK) return (int)cudaErrorInvalidValue;
   Offsets offs;
-  for (int k = 0; k < K; ++k) {
-    offs.dkey[k] = dkeys[k];
-    offs.col[k] = cols[k];
-  }
+  fill_offsets(offs, dkeys, cols, K);
   const int m_tiles = (M + kTile - 1) / kTile;
   if (m_tiles > 0 && B > 0 && CO > 0) {
     dim3 grid(m_tiles, B, (CO + kCo - 1) / kCo);

@@ -22,8 +22,9 @@ from .heads import MultiHeadOutput, pool_encoded
 
 
 class SparseEventClassifier(nn.Module):
-    """forward(st) -> (logits keyed by label, dropped), ``dropped`` being
-    the encoder's count of sites and conv pairs lost to static capacities."""
+    """forward(st, generator=None) -> (logits keyed by label, dropped),
+    ``dropped`` being the encoder's count of sites and conv pairs lost to
+    static capacities; ``generator`` feeds the heads' dropout in training."""
 
     def __init__(
         self,
@@ -50,9 +51,11 @@ class SparseEventClassifier(nn.Module):
             head_dropout,
         )
 
-    def forward(self, st: SparseTensor) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    def forward(
+        self, st: SparseTensor, generator: torch.Generator | None = None
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         encoded, dropped = self.encoder(st)
-        return self.head(pool_encoded(encoded)), dropped
+        return self.head(pool_encoded(encoded), generator), dropped
 
 
 def build_sparse_classifier(

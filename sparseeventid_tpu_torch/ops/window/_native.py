@@ -23,7 +23,10 @@ from typing import Dict
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = ROOT / "build" / "torch_kernels"
-SOURCES = ("window_plan", "window_conv", "overflow_apply")
+SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
+           "window_dw", "overflow_dw")
+# headers a source includes: an edited header rebuilds every source
+HEADERS = ("window_match.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,9 +40,15 @@ SIGNATURES = {
                              _P, _I, _I, _P, _P, _P, _I, _P],
     "seid_overflow_apply_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                                 _P, _P, _I, _I, _P],
+    "seid_window_bwd_f32": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I,
+                            _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    "seid_overflow_dw_f32": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                             _P, _I, _I, _P],
 }
-SIGNATURES["seid_window_conv_bf16"] = SIGNATURES["seid_window_conv_f32"]
-SIGNATURES["seid_overflow_apply_bf16"] = SIGNATURES["seid_overflow_apply_f32"]
+# window_dw takes gy where the conv takes w, and returns dw for out
+SIGNATURES["seid_window_dw_f32"] = SIGNATURES["seid_window_conv_f32"]
+for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
+    SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -57,6 +66,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in HEADERS:
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:12]}.so"
 

@@ -1,5 +1,5 @@
 """Window-conv engine: plan construction on the device, the exact overflow
-sidecar, and the forward convolutions built on the kernels
+sidecar, and the convolutions built on the kernels, forward and backward
 (JAX counterpart: ``sparseeventid_tpu/ops/pallas/window_engine.py``).
 
 A ``WindowPlan`` is built once per site set and reused by every conv on it:
@@ -7,9 +7,10 @@ in-window pairs go through ``window_conv_apply``; the rare out-of-window
 pairs are resolved exactly through a compacted (src, dst, k) list applied by
 the sidecar, with a drop count if the list's static capacity is hit.
 
-Only the forwards exist in this package so far; the backward kernels are
-the next slice of the port, and calling a conv where autograd would need
-its gradient raises.
+The backwards need no scatter.  A submanifold conv's transpose is the
+mirrored-offset conv on the same plan, a strided conv's walks the reverse
+plan (one live offset column per input row); each has its own overflow
+complement, applied by the dX and dW sidecars.
 """
 
 from __future__ import annotations
@@ -21,7 +22,16 @@ import torch
 
 from ..rulebook import _lookup, kernel_offsets
 from ..sparse_tensor import SparseTensor
-from .kernels import _ov_bound, overflow_apply, window_conv_apply, window_plan
+from .kernels import (
+    _ov_bound,
+    overflow_apply,
+    overflow_dw,
+    window_bwd_strided,
+    window_bwd_subm,
+    window_conv_apply,
+    window_dw,
+    window_plan,
+)
 from .query import (
     INVALID_QUERY,
     WindowTuning,
@@ -34,7 +44,7 @@ from .query import (
     compute_strided_query_meta,
     key_deltas,
 )
-from .sidecar import overflow_apply_batched
+from .sidecar import overflow_apply_batched, overflow_dw_batched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,13 +196,14 @@ def _apply_overflow(out, table, w, plan: WindowPlan) -> torch.Tensor:
     return overflow_apply(*args)
 
 
-def _forward_only(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "window-engine backward kernels land in slice 2 of the port "
-            "(ROADMAP: the supervised train step); run the forward under "
-            "torch.no_grad() or use framework.sparse_backend=xla"
-        )
+def _overflow_dw(x, gy, src, dst, plan: WindowPlan) -> torch.Tensor:
+    """dW sidecar over the plan's list with the given (src, dst) roles:
+    float32 [K, C, CO].  Entry points split on C as the forward's do."""
+    args = (x, gy, plan.num_offsets, src, dst, plan.ov_k, plan.ov_valid,
+            _ov_bound(plan.ov_valid))
+    if x.shape[-1] != 1:
+        return overflow_dw_batched(*args)
+    return overflow_dw(*args)
 
 
 def _windowed(feats, keys, plan: WindowPlan, w) -> torch.Tensor:
@@ -203,15 +214,124 @@ def _windowed(feats, keys, plan: WindowPlan, w) -> torch.Tensor:
     return _apply_overflow(out, feats, w, plan)
 
 
+def _mirror_perm(offsets) -> Tuple[int, ...]:
+    """perm[k] = the slot of -offsets[k] (an involution for centered
+    kernels)."""
+    offs = [tuple(o) for o in offsets]
+    lookup = {o: i for i, o in enumerate(offs)}
+    return tuple(lookup[tuple(-v for v in o)] for o in offs)
+
+
+class _SubmWindowConv(torch.autograd.Function):
+    """Submanifold conv on one plan.  ``w`` is already in the feature type;
+    the returned dW is rounded to that type, as the JAX package's is."""
+
+    @staticmethod
+    def forward(ctx, feats, w, keys, plan: WindowPlan):
+        ctx.save_for_backward(feats, w, keys)
+        ctx.plan = plan
+        # the sidecar adds in place on the kernel's fresh output
+        return _windowed(feats, keys, plan, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        feats, w, keys = ctx.saved_tensors
+        plan = ctx.plan
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        perm = _mirror_perm(plan.offsets)
+        perm_t = torch.as_tensor(perm, device=w.device)
+        gy = gy.to(feats.dtype).contiguous()
+        w_t = w.transpose(1, 2)
+        fused = feats.shape[-1] != 1
+        dx = dw = None
+        # The dX pass (fused or not) covers the MIRROR image of the forward
+        # in-window set: pair (a -> b, k) iff the forward window covered
+        # its twin (b -> a, perm[k]).  Its complement is therefore the
+        # forward overflow list itself, each entry (src, dst, kk) standing
+        # for the missing pair (dst <- src, perm[kk]), which adds
+        # w_t[perm[kk]] gy[src] to dx[dst]: the list UNtransposed with
+        # permuted weights.  Transposing the list instead would count twice
+        # every pair whose twin was in-window.
+        if fused:
+            # one kernel gathers gy through the forward plan once and gives
+            # both cotangents; its dW is indexed by perm[k]
+            dx, dw = window_bwd_subm(
+                keys, feats, gy, plan.qmeta, plan.start, w, plan.q_active,
+                perm, plan.dkeys, window_r=plan.window_r, q_bound=plan.q_bound,
+            )
+        elif need_dx:
+            # C == 1 (the initial conv): mirrored query columns, transposed
+            # weights
+            dx = window_conv_apply(
+                keys, gy, plan.qmeta, plan.start, w_t.contiguous(),
+                plan.q_active, plan.dkeys, kmap=perm,
+                window_r=plan.window_r, q_bound=plan.q_bound,
+            )
+        if need_dx:
+            dx = _apply_overflow(dx, gy, w_t[perm_t].contiguous(), plan)
+        if need_dw and fused:
+            # the mirrored set's complement adds x[dst] (outer) gy[src] to
+            # dW[perm[kk]]: src and dst swapped, then the [perm] reorder
+            dw = dw + _overflow_dw(feats, gy, plan.ov_dst, plan.ov_src, plan)
+            dw = dw[perm_t]
+        elif need_dw:
+            # window_dw walks the forward in-window set, so the forward
+            # list as it is completes it
+            dw = window_dw(
+                keys, feats, plan.qmeta, plan.start, gy, plan.q_active,
+                plan.dkeys, window_r=plan.window_r, q_bound=plan.q_bound,
+            )
+            dw = dw + _overflow_dw(feats, gy, plan.ov_src, plan.ov_dst, plan)
+        return (
+            dx if need_dx else None,
+            dw.to(w.dtype) if need_dw else None,
+            None, None,
+        )
+
+
+class _StridedWindowConv(torch.autograd.Function):
+    """Strided conv (filter == stride): the forward walks the forward plan,
+    the backward the reverse plan over ``gy`` at the output sites."""
+
+    @staticmethod
+    def forward(ctx, feats, w, keys_in, keys_out, fwd: WindowPlan,
+                rev: WindowPlan):
+        ctx.save_for_backward(feats, w, keys_out)
+        ctx.rev = rev
+        return _windowed(feats, keys_in, fwd, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        feats, w, keys_out = ctx.saved_tensors
+        rev = ctx.rev
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        gy = gy.to(feats.dtype).contiguous()
+        dx, dw = window_bwd_strided(
+            keys_out, gy, feats, rev.qmeta, rev.start, w, rev.q_active,
+            rev.dkeys, window_r=rev.window_r, q_bound=rev.q_bound,
+        )
+        if need_dx:
+            dx = _apply_overflow(dx, gy, w.transpose(1, 2).contiguous(), rev)
+        if need_dw:
+            # reverse entries read gy[src] into input row dst
+            dw = dw + _overflow_dw(feats, gy, rev.ov_dst, rev.ov_src, rev)
+        return (
+            dx if need_dx else None,
+            dw.to(w.dtype) if need_dw else None,
+            None, None, None, None,
+        )
+
+
 def window_submanifold_conv(
     st: SparseTensor,
     plan: WindowPlan,
     w: torch.Tensor,
     bias: torch.Tensor | None = None,
 ) -> SparseTensor:
-    """Forward of ops.conv.submanifold_conv on the windowed engine."""
-    _forward_only(st.feats, w, *(() if bias is None else (bias,)))
-    out = _windowed(st.feats, st.keys(), plan, w.to(st.feats.dtype).contiguous())
+    """ops.conv.submanifold_conv on the windowed engine."""
+    out = _SubmWindowConv.apply(
+        st.feats, w.to(st.feats.dtype).contiguous(), st.keys(), plan
+    )
     if bias is not None:
         out = out + bias.to(out.dtype)
     return st.with_feats(torch.where(st.row_mask()[..., None], out, 0))
@@ -224,14 +344,12 @@ def window_strided_conv(
     rev_plan: WindowPlan,
     w: torch.Tensor,
 ) -> SparseTensor:
-    """Forward of ops.conv.strided_conv on the windowed engine; the reverse
-    plan serves the backward."""
-    del rev_plan
-    _forward_only(st.feats, w)
-    out = _windowed(
-        st.feats, st.keys(), fwd_plan, w.to(st.feats.dtype).contiguous()
+    """ops.conv.strided_conv on the windowed engine; the reverse plan serves
+    the backward."""
+    out = _StridedWindowConv.apply(
+        st.feats, w.to(st.feats.dtype).contiguous(), st.keys(),
+        skeleton.keys(), fwd_plan, rev_plan,
     )
     return skeleton.with_feats(
         torch.where(skeleton.row_mask()[..., None], out, 0)
     )
-

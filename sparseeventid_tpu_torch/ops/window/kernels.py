@@ -9,8 +9,10 @@ kernel to the plain version.  Each wrapper counts its kernel launches in
 ``<plain>.calls``, plain integers that a caller may reset.
 
 JAX counterparts (``sparseeventid_tpu/ops/pallas/window_conv.py``):
-``window_plan`` (:607), ``window_conv_apply`` (:993), ``overflow_apply``
-(:1783) and ``_ov_bound`` (:1722).
+``window_plan`` (:607), ``window_conv_apply`` (:993), ``window_dw`` (:1264),
+``window_bwd_subm`` (:1365), ``window_bwd_strided`` (:1506),
+``overflow_apply`` (:1783), ``overflow_dw`` (:1881) and ``_ov_bound``
+(:1722).
 """
 
 from __future__ import annotations
@@ -58,6 +60,20 @@ def _check(t: torch.Tensor, name: str, dtype=None, ndim=None) -> None:
         raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _float_dtype(t: torch.Tensor, what: str) -> torch.dtype:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: unsupported dtype {t.dtype}")
+    return t.dtype
+
+
+def _offset_args(dkeys, kmap):
+    """(K, host int arrays of the key deltas and the slot -> column map)."""
+    k = len(dkeys)
+    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
+    arr = ctypes.c_int * k
+    return k, arr(*[int(d) for d in dkeys]), arr(*cols)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -176,6 +192,45 @@ def _query_rows_bound(m: int, q_bound: int | None) -> int:
     return min(m, _round_up(q_bound, TILE_T))
 
 
+def _matched_rows(keys, qmeta, start, q_active, dkeys, kmap, window_r,
+                  q_bound):
+    """Per kernel slot, the in-window match of every query row: yields
+    (slot, found bool[B, M], table row i64[B, M], 0 where not found).  The
+    one plain definition of the pair set the kernels compute; its
+    complement is the plan's overflow list."""
+    _, _, m = qmeta.shape
+    n_in = keys.shape[1]
+    k = len(dkeys)
+    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
+    mb = _query_rows_bound(m, q_bound)
+    rows_m = torch.arange(m, device=keys.device)
+    tile = rows_m // TILE_T
+    row_ok = (tile[None, :] < _live_tiles(q_active, mb)[:, None]) & (
+        rows_m < mb
+    )[None, :]
+    keys64 = keys.long().contiguous()
+    base = qmeta[:, 0, :].long()
+    for kk, col in enumerate(cols):
+        word = qmeta[:, 1 + col // 32, :]
+        live = ((word >> (col % 32)) & 1) != 0
+        q = base + int(dkeys[col])
+        s = start[:, tile, col].long()
+        lb = torch.searchsorted(keys64, q.contiguous())
+        at = torch.gather(keys64, 1, lb.clamp(max=n_in - 1))
+        found = (
+            live & row_ok & (lb >= s) & (lb < s + window_r) & (lb < n_in)
+            & (at == q)
+        )
+        yield kk, found, torch.where(found, lb, 0)
+
+
+def _gather_matched(table, found, rows) -> torch.Tensor:
+    """float32 [B, M, C]: the matched table rows, 0 where not found."""
+    c = table.shape[-1]
+    g = torch.gather(table, 1, rows[..., None].expand(-1, -1, c)).float()
+    return torch.where(found[..., None], g, 0.0)
+
+
 def window_conv_apply_plain(
     keys: torch.Tensor,
     feats: torch.Tensor,
@@ -194,35 +249,11 @@ def window_conv_apply_plain(
     window, then a gather and a float32 matmul."""
     window_conv_apply_plain.calls += 1
     b, _, m = qmeta.shape
-    k = len(dkeys)
-    c = feats.shape[-1]
-    n_in = keys.shape[1]
-    dev = feats.device
-    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
-    mb = _query_rows_bound(m, q_bound)
-    rows_m = torch.arange(m, device=dev)
-    tile = rows_m // TILE_T
-    row_ok = (tile[None, :] < _live_tiles(q_active, mb)[:, None]) & (
-        rows_m < mb
-    )[None, :]
-    keys64 = keys.long().contiguous()
-    base = qmeta[:, 0, :].long()
-    acc = torch.zeros((b, m, w.shape[-1]), dtype=torch.float32, device=dev)
-    for kk, col in enumerate(cols):
-        word = qmeta[:, 1 + col // 32, :]
-        live = ((word >> (col % 32)) & 1) != 0
-        q = base + int(dkeys[col])
-        s = start[:, tile, col].long()
-        lb = torch.searchsorted(keys64, q.contiguous())
-        at = torch.gather(keys64, 1, lb.clamp(max=n_in - 1))
-        found = (
-            live & row_ok & (lb >= s) & (lb < s + window_r) & (lb < n_in)
-            & (at == q)
-        )
-        rows = torch.where(found, lb, 0)
-        g = torch.gather(feats, 1, rows[..., None].expand(-1, -1, c)).float()
-        g = torch.where(found[..., None], g, 0.0)
-        acc += torch.matmul(g, w[kk].float())
+    acc = torch.zeros((b, m, w.shape[-1]), dtype=torch.float32,
+                      device=feats.device)
+    for kk, found, rows in _matched_rows(keys, qmeta, start, q_active, dkeys,
+                                         kmap, window_r, q_bound):
+        acc += torch.matmul(_gather_matched(feats, found, rows), w[kk].float())
     return acc.to(feats.dtype)
 
 
@@ -250,13 +281,11 @@ def window_conv_apply(
             keys, feats, qmeta, start, w, q_active, dkeys, kmap,
             window_r=window_r, q_bound=q_bound,
         )
+    dtype = _float_dtype(feats, "window_conv_apply")
     b, nw1, m = qmeta.shape
-    k = len(dkeys)
     n_in, c = feats.shape[1], feats.shape[2]
     co = w.shape[-1]
-    dtype = feats.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"window_conv_apply: unsupported dtype {dtype}")
+    k, dk, cols = _offset_args(dkeys, kmap)
     _check(keys, "keys", torch.int32, 2)
     _check(feats, "feats", dtype, 3)
     _check(qmeta, "qmeta", torch.int32, 3)
@@ -267,21 +296,194 @@ def window_conv_apply(
         raise ValueError("window_conv_apply: inconsistent shapes")
     if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
         raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
-    cols = list(range(k)) if kmap is None else [int(x) for x in kmap]
     out = torch.empty((b, m, co), dtype=dtype, device=feats.device)
-    arr = ctypes.c_int * k
     name = "seid_window_conv_bf16" if dtype == torch.bfloat16 else "seid_window_conv_f32"
     fn = getattr(_native.lib("window_conv"), name)
     err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
              _ptr(start), start.shape[1], k, _ptr(w), co, _ptr(q_active),
              _query_rows_bound(m, q_bound), int(window_r), _ptr(out),
-             arr(*[int(d) for d in dkeys]), arr(*cols), b, _stream(feats))
+             dk, cols, b, _stream(feats))
     window_conv_apply.launches += 1
     _native.check(err, "window_conv_apply")
     return out
 
 
 window_conv_apply.launches = 0
+
+
+# --------------------------------------------------------------------------
+# window_bwd_strided / window_bwd_subm: dX and dW from one gather of gy
+# --------------------------------------------------------------------------
+
+def window_bwd_strided_plain(
+    keys_out, gy, feats, rq, rs, w, r_active, dkeys, kmap=None, *,
+    window_r: int, q_bound: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`window_bwd_strided`: per offset one gather of
+    the matched ``gy`` rows, used for dx (a float32 matmul with w[k]^T,
+    summed over k, cast once) and for dw (a float32 einsum with x)."""
+    window_bwd_strided_plain.calls += 1
+    b, _, m = rq.shape
+    k, c, co = w.shape
+    x32 = feats.float()
+    dx = torch.zeros((b, m, c), dtype=torch.float32, device=feats.device)
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    for kk, found, rows in _matched_rows(keys_out, rq, rs, r_active, dkeys,
+                                         kmap, window_r, q_bound):
+        g = _gather_matched(gy, found, rows)
+        dx += torch.matmul(g, w[kk].float().t())
+        dw[kk] = torch.einsum("bmc,bmo->co", x32, g)
+    return dx.to(feats.dtype), dw
+
+
+window_bwd_strided_plain.calls = 0
+
+
+def window_bwd_strided(
+    keys_out: torch.Tensor,  # i32[B, N_out] sorted keys of the gy table
+    gy: torch.Tensor,  # [B, N_out, CO] output cotangent, the feature type
+    feats: torch.Tensor,  # [B, N_in, C] forward input
+    rq: torch.Tensor,  # i32[B, 1+nw, N_in] query meta, one query per INPUT row
+    rs: torch.Tensor,  # i32[B, n_tiles, K] window starts
+    w: torch.Tensor,  # [K, C, CO], the feature type
+    r_active: torch.Tensor,  # i32[B] live input rows
+    dkeys: Sequence[int],
+    kmap: Sequence[int] | None = None,
+    *,
+    window_r: int,
+    q_bound: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (dx [B, N_in, C] in the feature type, dw float32 [K, C, CO] summed
+    over the batch) over the in-window pairs of the plan:
+    dx[t] = sum_k w[k] gy[n(t, k)],  dw[k] = sum_t x[t] (outer) gy[n(t, k)].
+    Dead tiles and rows past ``q_bound`` give dx = 0.  ``window_r`` must be
+    the plan's."""
+    if not _use_kernel(keys_out, gy, feats, rq, rs, w, r_active):
+        return window_bwd_strided_plain(
+            keys_out, gy, feats, rq, rs, w, r_active, dkeys, kmap,
+            window_r=window_r, q_bound=q_bound,
+        )
+    dtype = _float_dtype(feats, "window_bwd_strided")
+    b, nw1, m = rq.shape
+    n_out, co = gy.shape[1], gy.shape[2]
+    c = feats.shape[2]
+    k, dk, cols = _offset_args(dkeys, kmap)
+    _check(keys_out, "keys_out", torch.int32, 2)
+    _check(gy, "gy", dtype, 3)
+    _check(feats, "feats", dtype, 3)
+    _check(rq, "rq", torch.int32, 3)
+    _check(rs, "rs", torch.int32, 3)
+    _check(w, "w", dtype, 3)
+    _check(r_active, "r_active", torch.int32, 1)
+    if (w.shape != (k, c, co) or keys_out.shape != (b, n_out)
+            or feats.shape[:2] != (b, m) or gy.shape[0] != b):
+        raise ValueError("window_bwd_strided: inconsistent shapes")
+    if rs.shape[2] != k or rs.shape[1] < _cdiv(m, TILE_T):
+        raise ValueError(f"rs {tuple(rs.shape)} does not fit M={m}, K={k}")
+    dx = torch.empty((b, m, c), dtype=dtype, device=feats.device)
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    name = "seid_window_bwd_bf16" if dtype == torch.bfloat16 else "seid_window_bwd_f32"
+    fn = getattr(_native.lib("window_bwd"), name)
+    err = fn(_ptr(keys_out), n_out, _ptr(gy), co, _ptr(feats), c, _ptr(rq),
+             nw1 - 1, m, _ptr(rs), rs.shape[1], k, _ptr(w), _ptr(r_active),
+             _query_rows_bound(m, q_bound), int(window_r), _ptr(dx), _ptr(dw),
+             dk, cols, b, _stream(feats))
+    window_bwd_strided.launches += 1
+    _native.check(err, "window_bwd_strided")
+    return dx, dw
+
+
+window_bwd_strided.launches = 0
+
+
+def window_bwd_subm(
+    keys, feats, gy, qmeta, start, w, q_active, perm: Sequence[int],
+    dkeys: Sequence[int], *, window_r: int, q_bound: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused submanifold backward on the FORWARD plan: output sites equal
+    input sites, and the forward pair (i <- j, k) is the twin of
+    (j <- i, perm[k]), so this is :func:`window_bwd_strided` with w[perm].
+    -> (dx, dw_mirror); dW = (dw_mirror + twin sidecar)[perm]."""
+    perm_t = torch.as_tensor([int(p) for p in perm], device=w.device)
+    return window_bwd_strided(
+        keys, gy, feats, qmeta, start, w[perm_t].contiguous(), q_active, dkeys,
+        window_r=window_r, q_bound=q_bound,
+    )
+
+
+# --------------------------------------------------------------------------
+# window_dw
+# --------------------------------------------------------------------------
+
+def window_dw_plain(
+    keys, feats, qmeta, start, gy, q_active, dkeys, kmap=None, *,
+    window_r: int, q_bound: int | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`window_dw`: per offset, the matched table
+    rows contracted with ``gy`` over batch and rows in float32."""
+    window_dw_plain.calls += 1
+    k, c, co = len(dkeys), feats.shape[-1], gy.shape[-1]
+    gy32 = gy.float()
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    for kk, found, rows in _matched_rows(keys, qmeta, start, q_active, dkeys,
+                                         kmap, window_r, q_bound):
+        dw[kk] = torch.einsum(
+            "bmc,bmo->co", _gather_matched(feats, found, rows), gy32
+        )
+    return dw
+
+
+window_dw_plain.calls = 0
+
+
+def window_dw(
+    keys: torch.Tensor,  # i32[B, N_in] sorted keys of the table
+    feats: torch.Tensor,  # [B, N_in, C] table features
+    qmeta: torch.Tensor,  # i32[B, 1+nw, M]
+    start: torch.Tensor,  # i32[B, n_tiles, K]
+    gy: torch.Tensor,  # [B, M, CO] output cotangent, the feature type
+    q_active: torch.Tensor,  # i32[B]
+    dkeys: Sequence[int],
+    kmap: Sequence[int] | None = None,
+    *,
+    window_r: int,
+    q_bound: int | None = None,
+) -> torch.Tensor:
+    """-> dw float32 [K, C, CO] = sum over the in-window pairs of the plan
+    of x[src] (outer) gy[dst].  ``window_r`` must be the plan's."""
+    if not _use_kernel(keys, feats, qmeta, start, gy, q_active):
+        return window_dw_plain(
+            keys, feats, qmeta, start, gy, q_active, dkeys, kmap,
+            window_r=window_r, q_bound=q_bound,
+        )
+    dtype = _float_dtype(feats, "window_dw")
+    b, nw1, m = qmeta.shape
+    n_in, c = feats.shape[1], feats.shape[2]
+    co = gy.shape[2]
+    k, dk, cols = _offset_args(dkeys, kmap)
+    _check(keys, "keys", torch.int32, 2)
+    _check(feats, "feats", dtype, 3)
+    _check(qmeta, "qmeta", torch.int32, 3)
+    _check(start, "start", torch.int32, 3)
+    _check(gy, "gy", dtype, 3)
+    _check(q_active, "q_active", torch.int32, 1)
+    if keys.shape != (b, n_in) or gy.shape[:2] != (b, m) or feats.shape[0] != b:
+        raise ValueError("window_dw: inconsistent shapes")
+    if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
+        raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    name = "seid_window_dw_bf16" if dtype == torch.bfloat16 else "seid_window_dw_f32"
+    fn = getattr(_native.lib("window_dw"), name)
+    err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
+             _ptr(start), start.shape[1], k, _ptr(gy), co, _ptr(q_active),
+             _query_rows_bound(m, q_bound), int(window_r), _ptr(dw), dk, cols,
+             b, _stream(feats))
+    window_dw.launches += 1
+    _native.check(err, "window_dw")
+    return dw
+
+
+window_dw.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -340,9 +542,7 @@ def launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound):
     b, m, co = base.shape
     k, c, _ = w.shape
     n, s = table.shape[1], src.shape[1]
-    dtype = table.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"overflow_apply: unsupported dtype {dtype}")
+    dtype = _float_dtype(table, "overflow_apply")
     _check(base, "base", dtype, 3)
     _check(table, "table", dtype, 3)
     _check(w, "w", dtype, 3)
@@ -385,3 +585,74 @@ def overflow_apply(
 
 
 overflow_apply.launches = 0
+
+
+# --------------------------------------------------------------------------
+# overflow sidecar of the weight gradient
+# --------------------------------------------------------------------------
+
+def overflow_dw_plain(x, gy, k, src, dst, kk, valid, n_bound=None):
+    """Plain version of :func:`overflow_dw`: the entries' outer products in
+    float32, summed per offset."""
+    overflow_dw_plain.calls += 1
+    c, co = x.shape[-1], gy.shape[-1]
+    if n_bound is None:
+        n_bound = _ov_bound(valid)
+    idx = torch.arange(src.shape[1], device=src.device)
+    ok = valid & (idx[None, :] < n_bound[:, None])
+    bi, si = torch.nonzero(ok, as_tuple=True)
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=x.device)
+    if bi.numel() == 0:
+        return dw
+    xs = x[bi, src[bi, si].long()].float()  # [E, C]
+    gs = gy[bi, dst[bi, si].long()].float()  # [E, CO]
+    return dw.index_add_(0, kk[bi, si].long(), xs[:, :, None] * gs[:, None, :])
+
+
+overflow_dw_plain.calls = 0
+
+
+def launch_overflow_dw_kernel(x, gy, k, src, dst, kk, valid, n_bound):
+    """The dW sidecar kernel (csrc/overflow_dw.cu) -> float32 [K, C, CO]."""
+    dtype = _float_dtype(x, "overflow_dw")
+    b, n, c = x.shape
+    m, co = gy.shape[1], gy.shape[2]
+    s = src.shape[1]
+    _check(x, "x", dtype, 3)
+    _check(gy, "gy", dtype, 3)
+    for name, t in (("src", src), ("dst", dst), ("kk", kk), ("n_bound", n_bound)):
+        _check(t, name, torch.int32)
+    _check(valid, "valid", torch.bool, 2)
+    if gy.shape[0] != b or src.shape[0] != b:
+        raise ValueError("overflow_dw: inconsistent shapes")
+    dw = torch.zeros((k, c, co), dtype=torch.float32, device=x.device)
+    name = "seid_overflow_dw_bf16" if dtype == torch.bfloat16 else "seid_overflow_dw_f32"
+    fn = getattr(_native.lib("overflow_dw"), name)
+    err = fn(_ptr(dw), int(k), _ptr(x), n, c, _ptr(gy), m, co, _ptr(src),
+             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b, _stream(x))
+    _native.check(err, "overflow_dw")
+    return dw
+
+
+def overflow_dw(
+    x: torch.Tensor,  # [B, N, C] table features
+    gy: torch.Tensor,  # [B, M, CO] output cotangent, the table's type
+    k: int,
+    src: torch.Tensor,  # i32[B, S]
+    dst: torch.Tensor,  # i32[B, S]
+    kk: torch.Tensor,  # i32[B, S]
+    valid: torch.Tensor,  # bool[B, S]
+    n_bound: torch.Tensor | None = None,  # i32[B]; default _ov_bound(valid)
+) -> torch.Tensor:
+    """-> float32 [K, C, CO]: dw[kk] += x[src] (outer) gy[dst] over the
+    valid pairs of every batch element."""
+    if n_bound is None:
+        n_bound = _ov_bound(valid)
+    if not _use_kernel(x, gy, src, dst, kk, valid, n_bound):
+        return overflow_dw_plain(x, gy, k, src, dst, kk, valid, n_bound)
+    out = launch_overflow_dw_kernel(x, gy, k, src, dst, kk, valid, n_bound)
+    overflow_dw.launches += 1
+    return out
+
+
+overflow_dw.launches = 0

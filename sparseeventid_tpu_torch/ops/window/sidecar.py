@@ -1,18 +1,25 @@
-"""Batched overflow sidecar entry point (JAX counterpart:
-``sparseeventid_tpu/ops/pallas/window_sidecar.py:266``).
+"""Batched overflow sidecar entry points (JAX counterparts:
+``sparseeventid_tpu/ops/pallas/window_sidecar.py:266`` and ``:377``).
 
-On the TPU the batched sidecar is its own one-hot GEMM kernel for C > 1,
-while the serial walk serves C == 1.  On this card both entry points share
-one kernel (``csrc/overflow_apply.cu``), which computes each chunk of
-entries in parallel and applies them in list order; they keep separate
-launch counts so a run shows which path it took.
+On the TPU the batched sidecars are their own one-hot GEMM kernels for
+C > 1, while the serial walks serve C == 1.  On this card the two entry
+points of each sidecar share one kernel (``csrc/overflow_apply.cu``, which
+computes each chunk of entries in parallel and applies them in list order;
+``csrc/overflow_dw.cu``, which spreads the list over blocks); they keep
+separate launch counts so a run shows which path it took.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import _use_kernel, launch_overflow_kernel, overflow_apply_plain
+from .kernels import (
+    _use_kernel,
+    launch_overflow_dw_kernel,
+    launch_overflow_kernel,
+    overflow_apply_plain,
+    overflow_dw_plain,
+)
 
 
 def overflow_apply_batched(
@@ -35,3 +42,25 @@ def overflow_apply_batched(
 
 
 overflow_apply_batched.launches = 0
+
+
+def overflow_dw_batched(
+    x: torch.Tensor,  # [B, N, C] table features
+    gy: torch.Tensor,  # [B, M, CO] output cotangent, the table's type
+    k: int,
+    src: torch.Tensor,  # i32[B, S]
+    dst: torch.Tensor,  # i32[B, S]
+    kk: torch.Tensor,  # i32[B, S]
+    valid: torch.Tensor,  # bool[B, S]
+    n_bound: torch.Tensor,  # i32[B] entries to walk (last valid + 1)
+) -> torch.Tensor:
+    """-> float32 [K, C, CO]: dw[kk] += x[src] (outer) gy[dst] over the
+    valid pairs of every batch element."""
+    if not _use_kernel(x, gy, src, dst, kk, valid, n_bound):
+        return overflow_dw_plain(x, gy, k, src, dst, kk, valid, n_bound)
+    out = launch_overflow_dw_kernel(x, gy, k, src, dst, kk, valid, n_bound)
+    overflow_dw_batched.launches += 1
+    return out
+
+
+overflow_dw_batched.launches = 0

@@ -77,7 +77,18 @@ def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
     )
 
 
-def _class_weights(scheme, device):
+def prepare_batch(batch, grid, capacity: int, dtype: torch.dtype,
+                  device: torch.device):
+    """A dataset batch (padded numpy arrays) -> (SparseTensor on the device
+    in the feature type, labels on the device)."""
+    st = larcv_batch_to_sparse_3d(batch["image"], grid, capacity=capacity,
+                                  device=device)
+    st = st.with_feats(st.feats.to(dtype))
+    labels = {k: torch.from_numpy(batch[k]).to(device) for k in OUTPUT_SHAPE}
+    return st, labels
+
+
+def class_weights_of(scheme, device):
     if scheme != LossBalanceScheme.even:
         return None
     return {
@@ -125,7 +136,7 @@ def validate(
     cap0 = model.encoder.capacities[0]
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
     scheme = opt_cfg.loss_balance_scheme
-    class_weights = _class_weights(scheme, dev)
+    class_weights = class_weights_of(scheme, dev)
     output_file = getattr(cfg.mode, "output_file", "")
 
     bs = cfg.run.minibatch_size
@@ -134,9 +145,7 @@ def validate(
     outputs = {k: [] for k in OUTPUT_SHAPE}
     for i in range(n_batches):
         batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
-        st = larcv_batch_to_sparse_3d(batch["image"], grid, capacity=cap0, device=dev)
-        st = st.with_feats(st.feats.to(dtype))
-        labels = {k: torch.from_numpy(batch[k]).to(dev) for k in OUTPUT_SHAPE}
+        st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
         with torch.no_grad():
             logits, dropped = model(st)
             m = eval_metrics(logits, labels, dropped, scheme, class_weights)

@@ -1,18 +1,21 @@
-"""Supervised 4-head event ID, forward only (JAX counterpart:
-``train/supervised.py`` ``make_eval_step`` / ``make_predict_step``).
+"""Supervised 4-head event ID: train, eval and predict steps (JAX
+counterpart: ``train/supervised.py``).
 
-The steps take the model, which holds its parameters, and run it in eval
-mode without autograd.  The train step is the next slice of the port."""
+The eval and predict steps take the model, which holds its parameters, and
+run it in eval mode without autograd.  The train step takes a
+``TrainState`` and updates it in place: parameters, running statistics,
+optimizer moments, schedule and step counter."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
 from ..config.schema import LossBalanceScheme
 from ..ops import SparseTensor
 from .losses import multi_head_accuracy, multi_head_loss
+from .state import TrainState
 
 
 def eval_metrics(logits, labels, dropped, scheme, class_weights=None
@@ -46,5 +49,47 @@ def make_predict_step(model):
         model.eval()
         logits, _ = model(st)
         return {k: torch.softmax(v, dim=-1) for k, v in logits.items()}
+
+    return step
+
+
+def make_train_step(
+    state: TrainState,
+    scheme: LossBalanceScheme,
+    lr_schedule: Callable[[int], float] | None = None,
+    class_weights=None,
+    gradient_accumulation: int = 1,
+):
+    """Returns step(st, labels, generator=None) -> metrics (device tensors;
+    ``opt/lr`` a float), which advances ``state`` by one step.
+
+    With ``gradient_accumulation`` = k the gradients of k consecutive steps
+    are averaged and the optimizer moves on every k-th, as
+    ``optax.MultiSteps`` does."""
+    model, optimizer, scheduler = state.model, state.optimizer, state.scheduler
+    k = max(int(gradient_accumulation), 1)
+
+    def step(st: SparseTensor, labels, generator: torch.Generator | None = None
+             ) -> Dict[str, torch.Tensor]:
+        model.train()
+        logits, dropped = model(st, generator)
+        loss, _ = multi_head_loss(logits, labels, scheme, class_weights)
+        loss.backward()  # adds onto the gradients of earlier micro-steps
+        metrics = {"loss/loss": loss.detach(), "overflow/dropped": dropped}
+        with torch.no_grad():
+            acc = multi_head_accuracy(logits, labels)
+        metrics.update({f"acc/{name}": v for name, v in acc.items()})
+        if lr_schedule is not None:
+            metrics["opt/lr"] = lr_schedule(state.step)
+        state.step += 1
+        if state.step % k == 0:
+            if k > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(k)
+            optimizer.step()
+            scheduler.step()
+            optimizer.zero_grad(set_to_none=True)
+        return metrics
 
     return step

@@ -62,13 +62,27 @@ def test_cli_needs_cuda_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config-name", "synthetic", "mode=inference"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config-name", "synthetic", "mode=train"])
+    metrics = main(["--config-name", "synthetic", "mode=train",
+                    "run.compute_mode=CPU", "mode.iterations=2",
+                    "framework.sparse_backend=window"])
+    assert metrics["overflow/dropped"] == 0 and metrics["loss/loss"] > 0
+    assert metrics["opt/lr"] > 1e-5  # the second step of the warm-up
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--config-name", "synthetic", "mode=iotest"])
 
 
 def test_unported_inputs_raise_naming_the_roadmap():
     from sparseeventid_tpu_torch.config import load_config
     from sparseeventid_tpu_torch.train.evaluate import validate
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    for ov in (["mode.weights_location=ckpt"], ["run.distributed=true"],
+               ["data=dune3d"]):
+        cfg = load_config("synthetic", ["mode=train", "run.compute_mode=CPU"] + ov)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train(cfg)
 
     cfg = load_config("synthetic", ["mode=inference", "run.compute_mode=CPU",
                                     "mode.weights_location=ckpt"])

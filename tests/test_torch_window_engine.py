@@ -200,10 +200,25 @@ def test_window_strided_conv_matches_jax(integer):
 
 
 def test_window_conv_under_autograd_raises():
+    """Under autograd the conv refuses nothing any more: it returns the
+    plain rulebook backend's gradients (bit for bit on integer data).  What
+    still raises is a second backward through its saved tensors."""
     coords, feats = random_coo(6, n=128, grid=(8, 8, 8), c=2, density=0.1)
     _, st = both(coords, feats, (8, 8, 8))
     plan = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=160,
                                              overflow_cap=2048)
-    w = torch.zeros((27, 2, 4), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        twe.window_submanifold_conv(st, plan, w)
+    rb = trb.build_submanifold_rulebook(st, (3, 3, 3))
+    w0 = torch.from_numpy(int_weights(3, (27, 2, 4)))
+    grads = []
+    for conv in (lambda s, w: twe.window_submanifold_conv(s, plan, w),
+                 lambda s, w: teng.apply_submanifold(s, rb, w)):
+        x = st.feats.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        out = conv(st.with_feats(x), w).feats
+        out.sum().backward()
+        grads.append((x.grad, w.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert float(grads[0][1].abs().sum()) > 0
+    with pytest.raises(RuntimeError, match="backward through the graph a second"):
+        out.sum().backward()
