@@ -32,7 +32,22 @@ Phases, one JSON line each; any failure exits non-zero:
               backend on the card: forward features and logits, then every
               parameter gradient of one train step; each check must also
               catch two planted faults of the overflow sidecars
-  8. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
+  8. gather   window_gather (the deconv's shape and the level-0 series
+              shape) bit-equal to its plain version on real-valued bf16
+              data, gather_conv (levels 0 and 5 over the real rulebooks)
+              bit-equal on integer-valued data; the deconv's two-step dW
+              timed beside window_dw at the same shape
+  9. engine_ops  integer-valued fp32: the window deconv (forward, dX, dW)
+              against the plain backend's autograd, PoolingDownsample's
+              window branch against its plain branch, the gather conv
+              against the plain conv's autograd, all exact, and two planted
+              faults caught; then ConvolutionUpsample and the gather conv
+              driven forward and backward at full width in bf16 (ops_path)
+ 10. main2d / train2d  the dune2d multiplane model (3 planes of 1536 x 1024,
+              B=8, bf16, depth 5) through the same validate and train entry
+              points, with the same checks and launch counts; the kernel
+              phase also runs at the dune2d shapes (K = 25, 9, 4)
+ 11. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/.
@@ -52,6 +67,10 @@ BATCH = 8
 MAX_VOXELS = 50000
 N_BATCHES = 3
 SEED = 0
+# dune2d: plane axis first; events are 3D tracks on (H, H, W) projected per
+# plane, at the occupancy of the JAX package's dune2d bench file
+GRID_2D = (3, 1536, 1024)
+MAX_VOXELS_2D = 20000  # a plane
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
@@ -67,6 +86,8 @@ REPLACES = {
     "window_dw": "sparseeventid_tpu/ops/pallas/window_conv.py:1264",
     "overflow_dw_batched": "sparseeventid_tpu/ops/pallas/window_sidecar.py:377",
     "overflow_dw": "sparseeventid_tpu/ops/pallas/window_conv.py:1881",
+    "window_gather": "sparseeventid_tpu/ops/pallas/window_conv.py:1608",
+    "gather_conv": "sparseeventid_tpu/ops/pallas/gather_conv.py:62",
 }
 SOURCES = {
     "window_plan": "sparseeventid_tpu_torch/csrc/window_plan.cu",
@@ -77,11 +98,16 @@ SOURCES = {
     "window_dw": "sparseeventid_tpu_torch/csrc/window_dw.cu",
     "overflow_dw_batched": "sparseeventid_tpu_torch/csrc/overflow_dw.cu",
     "overflow_dw": "sparseeventid_tpu_torch/csrc/overflow_dw.cu",
+    "window_gather": "sparseeventid_tpu_torch/csrc/window_gather.cu",
+    "gather_conv": "sparseeventid_tpu_torch/csrc/gather_conv.cu",
 }
-# kernels the inference path launches; the others only the train step does
+# kernels no model of the package selects: their path is the ops_path drive
+OPS_KERNELS = ("window_gather", "gather_conv")
+# kernels the inference path launches (it must launch no other); the rest
+# only the train step does
 FORWARD_KERNELS = ("window_plan", "window_conv_apply", "overflow_apply_batched",
                    "overflow_apply")
-# launches per dune3d train step: 17 plans (1 initial + 6 series + 5 x 2
+# launches per train step, dune3d and dune2d alike: 17 plans (1 initial + 6 series + 5 x 2
 # strided), 54 convs (1 + 48 + 5), each with a forward sidecar; the backward
 # runs the fused kernel for the 53 convs with C > 1 and window_dw for the
 # initial one, a dX sidecar for the 53 (the image needs no gradient) and a
@@ -90,6 +116,17 @@ LAUNCHES_PER_TRAIN_STEP = {
     "window_plan": 17, "window_conv_apply": 54, "overflow_apply_batched": 106,
     "overflow_apply": 1, "window_bwd_strided": 53, "window_dw": 1,
     "overflow_dw_batched": 53, "overflow_dw": 1,
+}
+# launches of the ops_path drive.  ConvolutionUpsample (64 -> 32 channels)
+# forward and backward: the forward and the reverse plan; the forward conv
+# over the reverse plan and dX over the forward plan, each with its sidecar;
+# dW by window_gather and the batched dW sidecar.  gather_submanifold_conv:
+# the forward and dX are the same kernel.  Nothing else launches.
+OPS_PATH_LAUNCHES = {
+    "window_plan": 2, "window_conv_apply": 2, "overflow_apply_batched": 2,
+    "overflow_apply": 0, "window_bwd_strided": 0, "window_dw": 0,
+    "overflow_dw_batched": 1, "overflow_dw": 0,
+    "window_gather": 1, "gather_conv": 2,
 }
 TRAIN_STEPS = 4  # one warm-up, three timed
 FP32_GRAD_EVENTS = 2  # the plain backend's fp32 backward keeps ~7 GB an event
@@ -140,16 +177,16 @@ class CachedDataset:
     dataset interface validate() reads, so event generation stays out of
     the timed run."""
 
-    def __init__(self, image_size, batches: dict, n_events: int):
-        self._image_size = tuple(image_size)
+    def __init__(self, grid, batches: dict, n_events: int):
+        self._grid = tuple(grid)
         self._batches = batches
         self.n = n_events
 
     def __len__(self):
         return self.n
 
-    def image_size(self):
-        return self._image_size
+    def batch_grid(self):
+        return self._grid
 
     def batch(self, indices):
         return self._batches[indices[0]]
@@ -203,17 +240,49 @@ def make_dataset():
     return CachedDataset(GRID, batches, n)
 
 
+def make_dataset_2d():
+    from sparseeventid_tpu_torch.io import SyntheticDataset, SyntheticEventConfig
+
+    n = BATCH * N_BATCHES
+    h, w = GRID_2D[1:]
+    ds = SyntheticDataset(
+        n,
+        SyntheticEventConfig(image_size=(h, h, w), n_planes=GRID_2D[0],
+                             max_voxels=MAX_VOXELS_2D, mean_tracks=40.0,
+                             steps_per_track=900),
+        seed=SEED,
+    )
+    batches = {i: ds.batch(list(range(i, i + BATCH))) for i in range(0, n, BATCH)}
+    return CachedDataset(GRID_2D, batches, n)
+
+
+# the two geometries of the kernel phase
+# (prefix: put before the labels of the rows)
+GEOMETRY_3D = dict(grid=GRID, rows=MAX_VOXELS, stride=(2, 2, 2),
+                   to_sparse="larcv_batch_to_sparse_3d", prefix="",
+                   initial=(5, 5, 5), series=(3, 3, 3))
+GEOMETRY_2D = dict(grid=GRID_2D, rows=MAX_VOXELS_2D * GRID_2D[0],
+                   stride=(1, 2, 2), to_sparse="larcv_batch_to_sparse_2d",
+                   prefix="2d ", initial=(1, 5, 5), series=(1, 3, 3))
+
+
+def _kname(ksz) -> str:
+    if len(set(ksz)) == 1:
+        return f"{ksz[0]}^{len(ksz)}"
+    return "x".join(str(k) for k in ksz)
+
+
 def _int_like(shape, gen, device, dtype, lo=-2, hi=3):
     import torch
 
     return torch.randint(lo, hi, shape, generator=gen, device=device).to(dtype)
 
 
-def phase_kernels(dataset):
+def phase_kernels(dataset, geo=GEOMETRY_3D):
     """Kernel against plain version at main-path shapes -> per-kernel rows."""
     import torch
 
-    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
+    from sparseeventid_tpu_torch import io as port_io
     from sparseeventid_tpu_torch.models.encoder import capacity_schedule
     from sparseeventid_tpu_torch.ops import engine as E
     from sparseeventid_tpu_torch.ops import rulebook as rb
@@ -227,14 +296,15 @@ def phase_kernels(dataset):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    caps = capacity_schedule(MAX_VOXELS, 5, 0.5, 1024)
+    caps = capacity_schedule(geo["rows"], 5, 0.5, 1024)
     bf16 = torch.bfloat16
-    st0 = larcv_batch_to_sparse_3d(dataset.batch([0])["image"], GRID,
-                                   capacity=caps[0], device=dev)
+    stride, pre = geo["stride"], geo["prefix"]
+    st0 = getattr(port_io, geo["to_sparse"])(
+        dataset.batch([0])["image"], geo["grid"], capacity=caps[0], device=dev)
     # site sets of every level (the downsample chain)
     levels = [st0]
     for cap in caps[1:]:
-        levels.append(rb.downsample_sites(levels[-1], (2, 2, 2), cap))
+        levels.append(rb.downsample_sites(levels[-1], stride, cap))
     tuning = Q.WindowTuning()
 
     def rows_of(st, c):
@@ -255,18 +325,24 @@ def phase_kernels(dataset):
         w = torch.randn((k, c, co), generator=gen, device=dev) / (k * c) ** 0.5
         return w.to(bf16).contiguous()
 
-    cases = []  # (label, table st, ksz, strided, window_r, C, CO)
-    cases.append(("initial 5^3 1->32", st0, (5, 5, 5), False,
-                  tuning.window_r_initial, 1, 32))
-    cases.append(("L0 series 3^3 32->32", st0, (3, 3, 3), False,
-                  tuning.for_level(0), 32, 32))
-    cases.append(("L5 series 3^3 192->192", levels[5], (3, 3, 3), False,
-                  tuning.for_level(5), 192, 192))
-    cases.append(("L0 downsample 2^3 32->64", st0, (2, 2, 2), True,
-                  tuning.window_r_strided, 32, 64))
+    k_init, k_ser = geo["initial"], geo["series"]
+    # (label, table st, ksz, strided, window_r, C, CO, sidecars): the
+    # overflow sidecars are held against their plain versions on the lists
+    # of the initial conv (the C == 1 entries) and of the level-0 series
+    # (the batched entries); both lists must be non-empty
+    cases = [
+        (f"{pre}initial {_kname(k_init)} 1->32", st0, k_init, False,
+         tuning.window_r_initial, 1, 32, True),
+        (f"{pre}L0 series {_kname(k_ser)} 32->32", st0, k_ser, False,
+         tuning.for_level(0), 32, 32, True),
+        (f"{pre}L5 series {_kname(k_ser)} 192->192", levels[5], k_ser, False,
+         tuning.for_level(5), 192, 192, False),
+        (f"{pre}L0 downsample {_kname(stride)} 32->64", st0, stride, True,
+         tuning.window_r_strided, 32, 64, False),
+    ]
 
-    results = {n: [] for n in REPLACES}
-    for label, tab, ksz, strided, r, c, co in cases:
+    results = {n: [] for n in REPLACES if n not in OPS_KERNELS}
+    for label, tab, ksz, strided, r, c, co, sidecars in cases:
         # the plan as the main path builds it (ops.engine), list included
         if strided:
             qst, (plan, rev), _ = E.build_downsample_plan(
@@ -376,7 +452,8 @@ def phase_kernels(dataset):
 
         # ---- sidecar on this plan's overflow list (C == 1: serial entry)
         name = "overflow_apply" if c == 1 else "overflow_apply_batched"
-        if c == 1 or label.startswith("L0 series"):
+        if sidecars:
+            require(n_ov > 0, f"the overflow list is empty at {label}")
             nb = K._ov_bound(valid)
 
             def side(base, x, w, kernel=True):
@@ -543,7 +620,7 @@ def phase_kernels(dataset):
         # with src and dst swapped for the fused submanifold backward, the
         # forward list as it is for C == 1
         dname = "overflow_dw" if c == 1 else "overflow_dw_batched"
-        if c == 1 or label.startswith("L0 series"):
+        if sidecars:
             nb = K._ov_bound(valid)
             s_, d_ = (src, dst) if c == 1 else (dst, src)
 
@@ -558,7 +635,8 @@ def phase_kernels(dataset):
             torch.cuda.synchronize()
             require(torch.equal(got, want),
                     f"{dname} differs from its plain version at {label}")
-            require(float(got.abs().sum()) > 0, f"sidecar dw is all 0 at {label}")
+            require(float(got.abs().sum()) > 0,
+                    f"sidecar dw is all 0 at {label}")
             err = (side_dw(x_real, gy_real)
                    - side_dw(x_real, gy_real, False)).abs().max().item()
             ms = timed_ms(lambda: side_dw(x_real, gy_real))
@@ -591,6 +669,8 @@ def phase_kernels(dataset):
             ))
         del gy_int, gy_real, nbr, hit4, flat_rows
         emit({"phase": "kernel", "shape": label, "window_r": r,
+              "table_rows_per_event": [int(tab.n_active.min()),
+                                       int(tab.n_active.max())],
               "pairs": pairs_total, "overflow_entries": n_ov, **occupancy,
               "rows": {n: v[-1] for n, v in results.items()
                        if v and v[-1]["shape"] == label}})
@@ -737,10 +817,389 @@ def phase_grad_check(dataset) -> None:
     emit(report)
 
 
-def train_config(extra=()):
+def phase_gather_kernels(dataset):
+    """Kernels 9 and 10 against their plain versions at dune3d shapes ->
+    per-kernel rows.  window_gather: the deconv's shape (level-1 table,
+    level-0 queries over the reverse plan, K = 8) and the level-0 series
+    shape (K = 27, C = 32), bit-equal on real-valued bf16 data.
+    gather_conv: levels 0 and 5 over the real rulebooks, bit-equal on
+    integer-valued data.  The deconv's two-step dW is timed beside
+    window_dw at the same shape."""
+    import torch
+
+    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
+    from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops import gather_conv as GC
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import query as Q
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    caps = capacity_schedule(MAX_VOXELS, 5, 0.5, 1024)
+    bf16 = torch.bfloat16
+    st0 = larcv_batch_to_sparse_3d(dataset.batch([0])["image"], GRID,
+                                   capacity=caps[0], device=dev)
+    levels = [st0]
+    for cap in caps[1:]:
+        levels.append(rb.downsample_sites(levels[-1], (2, 2, 2), cap))
+    tuning = Q.WindowTuning()
+
+    def feats_of(st, c, integer=False):
+        shape = (st.batch_size, st.capacity, c)
+        x = (_int_like(shape, gen, dev, bf16) if integer
+             else torch.randn(shape, generator=gen, device=dev).to(bf16))
+        return torch.where(st.row_mask()[..., None], x, 0).contiguous()
+
+    results = {n: [] for n in OPS_KERNELS}
+
+    # ---- window_gather
+    fwd, rev = E.build_upsample_plan(levels[1], st0, (2, 2, 2),
+                                     backend=E.WINDOW, tuning=tuning)
+    series = E.build_series_plan(st0, (3, 3, 3), backend=E.WINDOW,
+                                 window_r=tuning.for_level(0))
+    gather_cases = [
+        ("deconv L1->L0 2^3 C=64", levels[1], st0, rev, 64),
+        ("L0 series 3^3 C=32", st0, st0, series, 32),
+    ]
+    for label, tab, qst, plan, c in gather_cases:
+        require(int(plan.ov_dropped.sum()) == 0, f"list clamped at {label}")
+        keys = tab.keys()
+        x = feats_of(tab, c)
+        args = (keys, x, plan.qmeta, plan.start, plan.q_active, plan.dkeys)
+        got = K.window_gather(*args, window_r=plan.window_r)
+        want = K.window_gather_plain(*args, window_r=plan.window_r)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"window_gather differs from its plain version at {label}")
+        k = plan.num_offsets
+        matched = got.view(*got.shape[:2], k, c).ne(0).any(dim=-1)
+        n_matched = int(matched.sum())
+        require(n_matched > 0, f"window_gather matched nothing at {label}")
+        del want
+        ms = timed_ms(lambda: K.window_gather(*args, window_r=plan.window_r))
+        plain_ms = timed_ms(
+            lambda: K.window_gather_plain(*args, window_r=plan.window_r),
+            iters=2, warmup=1)
+        # yardstick: one index gather of the matched rows, indices given
+        rows = torch.zeros((qst.batch_size, qst.capacity, k), dtype=torch.int64,
+                           device=dev)
+        found = torch.zeros_like(rows, dtype=torch.bool)
+        for kk, f, r in K._matched_rows(keys, plan.qmeta, plan.start,
+                                        plan.q_active, plan.dkeys, None,
+                                        plan.window_r, None):
+            rows[:, :, kk], found[:, :, kk] = r, f
+        flat = rows.reshape(qst.batch_size, -1, 1)
+        mask = found.reshape(qst.batch_size, -1, 1)
+
+        def library():
+            g = torch.gather(x, 1, flat.expand(-1, -1, c))
+            return torch.where(mask, g, 0)
+
+        require(torch.equal(library().reshape(got.shape), got),
+                f"the library gather differs at {label}")
+        lib_ms = timed_ms(library)
+        n_q = int(qst.n_active.sum())
+        live_tiles = int(((qst.n_active + Q.TILE_T - 1) // Q.TILE_T).sum())
+        distinct = int(torch.unique(
+            rows[found] + (torch.nonzero(found)[:, 0] * tab.capacity)).numel())
+        # reads: keys of the active table rows, each distinct matched row
+        # once, the live queries' meta, the live tiles' starts; writes: the
+        # output in full (unmatched slots and dead rows are defined as 0)
+        b_ms, b_by = bound(
+            4 * int(tab.n_active.sum()) + 2 * c * distinct
+            + 4 * plan.qmeta.shape[1] * n_q + 4 * k * live_tiles
+            + nbytes(plan.q_active, got), 0)
+        results["window_gather"].append(dict(
+            shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            matched_slots=n_matched, output_mb=nbytes(got) / 1e6,
+        ))
+        row = {"window_gather": results["window_gather"][-1]}
+        if plan is rev:
+            # the deconv's dW both ways: gather + one float32 product (the
+            # port's route), and window_dw at the same shape
+            gy = feats_of(qst, 32)
+
+            def two_step():
+                g1 = K.window_gather(*args, window_r=plan.window_r)
+                return torch.einsum("bno,bnm->mo", gy.float(), g1.float())
+
+            def fused():
+                return K.window_dw(keys, x, plan.qmeta, plan.start, gy,
+                                   plan.q_active, plan.dkeys,
+                                   window_r=plan.window_r)
+
+            a, b = two_step().reshape(k, c, 32), fused()
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            # float32 sums of up to 4e5 bf16 products in two orders
+            require(err <= 1e-3 * scale,
+                    f"two-step dW differs from window_dw: {err} of {scale}")
+            row["deconv_dw"] = dict(
+                two_step_ms=timed_ms(two_step), window_dw_ms=timed_ms(fused),
+                max_abs_diff=err, max_abs=scale)
+        emit({"phase": "gather_kernel", "shape": label,
+              "window_r": plan.window_r, "rows": row})
+        del got, rows, found, flat, mask, x
+        torch.cuda.empty_cache()
+
+    # ---- gather_conv over the full rulebooks
+    for label, st, c, co in (("L0 series 3^3 32->32", st0, 32, 32),
+                             ("L5 series 3^3 192->192", levels[5], 192, 192)):
+        book = rb.build_submanifold_rulebook(st, (3, 3, 3))
+        idx = GC._encode_miss(book, st.capacity)
+        pairs = int(book.hit.sum())
+        w_int = _int_like((27, c, co), gen, dev, bf16)
+        x_int = feats_of(st, c, integer=True)
+        got = GC.gather_conv(x_int, idx, w_int)
+        want = GC.gather_conv_plain(x_int, idx, w_int)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"gather_conv differs from its plain version at {label}")
+        require(float(got.float().abs().sum()) > 0, f"all 0 at {label}")
+        x = feats_of(st, c)
+        w = (torch.randn((27, c, co), generator=gen, device=dev)
+             / (27 * c) ** 0.5).to(bf16).contiguous()
+        err = (GC.gather_conv(x, idx, w).float()
+               - GC.gather_conv_plain(x, idx, w).float()).abs().max().item()
+        ms = timed_ms(lambda: GC.gather_conv(x, idx, w))
+        plain_ms = timed_ms(lambda: GC.gather_conv_plain(x, idx, w),
+                            iters=2, warmup=1)
+        flat = book.neighbor_idx.long().reshape(st.batch_size, -1, 1)
+        hit = book.hit.reshape(st.batch_size, -1, 1)
+        w2 = w.reshape(27 * c, co)
+
+        def library():
+            g = torch.gather(x, 1, flat.expand(-1, -1, c)) * hit
+            return torch.matmul(g.reshape(st.batch_size, st.capacity, 27 * c), w2)
+
+        lib_ms = timed_ms(library)
+        n_live = int(st.n_active.sum())
+        # reads: the features of the active rows, the live rows' indices,
+        # W; writes: the output in full; flops: the hit pairs only
+        b_ms, b_by = bound(
+            2 * c * n_live + 4 * 27 * n_live + nbytes(w, got),
+            2.0 * pairs * c * co)
+        results["gather_conv"].append(dict(
+            shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pairs=pairs,
+        ))
+        emit({"phase": "gather_kernel", "shape": label,
+              "rows": {"gather_conv": results["gather_conv"][-1]}})
+        del got, want, x, x_int, flat, hit, idx, book
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_engine_ops(dataset):
+    """The engine's remaining ops on integer-valued fp32 data on the card,
+    each against the plain backend under autograd, exactly; two planted
+    faults that the equality must catch; then the two ops no model selects
+    driven at full width in bf16 through the entry points a user calls
+    (ConvolutionUpsample, gather_submanifold_conv) -> their launch counts."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.config.schema import ConvRepresentation, Norm
+    from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
+    from sparseeventid_tpu_torch.models import blocks as B
+    from sparseeventid_tpu_torch.models import init_parameters
+    from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import conv as C
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops import gather_conv as GC
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import engine as WE
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import query as Q
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    caps = capacity_schedule(MAX_VOXELS, 5, 0.5, 1024)
+    fine = larcv_batch_to_sparse_3d(dataset.batch([0])["image"], GRID,
+                                    capacity=caps[0], device=dev)
+    coarse = rb.downsample_sites(fine, (2, 2, 2), caps[1])
+    c_in, c_out = 32, 48
+
+    def ints(shape, mask=None):
+        x = _int_like(shape, gen, dev, torch.float32)
+        return x if mask is None else x * mask[..., None]
+
+    def grads(fn, st, x0, w0, gy):
+        """(out, dx, dw) of fn(st with x0, w0) under the cotangent gy."""
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        out = fn(st.with_feats(x), w).feats
+        out.backward(gy)
+        torch.cuda.synchronize()
+        return out.detach(), x.grad, w.grad
+
+    def compare(got, want):
+        return [bool(torch.equal(g, r)) for g, r in zip(got, want)]
+
+    report = {"phase": "engine_ops", "dtype": "float32"}
+
+    # ---- the deconv: coarse level 1 -> fine level 0
+    xc = ints((coarse.batch_size, coarse.capacity, c_in), coarse.row_mask())
+    gy_f = ints((fine.batch_size, fine.capacity, c_out), fine.row_mask())
+    w8 = ints((8, c_in, c_out))
+    book = rb.build_upsample(coarse, fine, (2, 2, 2))
+    want = grads(lambda s, w: C.deconv(s, fine, book, w), coarse, xc, w8, gy_f)
+    require(float(want[2].abs().sum()) > 0, "the plain deconv's dw is all 0")
+    plans = {
+        "deconv": E.build_upsample_plan(coarse, fine, (2, 2, 2),
+                                        backend=E.WINDOW),
+        # a 64-row reverse window fills the reverse list
+        "deconv_narrow_reverse": E.build_upsample_plan(
+            coarse, fine, (2, 2, 2), backend=E.WINDOW,
+            tuning=Q.WindowTuning(window_r=64)),
+    }
+    for name, (fwd, rev) in plans.items():
+        require(int(fwd.ov_dropped.sum() + rev.ov_dropped.sum()) == 0,
+                f"{name}: an overflow list was clamped")
+        got = grads(lambda s, w: E.apply_upsample(s, fine, (fwd, rev), w),
+                    coarse, xc, w8, gy_f)
+        same = compare(got, want)
+        report[name] = {"out_dx_dw_equal": same,
+                        "forward_entries": int(fwd.ov_valid.sum()),
+                        "reverse_entries": int(rev.ov_valid.sum())}
+        require(all(same), f"{name}: out, dx, dw equal the plain deconv's = {same}")
+    narrow = plans["deconv_narrow_reverse"]
+    require(int(narrow[1].ov_valid.sum()) > 1000,
+            f"the narrow reverse list is too short: {report}")
+    sound = WE._overflow_dw
+    WE._overflow_dw = _no_dw_sidecar
+    try:
+        got = grads(lambda s, w: E.apply_upsample(s, fine, narrow, w),
+                    coarse, xc, w8, gy_f)
+    finally:
+        WE._overflow_dw = sound
+    same = compare(got, want)
+    report["deconv_dw_sidecar_skipped"] = {
+        "out_dx_dw_equal": same,
+        "max_abs_diff": float((got[2] - want[2]).abs().max())}
+    require(same[0] and same[1] and not same[2],
+            "the exact deconv check is blind to a skipped dW sidecar")
+
+    # ---- pooling downsample: the window branch against the plain branch
+    # (no norm and a slope of 1, so every sum stays exact)
+    params = ConvRepresentation(normalization=Norm.none, leakiness=1.0)
+    xf = ints((fine.batch_size, fine.capacity, c_in), fine.row_mask())
+    gy_c = ints((coarse.batch_size, coarse.capacity, c_out), coarse.row_mask())
+    w_pool, b_pool = ints((1, c_in, c_out)), ints((c_out,))
+    pooled = {}
+    for backend in (E.WINDOW, E.XLA):
+        mod = B.PoolingDownsample(c_in, c_out, (2, 2, 2), params,
+                                  out_capacity=caps[1], backend=backend).to(dev)
+        with torch.no_grad():
+            mod.w.copy_(w_pool)
+            mod.b.copy_(b_pool)
+        x = xf.clone().requires_grad_(True)
+        out, dropped = mod(fine.with_feats(x))
+        require(int(dropped) == 0, f"pooling {backend}: dropped {int(dropped)}")
+        out.feats.backward(gy_c)
+        torch.cuda.synchronize()
+        pooled[backend] = (out.feats.detach(), x.grad, mod.w.grad, mod.b.grad)
+    same = compare(pooled[E.WINDOW], pooled[E.XLA])
+    report["pooling_downsample"] = {"out_dx_dw_db_equal": same}
+    require(all(same) and float(pooled[E.XLA][2].abs().sum()) > 0,
+            f"pooling: window branch vs plain branch equal = {same}")
+    del pooled
+
+    # ---- the gather conv against the plain conv's autograd, level 0
+    sbook = rb.build_submanifold_rulebook(fine, (3, 3, 3))
+    w27 = ints((27, c_in, c_out))
+    want = grads(lambda s, w: C.submanifold_conv(s, sbook, w), fine, xf, w27,
+                 gy_f)
+    got = grads(lambda s, w: GC.gather_submanifold_conv(s, sbook, w), fine, xf,
+                w27, gy_f)
+    same = compare(got, want)
+    report["gather_conv"] = {"out_dx_dw_equal": same}
+    require(all(same), f"gather conv vs plain conv equal = {same}")
+    mirror = GC.mirror_permutation
+    GC.mirror_permutation = lambda offsets: np.arange(len(offsets))
+    try:
+        got = grads(lambda s, w: GC.gather_submanifold_conv(s, sbook, w), fine,
+                    xf, w27, gy_f)
+    finally:
+        GC.mirror_permutation = mirror
+    same = compare(got, want)
+    report["gather_conv_dx_both_permuted"] = {
+        "out_dx_dw_equal": same,
+        "max_abs_diff": float((got[1] - want[1]).abs().max())}
+    require(same[0] and same[2] and not same[1],
+            "the exact gather conv check is blind to dX with both permuted")
+    emit(report)
+    del want, got, xf, gy_f, gy_c, xc
+    torch.cuda.empty_cache()
+
+    # ---- ops_path: full width, bf16, forward and backward, counted
+    bf16 = torch.bfloat16
+    wrappers, plains = _kernel_counters()
+    counted = wrappers + [K.window_gather, GC.gather_conv]
+    plains = plains + [K.window_gather_plain, GC.gather_conv_plain]
+    for f in counted:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    up = B.ConvolutionUpsample(64, 32, (2, 2, 2), ConvRepresentation(),
+                               backend=E.WINDOW)
+    init_parameters(up, SEED).to(dev).train()
+    xc = torch.where(
+        coarse.row_mask()[..., None],
+        torch.randn((coarse.batch_size, coarse.capacity, 64), generator=gen,
+                    device=dev), 0).to(bf16).requires_grad_(True)
+    t0 = time.perf_counter()
+    out, dropped = up(coarse.with_feats(xc), fine)
+    out.feats.float().square().mean().backward()
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    require(int(dropped) == 0, f"upsample block dropped {int(dropped)}")
+    require(out.feats.shape == (fine.batch_size, fine.capacity, 32)
+            and out.feats.dtype == bf16, "upsample block output shape")
+    for name, t in (("out", out.feats), ("dx", xc.grad), ("dw", up.w.grad)):
+        t = t.detach().float()
+        require(bool(torch.isfinite(t).all()) and float(t.abs().sum()) > 0,
+                f"upsample block {name} not finite or all 0")
+    w = torch.nn.Parameter(
+        torch.randn((27, 32, 32), generator=gen, device=dev) / (27 * 32) ** 0.5)
+    xf = torch.where(
+        fine.row_mask()[..., None],
+        torch.randn((fine.batch_size, fine.capacity, 32), generator=gen,
+                    device=dev), 0).to(bf16).requires_grad_(True)
+    t0 = time.perf_counter()
+    gout = GC.gather_submanifold_conv(fine.with_feats(xf), sbook, w)
+    gout.feats.float().square().mean().backward()
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    ref = C.submanifold_conv(fine.with_feats(xf.detach()), sbook, w.detach())
+    err = float((gout.feats.detach().float() - ref.feats.float()).abs().max())
+    # one bf16 rounding of sums of about 27 x 32 products of unit scale
+    require(err <= 0.05, f"gather conv differs from the plain conv by {err}")
+    for name, t in (("out", gout.feats), ("dx", xf.grad), ("dw", w.grad)):
+        t = t.detach().float()
+        require(bool(torch.isfinite(t).all()) and float(t.abs().sum()) > 0,
+                f"gather conv {name} not finite or all 0")
+    launches = {f.__name__: f.launches for f in counted}
+    plain_calls = {f.__name__: f.calls for f in plains}
+    require(launches == OPS_PATH_LAUNCHES,
+            f"ops_path launch counts {launches} differ from the expected "
+            f"{OPS_PATH_LAUNCHES}")
+    require(all(v == 0 for v in plain_calls.values()),
+            f"plain version called on the ops path: {plain_calls}")
+    emit({"phase": "ops_path", "precision": "bfloat16", "launches": launches,
+          "plain_calls": plain_calls, "upsample_block_s": up_s,
+          "gather_conv_s": gather_s, "gather_conv_max_abs_diff": err})
+    return launches
+
+
+def train_config(extra=(), recipe="dune3d"):
     from sparseeventid_tpu_torch.config import load_config
 
-    return load_config("dune3d", [
+    return load_config(recipe, [
         "mode=train", f"run.minibatch_size={BATCH}", f"run.seed={SEED}",
         "framework.sparse_backend=window", "data.mode=serial_access",
         *extra,
@@ -760,7 +1219,7 @@ def _kernel_counters():
     return wrappers, plains
 
 
-def phase_train(dataset):
+def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
     """The train step at full width through the trainer's loop -> the
     launch counts of the run."""
     import numpy as np
@@ -769,7 +1228,7 @@ def phase_train(dataset):
     from sparseeventid_tpu_torch.train.trainer import train
 
     cfg = train_config(["run.precision=bfloat16",
-                        f"mode.iterations={TRAIN_STEPS}"])
+                        f"mode.iterations={TRAIN_STEPS}"], recipe)
     require(cfg.head.dropout > 0, "the train phase runs with dropout on")
     wrappers, plains = _kernel_counters()
     for f in wrappers:
@@ -815,7 +1274,7 @@ def phase_train(dataset):
     require(stats and not still, f"running statistics did not move: {still}")
     timed = [m["time/step_s"] for m in history[1:]]
     steps_per_s = len(timed) / sum(timed)
-    emit({"phase": "train", "steps": TRAIN_STEPS, "step_s": [m["time/step_s"]
+    emit({"phase": phase, "recipe": recipe, "steps": TRAIN_STEPS, "step_s": [m["time/step_s"]
                                                             for m in history],
           "loss": [m["loss/loss"] for m in history],
           "lr": [m["opt/lr"] for m in history],
@@ -823,11 +1282,11 @@ def phase_train(dataset):
           "plain_calls": plain_calls, "conv_weights": conv_weights,
           "running_stats": len(stats),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    print(json.dumps({"train_steps_per_s": steps_per_s,
-                      "train_events_per_s": steps_per_s * BATCH,
+    print(json.dumps({f"{phase}_steps_per_s": steps_per_s,
+                      f"{phase}_events_per_s": steps_per_s * BATCH,
                       "timed_steps": len(timed), "batch": BATCH,
                       "precision": "bfloat16"}), flush=True)
-    profile_train_step(dataset)
+    profile_train_step(dataset, recipe, grid, phase)
     return launches
 
 
@@ -852,7 +1311,8 @@ def _device_profile(fn):
          "count": e.count} for e in top]
 
 
-def profile_train_step(dataset) -> None:
+def profile_train_step(dataset, recipe="dune3d", grid=GRID,
+                       phase="train") -> None:
     """Device time by kernel over one bf16 train step (input preparation
     included, as in the loop), and the share of the wall time the device
     was busy.  The step before it warms the new model up."""
@@ -861,37 +1321,38 @@ def profile_train_step(dataset) -> None:
     from sparseeventid_tpu_torch.train.evaluate import feature_dtype, prepare_batch
     from sparseeventid_tpu_torch.train.trainer import build_training
 
-    cfg = train_config(["run.precision=bfloat16"])
+    cfg = train_config(["run.precision=bfloat16"], recipe)
     dev = torch.device(DEVICE)
     state, step, _ = build_training(cfg, N_BATCHES, None, dev)
     generator = torch.Generator(device=dev).manual_seed(SEED + 1)
     cap0 = state.model.encoder.capacities[0]
 
     def one_step(first):
-        st, labels = prepare_batch(dataset.batch([first]), GRID, cap0,
+        st, labels = prepare_batch(dataset.batch([first]), grid, cap0,
                                    feature_dtype(cfg), dev)
         return float(step(st, labels, generator)["loss/loss"])
 
     one_step(0)
     wall_ms, busy_ms, top = _device_profile(lambda: one_step(BATCH))
-    emit({"phase": "profile_train", "wall_ms": wall_ms,
+    emit({"phase": f"profile_{phase}", "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
           "top_kernels": top})
 
 
-def profile_one_batch(cfg, dataset) -> None:
+def profile_one_batch(cfg, dataset, grid=GRID, phase="profile") -> None:
     """Device time by kernel over one bf16 batch through validate(), and
     the share of the wall time the device was busy."""
     from sparseeventid_tpu_torch.train.evaluate import validate
 
-    one = CachedDataset(GRID, {0: dataset.batch([0])}, BATCH)
+    one = CachedDataset(grid, {0: dataset.batch([0])}, BATCH)
     wall_ms, busy_ms, top = _device_profile(
         lambda: validate(cfg, dataset=one, device=DEVICE))
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    emit({"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / wall_ms, "top_kernels": top})
 
 
-def phase_main(dataset, out_dir: Path):
+def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
+               phase="main"):
     import numpy as np
     import torch
 
@@ -899,31 +1360,33 @@ def phase_main(dataset, out_dir: Path):
     from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
     from sparseeventid_tpu_torch.train.evaluate import validate
 
-    out_file = out_dir / "chip_smoke_softmax.npz"
-    cfg = load_config("dune3d", [
+    out_file = out_dir / f"chip_smoke_softmax_{recipe}.npz"
+    cfg = load_config(recipe, [
         "mode=inference", "run.precision=bfloat16",
         f"run.minibatch_size={BATCH}", "framework.sparse_backend=window",
         f"run.seed={SEED}", f"mode.output_file={out_file}",
     ])
     wrappers, plains = _kernel_counters()
-    counters = [f for f in wrappers if f.__name__ in FORWARD_KERNELS]
     # warm-up on the first batch (allocator, cuBLAS handles), then the run
-    warm = CachedDataset(GRID, {0: dataset.batch([0])}, BATCH)
+    warm = CachedDataset(grid, {0: dataset.batch([0])}, BATCH)
     validate(cfg, dataset=warm, device=DEVICE)
-    for f in counters:
+    for f in wrappers:
         f.launches = 0
     for f in plains:
         f.calls = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     metrics = validate(cfg, dataset=dataset, device=DEVICE)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {f.__name__: f.launches for f in counters}
+    launches = {f.__name__: f.launches for f in wrappers}
     plain_calls = {f.__name__: f.calls for f in plains}
     require(np.isfinite(metrics["loss/loss"]), f"loss not finite: {metrics}")
     require(metrics["overflow/dropped"] == 0, f"dropped pairs: {metrics}")
-    require(all(v > 0 for v in launches.values()), f"kernel not launched: {launches}")
+    # inference launches every forward kernel and no backward one
+    require(all((v > 0) == (k in FORWARD_KERNELS) for k, v in launches.items()),
+            f"launch counts of the inference path: {launches}")
     require(all(v == 0 for v in plain_calls.values()),
             f"plain version called on the main path: {plain_calls}")
     soft = np.load(out_file)
@@ -931,14 +1394,18 @@ def phase_main(dataset, out_dir: Path):
         require(soft[k].shape == (BATCH * N_BATCHES, n), f"softmax {k} shape")
         require(np.all(np.isfinite(soft[k])), f"softmax {k} not finite")
     events = BATCH * N_BATCHES
-    emit({"phase": "main", "events": events, "seconds": seconds,
+    print(json.dumps({f"{phase}_events_per_s": events / seconds,
+                      "events": events, "batch": BATCH,
+                      "precision": "bfloat16"}), flush=True)
+    emit({"phase": phase, "recipe": recipe, "events": events, "seconds": seconds,
           "events_per_s": events / seconds, "metrics": metrics,
           "launches": launches, "launches_per_forward":
-          {k: v / N_BATCHES for k, v in launches.items()},
+          {k: v / N_BATCHES for k, v in launches.items() if v},
           "plain_calls": plain_calls,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
-    profile_one_batch(cfg, dataset)
+    profile_one_batch(cfg, dataset, grid,
+                      "profile" if phase == "main" else f"profile_{phase}")
     return launches
 
 
@@ -1165,9 +1632,33 @@ def main() -> int:
         train_launches = phase_train(dataset)
         phase_fp32(dataset)
         phase_fp32_grad(dataset)
+        rows.update(phase_gather_kernels(dataset))
+        ops_launches = phase_engine_ops(dataset)
+        del dataset
+        dataset_2d = make_dataset_2d()
+        rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
+        launches_2d = phase_main(dataset_2d, out_dir, "dune2d", GRID_2D,
+                                 "main2d")
+        train_launches_2d = phase_train(dataset_2d, "dune2d", GRID_2D,
+                                        "train2d")
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")
+            if kname in OPS_KERNELS:
+                head = per_shape[0]
+                kernels.append(dict(
+                    name=kname, route="cuda", source=SOURCES[kname],
+                    replaces=REPLACES[kname], launches=ops_launches[kname],
+                    path="ops_path (ConvolutionUpsample backward; "
+                    "gather_submanifold_conv forward and backward)",
+                    max_abs_err=max(r["max_abs_err"] for r in per_shape),
+                    ms=head["ms"], plain_ms=head["plain_ms"],
+                    bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                    library_ms=head["library_ms"], shape=head["shape"],
+                    shapes=per_shape,
+                ))
+                continue
+            per_shape = per_shape + rows_2d[kname]
             # headline: the busiest conv level (level 0) where measured
             head = next(
                 (r for r in per_shape if r["shape"].startswith("L0 series")),
@@ -1181,7 +1672,12 @@ def main() -> int:
                 # the backward ones
                 launches=(launches[kname] if kname in FORWARD_KERNELS
                           else train_launches[kname]),
+                path=("main, train, main2d, train2d"
+                      if kname in FORWARD_KERNELS else "train, train2d"),
                 launches_train=train_launches[kname],
+                launches_main2d=launches_2d[kname],
+                launches_train2d=train_launches_2d[kname],
+                launches_ops_path=ops_launches[kname],
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -195,7 +195,15 @@ class SyntheticDataset:
         return self.n_events
 
     def image_size(self) -> Tuple[int, ...]:
+        """The 3D volume the tracks are generated in."""
         return tuple(self.cfg.image_size)
+
+    def batch_grid(self) -> Tuple[int, ...]:
+        """The grid the batches' coordinates live on: the generation volume,
+        or (planes, H, W) for multiplane projections of an (H, H, W) one."""
+        size = self.image_size()
+        p = self.cfg.n_planes
+        return (p,) + size[1:] if p > 1 else size
 
     def event(self, index: int):
         rng = np.random.default_rng((self.seed, index % self.n_events))

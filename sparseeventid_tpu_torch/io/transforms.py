@@ -29,3 +29,40 @@ def larcv_batch_to_sparse_3d(
         tuple(image_size),
         capacity=capacity,
     )
+
+
+def larcv_batch_to_sparse_2d(
+    image: np.ndarray,
+    image_size: Tuple[int, ...],
+    capacity: int | None = None,
+    device: torch.device | str = "cpu",
+) -> SparseTensor:
+    """[B, planes, MaxVoxels, 3] of (x, y, value), padded with -999 -> the
+    plane-axis 3D SparseTensor on ``device``: the plane index is coordinate
+    0 on the (planes, H, W) grid, the SECOND stored coordinate (y) is axis 1
+    and the FIRST (x) is axis 2.  Pixels outside the grid are dropped."""
+    b, planes, n, _ = image.shape
+    xy = image[..., :2]
+    vals = image[..., 2:3]
+    valid = np.all(xy != -999.0, axis=-1) & (vals[..., 0] != -999.0)
+    plane_idx = np.broadcast_to(
+        np.arange(planes, dtype=np.int32)[None, :, None], (b, planes, n)
+    )
+    yx = xy[..., ::-1]
+    coords3 = np.concatenate(
+        [plane_idx[..., None], yx.astype(np.int32)], axis=-1
+    )
+    h, w = int(image_size[1]), int(image_size[2])
+    valid = valid & (
+        (yx[..., 0] >= 0) & (yx[..., 0] < h)
+        & (yx[..., 1] >= 0) & (yx[..., 1] < w)
+    )
+    coords3 = np.where(valid[..., None], coords3, -1).reshape(b, planes * n, 3)
+    feats = np.where(valid[..., None], vals, 0).astype(np.float32)
+    feats = feats.reshape(b, planes * n, 1)
+    return build_sparse_tensor(
+        torch.from_numpy(np.ascontiguousarray(coords3)).to(device),
+        torch.from_numpy(feats).to(device),
+        tuple(image_size),
+        capacity=capacity,
+    )

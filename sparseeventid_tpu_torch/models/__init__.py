@@ -1,6 +1,8 @@
 from .blocks import (  # noqa: F401
     ConvolutionDownsample,
+    ConvolutionUpsample,
     MaskedBatchNorm,
+    PoolingDownsample,
     SparseBlock,
     SparseBlockSeries,
     SparseResidualBlock,
@@ -10,5 +12,10 @@ from .build import (  # noqa: F401
     build_sparse_classifier,
     init_parameters,
 )
-from .encoder import GRID_QUANTUM, Encoder, capacity_schedule  # noqa: F401
+from .encoder import (  # noqa: F401
+    GRID_QUANTUM,
+    Encoder,
+    capacity_schedule,
+    encoder_output_shape,
+)
 from .heads import MultiHeadOutput, pool_encoded  # noqa: F401

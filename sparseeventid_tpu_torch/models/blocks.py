@@ -15,11 +15,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ConvRepresentation, Norm
-from ..ops import SparseTensor, apply_norm, masked_batch_stats
+from ..ops import SparseTensor, apply_norm, average_pool, masked_batch_stats
 from ..ops.engine import (
+    WINDOW,
+    XLA,
     apply_strided,
     apply_submanifold,
+    apply_upsample,
     build_downsample_plan,
+    build_upsample_plan,
     plan_overflow_dropped,
 )
 from ..ops.window.query import WindowTuning
@@ -57,8 +61,8 @@ def _make_norm(norm: Norm, channels: int):
     if norm == Norm.none:
         return None
     raise NotImplementedError(
-        f"normalization={norm.name} is not ported yet (ROADMAP: the other "
-        "models and tasks)"
+        f"normalization={norm.name} is not ported yet (ROADMAP: group/layer "
+        "norm)"
     )
 
 
@@ -121,6 +125,14 @@ class SparseBlockSeries(nn.Module):
         return st
 
 
+def offset_count(kernel: Tuple[int, ...]) -> int:
+    """Offsets of a kernel (or of a stride's cell): the product of its sizes."""
+    k = 1
+    for s in kernel:
+        k *= int(s)
+    return k
+
+
 class ConvolutionDownsample(nn.Module):
     """Strided conv (filter == stride, no bias) + norm + act.  Builds the
     coarser site set and its plans; ``forward`` also returns the sites and
@@ -146,9 +158,7 @@ class ConvolutionDownsample(nn.Module):
         self.q_bound_frac_in = q_bound_frac_in
         self.q_bound_frac_out = q_bound_frac_out
         self.tuning = tuning
-        k = 1
-        for s in self.stride:
-            k *= int(s)
+        k = offset_count(self.stride)
         self.w = nn.Parameter(torch.empty(k, c_in, n_out))
         self.norm = _make_norm(params.normalization, n_out)
 
@@ -160,6 +170,108 @@ class ConvolutionDownsample(nn.Module):
         )
         dropped = ds_dropped.sum() + plan_overflow_dropped(plan)
         out = apply_strided(st, skeleton, plan, self.w)
+        if self.norm is not None:
+            out = out.with_feats(self.norm(out.feats, out.row_mask()))
+        return _leaky(out, self.params.leakiness), dropped
+
+
+class PoolingDownsample(nn.Module):
+    """Average pooling + 1x1 filter update + norm + act, with the
+    constructor and the ``forward`` of :class:`ConvolutionDownsample`.
+
+    Average pooling divides by the FULL pool volume V, so pool + 1x1 conv
+    is a strided conv whose weights are tied across the offsets:
+
+        out[j] = (sum_k x[child_k(j)] / V) @ w  =  sum_k x[child_k(j)] @ (w / V)
+
+    The window backend runs exactly that through ``apply_strided`` with
+    W[k] = w / V for every k (the same plans and kernels as the
+    convolutional downsample; the gradient to the shared ``w`` sums over k
+    through the broadcast).  The plain backend pools over the rulebook and
+    applies ``w`` in float32.  Features keep their type in both."""
+
+    def __init__(
+        self,
+        c_in: int,
+        n_out: int,
+        stride: Tuple[int, ...],
+        params: ConvRepresentation,
+        out_capacity: int | None = None,
+        backend: str = XLA,
+        q_bound_frac_in: float = 1.0,
+        q_bound_frac_out: float = 1.0,
+        tuning: WindowTuning = WindowTuning(),
+    ):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.params = params
+        self.out_capacity = out_capacity
+        self.backend = backend
+        self.q_bound_frac_in = q_bound_frac_in
+        self.q_bound_frac_out = q_bound_frac_out
+        self.tuning = tuning
+        self.w = nn.Parameter(torch.empty(1, c_in, n_out))
+        self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
+        self.norm = _make_norm(params.normalization, n_out)
+
+    def forward(self, st: SparseTensor):
+        k = offset_count(self.stride)
+        if self.backend == WINDOW:
+            skeleton, plan, ds_dropped = build_downsample_plan(
+                st, self.stride, self.out_capacity, backend=WINDOW,
+                q_bound_frac_in=self.q_bound_frac_in,
+                q_bound_frac_out=self.q_bound_frac_out, tuning=self.tuning,
+            )
+            dropped = ds_dropped.sum() + plan_overflow_dropped(plan)
+            wk = (self.w[0] / k).expand(k, -1, -1)
+            feats = apply_strided(st, skeleton, plan, wk).feats
+        else:
+            skeleton, rb, ds_dropped = build_downsample_plan(
+                st, self.stride, self.out_capacity, backend=XLA
+            )
+            dropped = ds_dropped.sum()
+            pooled = average_pool(st, skeleton, rb, self.stride)
+            feats = torch.matmul(pooled.feats.float(), self.w[0].float())
+            feats = feats.to(st.feats.dtype)
+        if self.b is not None:
+            feats = feats + self.b.to(feats.dtype)
+        out = skeleton.with_feats(
+            torch.where(skeleton.row_mask()[..., None], feats, 0)
+        )
+        if self.norm is not None:
+            out = out.with_feats(self.norm(out.feats, out.row_mask()))
+        return _leaky(out, self.params.leakiness), dropped
+
+
+class ConvolutionUpsample(nn.Module):
+    """Deconvolution (filter == stride) onto a supplied target site set +
+    norm + act.  ``forward(st, target)`` also returns the pairs its plans
+    dropped."""
+
+    def __init__(
+        self,
+        c_in: int,
+        n_out: int,
+        stride: Tuple[int, ...],
+        params: ConvRepresentation,
+        backend: str = XLA,
+        tuning: WindowTuning = WindowTuning(),
+    ):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.params = params
+        self.backend = backend
+        self.tuning = tuning
+        self.w = nn.Parameter(torch.empty(offset_count(self.stride), c_in, n_out))
+        self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
+        self.norm = _make_norm(params.normalization, n_out)
+
+    def forward(self, st: SparseTensor, target: SparseTensor):
+        plan = build_upsample_plan(
+            st, target, self.stride, self.backend, tuning=self.tuning
+        )
+        dropped = plan_overflow_dropped(plan)
+        out = apply_upsample(st, target, plan, self.w, self.b)
         if self.norm is not None:
             out = out.with_feats(self.norm(out.feats, out.row_mask()))
         return _leaky(out, self.params.leakiness), dropped

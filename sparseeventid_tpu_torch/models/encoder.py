@@ -1,9 +1,14 @@
 """Sparse ResNet encoder (JAX counterpart: ``models/encoder.py``).
 
-  initial 5^3 submanifold conv 1 -> n_initial_filters
-  depth x [ BlockSeries(blocks_per_layer) ; strided 2^3 downsample ]
+  initial 5^d submanifold conv 1 -> n_initial_filters
+  depth x [ BlockSeries(blocks_per_layer) ; stride-2 downsample ]
   final BlockSeries
   1x1 bottleneck -> n_output_filters, tanh (tanh(0) = 0 keeps padding inert)
+
+2D multiplane data is a 3D grid with the plane index as coordinate 0:
+kernels are [1, k, k] (weights shared by the planes, no mixing across
+them) and the stride is (1, 2, 2); from ``plane_merge_depth`` on (if >= 0)
+the kernels are [3, k, k] and do mix planes.
 
 Every level's plan is built on the device from its site set.
 """
@@ -19,7 +24,12 @@ from ..config.schema import ConvRepresentation, DownSampling, GrowthRate
 from ..ops import SparseTensor
 from ..ops.engine import apply_submanifold, build_series_plan, plan_overflow_dropped
 from ..ops.window.query import WindowTuning
-from .blocks import ConvolutionDownsample, SparseBlockSeries
+from .blocks import (
+    ConvolutionDownsample,
+    PoolingDownsample,
+    SparseBlockSeries,
+    offset_count,
+)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,48 +69,62 @@ class Encoder(nn.Module):
         tuning: WindowTuning = WindowTuning(),
     ):
         super().__init__()
-        if dimension != 3:
-            raise NotImplementedError(
-                "the 2D multiplane encoder is not ported yet (ROADMAP: the "
-                "other models and tasks)"
-            )
-        if params.downsampling != DownSampling.convolutional:
-            raise NotImplementedError(
-                "pooling downsampling is not ported yet (ROADMAP: the other "
-                "models and tasks)"
-            )
+        if dimension not in (2, 3):
+            raise ValueError(f"dimension must be 2 or 3, got {dimension}")
         p = params
         self.params = p
+        self.dimension = dimension
         self.backend = backend
         self.tuning = tuning
         caps = tuple(capacities) or (None,) * (p.depth + 1)
         self.capacities = caps
-        k3 = p.filter_size**3
+        downsampler = (
+            ConvolutionDownsample
+            if p.downsampling == DownSampling.convolutional
+            else PoolingDownsample
+        )
         # one input channel: the voxel's charge
-        self.initial_w = nn.Parameter(torch.empty(125, 1, p.n_initial_filters))
+        self.initial_w = nn.Parameter(
+            torch.empty(offset_count(self._kernel(5, 0)), 1, p.n_initial_filters)
+        )
         self.initial_b = (
             nn.Parameter(torch.zeros(p.n_initial_filters)) if p.bias else None
         )
         filters = p.n_initial_filters
         for i in range(p.depth):
-            self.add_module(
-                f"series_{i}", SparseBlockSeries(p.blocks_per_layer, filters, p, k3)
-            )
+            self.add_module(f"series_{i}", SparseBlockSeries(
+                p.blocks_per_layer, filters, p,
+                offset_count(self._kernel(p.filter_size, i)),
+            ))
             if p.growth_rate == GrowthRate.multiplicative:
                 nxt = filters * 2
             else:
                 nxt = filters + p.n_initial_filters
-            self.add_module(f"down_{i}", ConvolutionDownsample(
-                filters, nxt, (2, 2, 2), p, out_capacity=caps[i + 1],
+            self.add_module(f"down_{i}", downsampler(
+                filters, nxt, self._stride(), p, out_capacity=caps[i + 1],
                 backend=backend, q_bound_frac_in=self._qb_frac(i),
                 q_bound_frac_out=self._qb_frac(i + 1), tuning=tuning,
             ))
             filters = nxt
-        self.final_series = SparseBlockSeries(p.blocks_per_layer, filters, p, k3)
+        self.final_series = SparseBlockSeries(
+            p.blocks_per_layer, filters, p,
+            offset_count(self._kernel(p.filter_size, p.depth)),
+        )
         self.bottleneck_w = nn.Parameter(torch.empty(1, filters, p.n_output_filters))
         self.bottleneck_b = (
             nn.Parameter(torch.zeros(p.n_output_filters)) if p.bias else None
         )
+
+    def _kernel(self, k: int, level: int) -> Tuple[int, ...]:
+        if self.dimension == 2:
+            pm = self.params.plane_merge_depth
+            if pm >= 0 and level >= pm:
+                return (3, k, k)
+            return (1, k, k)
+        return (k,) * 3
+
+    def _stride(self) -> Tuple[int, ...]:
+        return (1, 2, 2) if self.dimension == 2 else (2, 2, 2)
 
     def _qb_frac(self, level: int) -> float:
         p = self.params
@@ -108,7 +132,7 @@ class Encoder(nn.Module):
 
     def _plan(self, st: SparseTensor, ksize: int, level: int, window_r: int):
         return build_series_plan(
-            st, (ksize,) * 3, backend=self.backend,
+            st, self._kernel(ksize, level), backend=self.backend,
             q_bound_frac=self._qb_frac(level), window_r=window_r,
         )
 
@@ -133,3 +157,16 @@ class Encoder(nn.Module):
             feats = feats + self.bottleneck_b
         feats = torch.where(st.row_mask()[..., None], feats, 0)
         return st.with_feats(torch.tanh(feats)), dropped
+
+
+def encoder_output_shape(
+    cfg_encoder: ConvRepresentation, image_shape: Tuple[int, ...],
+    dimension: int,
+) -> Tuple[int, ...]:
+    """[C, *spatial / 2**depth]; the plane axis of 2D data is not strided."""
+    scale = 2**cfg_encoder.depth
+    if dimension == 2:
+        spatial = [image_shape[0]] + [s // scale for s in image_shape[1:]]
+    else:
+        spatial = [s // scale for s in image_shape]
+    return tuple([cfg_encoder.n_output_filters] + spatial)

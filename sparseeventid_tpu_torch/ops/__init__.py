@@ -1,10 +1,18 @@
-from .conv import apply_conv, gather_neighbors, strided_conv, submanifold_conv  # noqa: F401
+from .conv import (  # noqa: F401
+    apply_conv,
+    average_pool,
+    deconv,
+    gather_neighbors,
+    strided_conv,
+    submanifold_conv,
+)
 from .norm import apply_norm, masked_batch_stats  # noqa: F401
 from .pool import global_avg_pool  # noqa: F401
 from .rulebook import (  # noqa: F401
     Rulebook,
     build_downsample_rulebook,
     build_submanifold_rulebook,
+    build_upsample,
     downsample_sites,
     kernel_offsets,
 )

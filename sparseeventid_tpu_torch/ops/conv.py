@@ -9,6 +9,8 @@ in float32 and cast once to the feature type.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from .rulebook import Rulebook
@@ -61,4 +63,34 @@ def strided_conv(
 ) -> SparseTensor:
     """scn.Convolution with filter_size == filter_stride (downsample)."""
     out = apply_conv(st_in.feats, rb, w, bias, skeleton.row_mask())
+    return skeleton.with_feats(out)
+
+
+def deconv(
+    st_coarse: SparseTensor,
+    target: SparseTensor,
+    rb: Rulebook,
+    w: torch.Tensor,
+    bias: torch.Tensor | None = None,
+) -> SparseTensor:
+    """scn.Deconvolution onto a supplied finer site set (``rb`` from
+    ``rulebook.build_upsample``)."""
+    out = apply_conv(st_coarse.feats, rb, w, bias, target.row_mask())
+    return target.with_feats(out)
+
+
+def average_pool(
+    st_in: SparseTensor,
+    skeleton: SparseTensor,
+    rb: Rulebook,
+    pool_size: Sequence[int],
+) -> SparseTensor:
+    """scn.AveragePooling: the sum of the child features divided by the FULL
+    pool volume (not by the count of live children)."""
+    g = gather_neighbors(st_in.feats, rb)  # [B, N_out, K, C]
+    vol = 1
+    for p in pool_size:
+        vol *= int(p)
+    out = g.sum(dim=2) / torch.tensor(vol, dtype=g.dtype, device=g.device)
+    out = torch.where(skeleton.row_mask()[..., None], out, 0)
     return skeleton.with_feats(out)

@@ -15,10 +15,11 @@ from typing import Sequence
 
 import torch
 
-from .conv import strided_conv, submanifold_conv
+from .conv import deconv, strided_conv, submanifold_conv
 from .rulebook import (
     build_downsample_rulebook,
     build_submanifold_rulebook,
+    build_upsample,
     downsample_sites,
 )
 from .sparse_tensor import SparseTensor
@@ -26,6 +27,7 @@ from .window.engine import (
     WindowPlan,
     build_strided_window_plans,
     build_submanifold_window_plan,
+    window_deconv,
     window_strided_conv,
     window_submanifold_conv,
 )
@@ -116,6 +118,39 @@ def apply_strided(st: SparseTensor, skeleton: SparseTensor, plan, w):
         fwd, rev = plan
         return window_strided_conv(st, skeleton, fwd, rev, w)
     return strided_conv(st, skeleton, plan, w)
+
+
+def build_upsample_plan(
+    st_coarse: SparseTensor,
+    target: SparseTensor,
+    stride: Sequence[int],
+    backend: str = XLA,
+    tuning: WindowTuning = WindowTuning(),
+):
+    """Plan of a deconvolution onto a supplied finer site set.  The window
+    backend builds the strided conv's (forward, reverse) plans with the FINE
+    set in the input role (``window.engine.window_deconv``)."""
+    if backend == WINDOW:
+        return build_strided_window_plans(
+            target, st_coarse, stride,
+            overflow_cap=_overflow_cap(target.capacity), tuning=tuning,
+        )
+    return build_upsample(st_coarse, target, stride)
+
+
+def apply_upsample(
+    st_coarse: SparseTensor, target: SparseTensor, plan, w, bias=None
+) -> SparseTensor:
+    if isinstance(plan, tuple) and plan and isinstance(plan[0], WindowPlan):
+        fwd, rev = plan
+        out = window_deconv(st_coarse, target, fwd, rev, w)
+        if bias is not None:
+            out = out.with_feats(torch.where(
+                out.row_mask()[..., None],
+                out.feats + bias.to(out.feats.dtype), 0,
+            ))
+        return out
+    return deconv(st_coarse, target, plan, w, bias)
 
 
 def plan_overflow_dropped(plan) -> torch.Tensor:

@@ -5,7 +5,8 @@
 A submanifold rulebook is a dense [B, N, K] gather table with a hit mask
 (output sites == input sites, so each (site, offset) has at most one
 partner).  A strided downsample builds the new site set
-unique(coords // stride) and looks up out*stride + delta in the parent keys.
+unique(coords // stride) and looks up out*stride + delta in the parent keys;
+an upsample (deconvolution) looks up each fine site's parent.
 """
 
 from __future__ import annotations
@@ -149,5 +150,35 @@ def build_downsample_rulebook(
     idx, hit = _lookup(st.keys(), qk.reshape(b, n_out * k))
     return Rulebook(
         idx.reshape(b, n_out, k), hit.reshape(b, n_out, k),
+        offsets=tuple(map(tuple, offs.tolist())),
+    )
+
+
+def build_upsample(
+    st_coarse: SparseTensor, target: SparseTensor, stride: Sequence[int]
+) -> Rulebook:
+    """Rulebook of a deconvolution (filter == stride) onto a supplied finer
+    site set: each target site t reads coarse site t // stride through the
+    weight slice of offset t % stride.  K = prod(stride) columns, at most
+    one of them live per target row."""
+    stride = tuple(int(s) for s in stride)
+    offs = kernel_offsets(stride, centered=False)
+    k = offs.shape[0]
+    b, n, _ = target.coords.shape
+    mask = target.row_mask()
+    stride_t = torch.as_tensor(stride, dtype=torch.int32, device=target.device)
+    parent = torch.div(target.coords, stride_t, rounding_mode="floor")
+    rem = target.coords - parent * stride_t
+    pkeys = torch.where(
+        mask, linearize(parent, st_coarse.grid_shape), INVALID_KEY
+    )
+    idx, hit = _lookup(st_coarse.keys(), pkeys)
+    off_id = rem[..., 0]
+    for d in range(1, rem.shape[-1]):
+        off_id = off_id * stride[d] + rem[..., d]
+    slot = off_id[..., None] == torch.arange(k, device=target.device)
+    return Rulebook(
+        idx[:, :, None].expand(b, n, k).contiguous(),
+        slot & hit[:, :, None] & mask[:, :, None],
         offsets=tuple(map(tuple, offs.tolist())),
     )

@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
-           "window_dw", "overflow_dw")
+           "window_dw", "overflow_dw", "window_gather", "gather_conv")
 # headers a source includes: an edited header rebuilds every source
 HEADERS = ("window_match.cuh",)
 NVCC_FLAGS = (
@@ -44,6 +44,9 @@ SIGNATURES = {
                             _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "seid_overflow_dw_f32": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
                              _P, _I, _I, _P],
+    "seid_window_gather_f32": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I,
+                               _P, _P, _P, _I, _P],
+    "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
 }
 # window_dw takes gy where the conv takes w, and returns dw for out
 SIGNATURES["seid_window_dw_f32"] = SIGNATURES["seid_window_conv_f32"]

@@ -10,7 +10,9 @@ the sidecar, with a drop count if the list's static capacity is hit.
 The backwards need no scatter.  A submanifold conv's transpose is the
 mirrored-offset conv on the same plan, a strided conv's walks the reverse
 plan (one live offset column per input row); each has its own overflow
-complement, applied by the dX and dW sidecars.
+complement, applied by the dX and dW sidecars.  A deconvolution is the
+strided conv between the same two site sets with the roles of its two
+plans exchanged.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from .kernels import (
     window_bwd_subm,
     window_conv_apply,
     window_dw,
+    window_gather,
     window_plan,
 )
 from .query import (
@@ -322,6 +325,48 @@ class _StridedWindowConv(torch.autograd.Function):
         )
 
 
+class _DeconvWindow(torch.autograd.Function):
+    """Deconvolution (filter == stride) on the plans of the strided conv
+    between the same two site sets, transposed: with (fwd, rev) =
+    build_strided_window_plans(target_fine, st_coarse, stride), each fine
+    row reads its parent coarse row through the reverse plan."""
+
+    @staticmethod
+    def forward(ctx, x_coarse, w, keys_fine, keys_coarse, fwd: WindowPlan,
+                rev: WindowPlan):
+        ctx.save_for_backward(x_coarse, w, keys_fine, keys_coarse)
+        ctx.plans = (fwd, rev)
+        return _windowed(x_coarse, keys_coarse, rev, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x_coarse, w, keys_fine, keys_coarse = ctx.saved_tensors
+        fwd, rev = ctx.plans
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        gy = gy.to(x_coarse.dtype).contiguous()
+        dxc = dw = None
+        if need_dx:
+            # the strided conv's forward walk over gy at the fine sites
+            dxc = _windowed(gy, keys_fine, fwd, w.transpose(1, 2).contiguous())
+        if need_dw:
+            # two steps: the neighbour matrix of the reverse plan's
+            # in-window pairs, then one float32 product with gy; the
+            # reverse list completes it with x_coarse[src] (outer) gy[dst]
+            k, c, co = w.shape
+            g1 = window_gather(
+                keys_coarse, x_coarse, rev.qmeta, rev.start, rev.q_active,
+                rev.dkeys, window_r=rev.window_r,
+            )
+            dw = torch.einsum("bno,bnm->mo", gy.float(), g1.float())
+            dw = dw.reshape(k, c, co)
+            dw = dw + _overflow_dw(x_coarse, gy, rev.ov_src, rev.ov_dst, rev)
+        return (
+            dxc if need_dx else None,
+            dw.to(w.dtype) if need_dw else None,
+            None, None, None, None,
+        )
+
+
 def window_submanifold_conv(
     st: SparseTensor,
     plan: WindowPlan,
@@ -353,3 +398,21 @@ def window_strided_conv(
     return skeleton.with_feats(
         torch.where(skeleton.row_mask()[..., None], out, 0)
     )
+
+
+def window_deconv(
+    st_coarse: SparseTensor,
+    target: SparseTensor,
+    fwd_plan: WindowPlan,
+    rev_plan: WindowPlan,
+    w: torch.Tensor,
+) -> SparseTensor:
+    """ops.conv.deconv on the windowed engine.  The plans come from
+    ``build_strided_window_plans(target, st_coarse, stride)``: the FINE site
+    set plays the input role, so the reverse plan walks fine -> coarse (the
+    deconv's forward) and the forward plan serves dX."""
+    out = _DeconvWindow.apply(
+        st_coarse.feats, w.to(st_coarse.feats.dtype).contiguous(),
+        target.keys(), st_coarse.keys(), fwd_plan, rev_plan,
+    )
+    return target.with_feats(torch.where(target.row_mask()[..., None], out, 0))

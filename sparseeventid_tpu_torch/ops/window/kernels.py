@@ -11,8 +11,8 @@ kernel to the plain version.  Each wrapper counts its kernel launches in
 JAX counterparts (``sparseeventid_tpu/ops/pallas/window_conv.py``):
 ``window_plan`` (:607), ``window_conv_apply`` (:993), ``window_dw`` (:1264),
 ``window_bwd_subm`` (:1365), ``window_bwd_strided`` (:1506),
-``overflow_apply`` (:1783), ``overflow_dw`` (:1881) and ``_ov_bound``
-(:1722).
+``window_gather`` (:1608), ``overflow_apply`` (:1783), ``overflow_dw``
+(:1881) and ``_ov_bound`` (:1722).
 """
 
 from __future__ import annotations
@@ -484,6 +484,77 @@ def window_dw(
 
 
 window_dw.launches = 0
+
+
+# --------------------------------------------------------------------------
+# window_gather: the gathered neighbour matrix (first half of a two-step dW)
+# --------------------------------------------------------------------------
+
+def window_gather_plain(
+    keys, feats, qmeta, start, q_active, dkeys, kmap=None, *, window_r: int,
+) -> torch.Tensor:
+    """Plain version of :func:`window_gather` (the same result, bit for
+    bit): per kernel slot, the matched table rows, 0 where not found."""
+    window_gather_plain.calls += 1
+    b, _, m = qmeta.shape
+    c = feats.shape[-1]
+    g = torch.zeros((b, m, len(dkeys), c), dtype=feats.dtype,
+                    device=feats.device)
+    for kk, found, rows in _matched_rows(keys, qmeta, start, q_active, dkeys,
+                                         kmap, window_r, None):
+        g[:, :, kk] = _gather_matched(feats, found, rows).to(feats.dtype)
+    return g.reshape(b, m, len(dkeys) * c)
+
+
+window_gather_plain.calls = 0
+
+
+def window_gather(
+    keys: torch.Tensor,  # i32[B, N_in] sorted keys of the table
+    feats: torch.Tensor,  # [B, N_in, C] table features
+    qmeta: torch.Tensor,  # i32[B, 1+nw, M]
+    start: torch.Tensor,  # i32[B, n_tiles, K]
+    q_active: torch.Tensor,  # i32[B] live rows on the query side
+    dkeys: Sequence[int],
+    kmap: Sequence[int] | None = None,
+    *,
+    window_r: int,
+) -> torch.Tensor:
+    """-> g [B, M, K*C] in the feature type: g[b, m, kk*C:(kk+1)*C] is the
+    table row that query (m, kmap[kk]) matches inside its plan window, else
+    0; every row of a tile with no live query is 0.  The matched set is the
+    one ``window_conv_apply`` counts.  ``window_r`` must be the plan's."""
+    if not _use_kernel(keys, feats, qmeta, start, q_active):
+        return window_gather_plain(
+            keys, feats, qmeta, start, q_active, dkeys, kmap,
+            window_r=window_r,
+        )
+    dtype = _float_dtype(feats, "window_gather")
+    b, nw1, m = qmeta.shape
+    n_in, c = feats.shape[1], feats.shape[2]
+    k, dk, cols = _offset_args(dkeys, kmap)
+    _check(keys, "keys", torch.int32, 2)
+    _check(feats, "feats", dtype, 3)
+    _check(qmeta, "qmeta", torch.int32, 3)
+    _check(start, "start", torch.int32, 3)
+    _check(q_active, "q_active", torch.int32, 1)
+    if keys.shape != (b, n_in) or feats.shape[0] != b:
+        raise ValueError("window_gather: inconsistent shapes")
+    if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
+        raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
+    out = torch.empty((b, m, k * c), dtype=dtype, device=feats.device)
+    name = ("seid_window_gather_bf16" if dtype == torch.bfloat16
+            else "seid_window_gather_f32")
+    fn = getattr(_native.lib("window_gather"), name)
+    err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
+             _ptr(start), start.shape[1], k, _ptr(q_active), int(window_r),
+             _ptr(out), dk, cols, b, _stream(feats))
+    window_gather.launches += 1
+    _native.check(err, "window_gather")
+    return out
+
+
+window_gather.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,12 @@ from ..config.schema import (
     SparseEventIDConfig,
     image_size,
 )
-from ..io import SyntheticDataset, SyntheticEventConfig, larcv_batch_to_sparse_3d
+from ..io import (
+    SyntheticDataset,
+    SyntheticEventConfig,
+    larcv_batch_to_sparse_2d,
+    larcv_batch_to_sparse_3d,
+)
 from ..models import build_sparse_classifier, init_parameters
 from .supervised import eval_metrics
 
@@ -61,15 +66,22 @@ def feature_dtype(cfg: SparseEventIDConfig) -> torch.dtype:
 
 
 def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
-    """The synthetic dataset of a split, seeded as the JAX trainer seeds it."""
+    """The synthetic dataset of a split, seeded as the JAX trainer seeds it.
+    2D multiplane data: 3D tracks on (H, H, W), projected per plane."""
     if cfg.data.detector != Detector.synthetic or getattr(cfg.data, split, ""):
         raise NotImplementedError(
             f"larcv data files are not read by this package yet ({_LARCV_ITEM})"
         )
+    shape = image_size(cfg)
+    if cfg.data.dimension == 2:
+        gen_size, planes = (shape[1],) + tuple(shape[1:]), shape[0]
+    else:
+        gen_size, planes = shape, 1
     return SyntheticDataset(
         cfg.data.synthetic_events,
         SyntheticEventConfig(
-            image_size=image_size(cfg),
+            image_size=gen_size,
+            n_planes=planes,
             max_voxels=cfg.data.max_voxels,
             normalize=cfg.data.normalize,
         ),
@@ -80,9 +92,11 @@ def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
 def prepare_batch(batch, grid, capacity: int, dtype: torch.dtype,
                   device: torch.device):
     """A dataset batch (padded numpy arrays) -> (SparseTensor on the device
-    in the feature type, labels on the device)."""
-    st = larcv_batch_to_sparse_3d(batch["image"], grid, capacity=capacity,
-                                  device=device)
+    in the feature type, labels on the device).  A 4-D image is 2D
+    multiplane data, [B, planes, MaxVoxels, 3]."""
+    to_sparse = (larcv_batch_to_sparse_2d if batch["image"].ndim == 4
+                 else larcv_batch_to_sparse_3d)
+    st = to_sparse(batch["image"], grid, capacity=capacity, device=device)
     st = st.with_feats(st.feats.to(dtype))
     labels = {k: torch.from_numpy(batch[k]).to(device) for k in OUTPUT_SHAPE}
     return st, labels
@@ -106,8 +120,8 @@ def validate(
     """Run the validation split once -> mean metrics (``overflow/dropped``
     is the total over the run).
 
-    ``dataset`` defaults to the config's synthetic split; ``params`` is a
-    ``state_dict`` (e.g. from ``convert.params_from_jax``), default a
+    ``dataset`` (``__len__``, ``batch(indices)``, ``batch_grid()``) defaults
+    to the config's synthetic split; ``params`` is a ``state_dict`` (e.g. from ``convert.params_from_jax``), default a
     seeded random initialisation."""
     if cfg.name != "supervised_eventID":
         raise NotImplementedError(
@@ -129,10 +143,7 @@ def validate(
         model.load_state_dict(params)
     model.to(dev).eval()
     dtype = feature_dtype(cfg)
-    grid = (
-        tuple(dataset.image_size()) if hasattr(dataset, "image_size")
-        else image_size(cfg)
-    )
+    grid = dataset.batch_grid()
     cap0 = model.encoder.capacities[0]
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
     scheme = opt_cfg.loss_balance_scheme

@@ -19,12 +19,7 @@ from typing import Dict, Iterator, List, Mapping
 import numpy as np
 import torch
 
-from ..config.schema import (
-    AccessMode,
-    OptimizerConfig,
-    SparseEventIDConfig,
-    image_size,
-)
+from ..config.schema import AccessMode, OptimizerConfig, SparseEventIDConfig
 from ..models import build_sparse_classifier, init_parameters
 from .evaluate import (
     class_weights_of,
@@ -105,8 +100,8 @@ def train(
     params: Mapping[str, torch.Tensor] | None = None,
     device: torch.device | str | None = None,
 ) -> TrainRun:
-    """Run train mode.  ``dataset`` defaults to the config's synthetic train
-    split; ``params`` is a ``state_dict`` to start from, default a seeded
+    """Run train mode.  ``dataset`` (``__len__``, ``batch(indices)``,
+    ``batch_grid()``) defaults to the config's synthetic train split; ``params`` is a ``state_dict`` to start from, default a seeded
     random initialisation."""
     if cfg.name != "supervised_eventID":
         raise NotImplementedError(
@@ -131,10 +126,7 @@ def train(
     state, step, n_steps = build_training(cfg, epoch_length, params, dev)
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
     dtype = feature_dtype(cfg)
-    grid = (
-        tuple(dataset.image_size()) if hasattr(dataset, "image_size")
-        else image_size(cfg)
-    )
+    grid = dataset.batch_grid()
     cap0 = state.model.encoder.capacities[0]
     generator = torch.Generator(device=dev).manual_seed(cfg.run.seed + 1)
     batches = batch_indices(len(dataset), bs, cfg.data.mode, cfg.data.seed)

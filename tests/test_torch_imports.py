@@ -79,7 +79,10 @@ def test_unported_inputs_raise_naming_the_roadmap():
     from sparseeventid_tpu_torch.train.trainer import train
 
     for ov in (["mode.weights_location=ckpt"], ["run.distributed=true"],
-               ["data=dune3d"]):
+               ["data=dune3d"], ["data=dune2d"],
+               ["encoder.per_label_final_series=true"],
+               ["encoder.normalization=group"],
+               ["encoder.normalization=layer"]):
         cfg = load_config("synthetic", ["mode=train", "run.compute_mode=CPU"] + ov)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train(cfg)
@@ -88,9 +91,22 @@ def test_unported_inputs_raise_naming_the_roadmap():
                                     "mode.weights_location=ckpt"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         validate(cfg)
-    cfg = load_config("dune3d", ["mode=inference", "run.compute_mode=CPU"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        validate(cfg)
+    for recipe in ("dune3d", "dune2d"):
+        cfg = load_config(recipe, ["mode=inference", "run.compute_mode=CPU"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            validate(cfg)
+
+
+def test_new_entry_points_need_cuda_unless_asked(monkeypatch):
+    """The 2D path goes through the same entry points: the card unless the
+    caller asks for the CPU."""
+    from sparseeventid_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    two_d = ["--config-name", "synthetic", "data.dimension=2", "data.images=3"]
+    for mode in ("mode=inference", "mode=train"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(two_d + [mode])
 
 
 def test_kernel_wrappers_refuse_other_devices():

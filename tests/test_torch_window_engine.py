@@ -199,10 +199,10 @@ def test_window_strided_conv_matches_jax(integer):
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_window_conv_under_autograd_raises():
-    """Under autograd the conv refuses nothing any more: it returns the
-    plain rulebook backend's gradients (bit for bit on integer data).  What
-    still raises is a second backward through its saved tensors."""
+def test_window_conv_under_autograd_equals_plain_backend():
+    """Under autograd the conv returns the plain rulebook backend's
+    gradients (bit for bit on integer data).  What raises is a second
+    backward through its saved tensors."""
     coords, feats = random_coo(6, n=128, grid=(8, 8, 8), c=2, density=0.1)
     _, st = both(coords, feats, (8, 8, 8))
     plan = twe.build_submanifold_window_plan(st, (3, 3, 3), window_r=160,

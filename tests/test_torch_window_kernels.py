@@ -230,3 +230,61 @@ def test_wrappers_count_plain_calls_not_launches():
     )
     assert tk.overflow_apply.launches == before[0]
     assert tk.overflow_apply_plain.calls == before[1] + 1
+
+
+@pytest.mark.parametrize("name,ksz,mirror,n_live,integer", [
+    ("k27", (3, 3, 3), False, [400, 0], False),
+    ("k27_kmap_mirror", (3, 3, 3), True, [400, 0], False),
+    ("k27_dead_tile", (3, 3, 3), False, [100, 300], True),
+    ("k9_plane", (1, 3, 3), False, [300, 200], False),
+])
+def test_window_gather_bit_equal(name, ksz, mirror, n_live, integer):
+    """The gathered neighbour matrix equals the Pallas kernel's bit for bit
+    on real-valued data (it copies rows): with and without ``kmap``, with an
+    empty event (all its tiles dead) and with an event whose last tiles are
+    dead (100 live rows of 512)."""
+    coords, feats = random_coo(11, n=512, grid=(12, 12, 12), c=8, density=0.25,
+                               n_live=n_live, integer=integer)
+    sj, st = both(coords, feats, (12, 12, 12))
+    plan = jwe.build_submanifold_window_plan(sj, ksz, interpret=True,
+                                             window_r=160)
+    kmap = None
+    if mirror:
+        kmap = tuple(int(x) for x in jwe._mirror_perm(plan.offsets))
+    want = jwc.window_gather(
+        sj.keys(), sj.feats, plan.qmeta, plan.start, plan.q_active,
+        plan.dkeys, kmap=kmap, interpret=True, window_r=plan.window_r,
+    )
+    before = tk.window_gather_plain.calls
+    got = tk.window_gather(
+        st.keys(), st.feats, t(plan.qmeta), t(plan.start), t(plan.q_active),
+        plan.dkeys, kmap, window_r=plan.window_r,
+    )
+    assert tk.window_gather_plain.calls == before + 1
+    assert got.shape == (2, 512, len(plan.offsets) * 8)
+    assert_equal(got, want)
+    assert float(got.abs().sum()) > 0
+    dead = [(b, -(-n // 128) * 128) for b, n in enumerate(n_live)]
+    for b, first_dead_row in dead:
+        assert float(got[b, first_dead_row:].abs().sum()) == 0
+
+
+def test_window_gather_leaves_out_of_window_pairs():
+    """With a narrow window the gathered set is the conv's in-window set:
+    contracting it with W equals ``window_conv_apply``, and differs from the
+    full rulebook's conv by exactly the overflow list's pairs."""
+    coords, feats, grid = line_coo(c=4)
+    sj, st = both(coords, feats, grid)
+    plan = jwe.build_submanifold_window_plan(sj, (3, 3, 3), overflow_cap=512,
+                                             interpret=True, window_r=32)
+    assert int(np.asarray(plan.ov_valid).sum()) > 0
+    args = (st.keys(), st.feats, t(plan.qmeta), t(plan.start))
+    g = tk.window_gather(*args, t(plan.q_active), plan.dkeys,
+                         window_r=plan.window_r)
+    assert_equal(g, jwc.window_gather(
+        sj.keys(), sj.feats, plan.qmeta, plan.start, plan.q_active,
+        plan.dkeys, interpret=True, window_r=plan.window_r))
+    w = torch.from_numpy(int_weights(4, (27, 4, 8)))
+    conv = tk.window_conv_apply(*args, w, t(plan.q_active), plan.dkeys,
+                                window_r=plan.window_r)
+    assert torch.equal(torch.matmul(g, w.reshape(27 * 4, 8)), conv)
