@@ -9,9 +9,13 @@ Phases, one JSON line each; any failure exits non-zero:
   2. build    every CUDA kernel of csrc/ built with nvcc (sm_90a), in parallel
   3. kernel   each kernel, forward and backward, against its plain PyTorch
               version on the card, at the main path's shapes from one
-              synthetic dune3d batch: bit-equal on integer-valued bf16 data,
-              max abs error on real-valued data, and times (kernel, plain
-              version, a PyTorch yardstick) beside the card's least time
+              synthetic dune3d batch: bit-equal on integer-valued bf16 data
+              (the sidecar and window_dw on fp32 too; the sidecar also on
+              hand-made lists at the real list width: a row of K entries
+              across a span edge, holes, an empty event, n_bound below the
+              width), max abs error on real-valued data, and times (kernel,
+              plain version, a PyTorch yardstick) beside the card's least
+              time
   4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
               of the window autograd Functions equal the plain rulebook
               backend's autograd exactly (level-0 series plan and level-0
@@ -36,7 +40,8 @@ Phases, one JSON line each; any failure exits non-zero:
               shape) bit-equal to its plain version on real-valued bf16
               data, gather_conv (levels 0 and 5 over the real rulebooks)
               bit-equal on integer-valued data; the deconv's two-step dW
-              timed beside window_dw at the same shape
+              timed beside window_dw at the same shape, and window_dw's
+              own row there (bit-equal on integer bf16 and fp32 data)
   9. engine_ops  integer-valued fp32: the window deconv (forward, dX, dW)
               against the plain backend's autograd, PoolingDownsample's
               window branch against its plain branch, the gather conv
@@ -145,20 +150,39 @@ def require(cond, what: str) -> None:
         raise Failure(what)
 
 
-def timed_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+def timed_ms(fn, iters: int = 10, warmup: int = 2, graph: bool = True) -> float:
+    """Mean device time of one call.  ``graph``: ``iters`` calls captured in
+    one CUDA graph, replayed between two CUDA events, so the host's cost of
+    a launch (the Python wrapper, ctypes) is left out and a call of a few
+    microseconds is timed as the device runs it.  Otherwise (the plain
+    versions, which synchronise): CUDA events around ``iters`` calls."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        fn()
+    if graph:
+        g.replay()
+    else:
+        for _ in range(iters):
+            fn()
     t1.record()
     torch.cuda.synchronize()
+    del g
     return t0.elapsed_time(t1) / iters
 
 
@@ -278,6 +302,47 @@ def _int_like(shape, gen, device, dtype, lo=-2, hi=3):
     return torch.randint(lo, hi, shape, generator=gen, device=device).to(dtype)
 
 
+def _handmade_lists(n_q, n_t, k, width, seed):
+    """Overflow lists the engine rarely builds, at a real list's width, for
+    the sidecar kernel's row-aligned spans (32 entries at C * CO <= 1024,
+    csrc/overflow_apply.cu) -> (src, dst, kk, valid, n_bound) on the card.
+    Per event, rows ascend with 1..K entries each (distinct offsets) and 10%
+    of the prefix are invalid holes (dst kept in order); in event 0 a row of
+    all K offsets starts at entry max(0, 32 - K // 2), across a span edge;
+    every third event is empty (n_bound 0); past each prefix lie garbage
+    entries, half of them flagged valid, with indices out of every range,
+    and n_bound (< width) stops before them.  n_q, n_t: live output and
+    table rows per event."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = len(n_q)
+    src = rng.integers(-9, 2**20, (b, width))
+    dst = rng.integers(-9, 2**20, (b, width))
+    kk = rng.integers(-3, 4 * k, (b, width))
+    valid = rng.random((b, width)) < 0.5
+    n_bound = np.zeros(b, np.int64)
+    for e in range(b):
+        if e % 3 == 2:
+            continue
+        rows = np.sort(rng.choice(n_q[e], min(n_q[e], width // k), replace=False))
+        runs = rng.integers(1, k + 1, rows.size)
+        if e == 0:
+            lead = max(0, 32 - k // 2)  # single-entry rows up to the K-row
+            runs[:lead], runs[lead] = 1, k
+        p = int(runs.sum())
+        dst[e, :p] = np.repeat(rows, runs)
+        kk[e, :p] = np.concatenate([rng.permutation(k)[:r] for r in runs])
+        src[e, :p] = rng.integers(0, n_t[e], p)
+        valid[e, :p] = rng.random(p) >= 0.1
+        n_bound[e] = p
+    dev = torch.device(DEVICE)
+    return tuple(torch.as_tensor(a, device=dev).to(t).contiguous() for a, t in (
+        (src, torch.int32), (dst, torch.int32), (kk, torch.int32),
+        (valid, torch.bool), (n_bound, torch.int32)))
+
+
 def phase_kernels(dataset, geo=GEOMETRY_3D):
     """Kernel against plain version at main-path shapes -> per-kernel rows."""
     import torch
@@ -380,7 +445,8 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         ms = timed_ms(lambda: K.window_plan(*args, window_r=r,
                                             table_cap=tab.capacity))
         plain_ms = timed_ms(lambda: K.window_plan_plain(
-            *args, window_r=r, table_cap=tab.capacity), iters=3, warmup=1)
+            *args, window_r=r, table_cap=tab.capacity), iters=3, warmup=1,
+            graph=False)
         qf = qkeys.reshape(qkeys.shape[0], -1)
         lib_ms = timed_ms(lambda: torch.searchsorted(keys, qf))
         # reads: the active keys, the live queries' keys; writes: start and
@@ -423,7 +489,7 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                ).abs().max().item()
         ms = timed_ms(lambda: K.window_conv_apply(*rargs, window_r=r))
         plain_ms = timed_ms(lambda: K.window_conv_apply_plain(*rargs, window_r=r),
-                            iters=3, warmup=1)
+                            iters=3, warmup=1, graph=False)
         # yardstick: index gather of every rulebook neighbour + one matmul
         idx = full.neighbor_idx.long().reshape(tab.batch_size, -1)
         hit = full.hit.reshape(tab.batch_size, -1, 1)
@@ -455,20 +521,40 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         if sidecars:
             require(n_ov > 0, f"the overflow list is empty at {label}")
             nb = K._ov_bound(valid)
+            # the kernel's precondition (csrc/overflow_apply.cu)
+            require(K.overflow_dst_ordered(dst, nb),
+                    f"the overflow list's dst is out of order at {label}")
+            plan_list = (src, dst, kk, valid, nb)
 
-            def side(base, x, w, kernel=True):
-                sargs = (base, x, w, src, dst, kk, valid, nb)
+            def side(base, x, w, kernel=True, lst=plan_list):
+                sargs = (base, x, w, *lst)
                 if not kernel:
                     return K.overflow_apply_plain(*sargs)
                 if c == 1:
                     return K.overflow_apply(*sargs)
                 return overflow_apply_batched(*sargs)
 
-            got = side(out.clone(), x_int, w_int)
-            want = side(out.clone(), x_int, w_int, kernel=False)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want),
-                    f"{name} differs from its plain version at {label}")
+            hand = _handmade_lists(qst.n_active.tolist(), tab.n_active.tolist(),
+                                   k, src.shape[1], SEED + c)
+            require(K.overflow_dst_ordered(hand[1], hand[4])
+                    and int(hand[4].max()) < src.shape[1],
+                    f"hand-made lists are not as meant at {label}")
+            for what, lst in (("the plan's list", plan_list),
+                              ("hand-made lists", hand)):
+                for dt in (bf16, torch.float32):
+                    args_dt = (out.to(dt), x_int.to(dt), w_int.to(dt))
+                    got = side(args_dt[0].clone(), *args_dt[1:], lst=lst)
+                    want = side(args_dt[0].clone(), *args_dt[1:], kernel=False,
+                                lst=lst)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want),
+                            f"{name} differs from its plain version on {what}, "
+                            f"{dt}, at {label}")
+                    require(not torch.equal(got, args_dt[0]),
+                            f"{name} changed nothing on {what} at {label}")
+            walked = (torch.arange(src.shape[1], device=dev)[None, :]
+                      < hand[4][:, None])
+            occupancy["handmade_entries"] = int((hand[3] & walked).sum())
             base_r = K.window_conv_apply(*rargs, window_r=r)
             err = (side(base_r.clone(), x_real, w_real).float()
                    - side(base_r.clone(), x_real, w_real, kernel=False).float()
@@ -476,7 +562,7 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             scratch = base_r.clone()
             ms = timed_ms(lambda: side(scratch, x_real, w_real))
             plain_ms = timed_ms(lambda: side(scratch, x_real, w_real, False),
-                                iters=3, warmup=1)
+                                iters=3, warmup=1, graph=False)
             bi, si = torch.nonzero(valid, as_tuple=True)
             target = bi * qst.capacity + dst[bi, si].long()
             source = bi * tab.capacity + src[bi, si].long()
@@ -535,8 +621,10 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             perm = None if strided else _mirror_perm(plan.offsets)
             bkeys = qst.keys()
 
+            perm_t = None if strided else torch.as_tensor(perm, device=dev)
+
             def fused(x, gy, w, kernel=True):
-                wk = w if strided else w[torch.as_tensor(perm, device=dev)].contiguous()
+                wk = w if strided else w[perm_t].contiguous()
                 f = K.window_bwd_strided if kernel else K.window_bwd_strided_plain
                 return f(bkeys, gy, x, bp.qmeta, bp.start, wk, bp.q_active,
                          bp.dkeys, window_r=bp.window_r)
@@ -561,7 +649,7 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                       (rk[1] - rp[1]).abs().max().item())
             ms = timed_ms(lambda: fused(x_real, gy_real, w_real))
             plain_ms = timed_ms(lambda: fused(x_real, gy_real, w_real, False),
-                                iters=2, warmup=1)
+                                iters=2, warmup=1, graph=False)
             lib_ms = timed_ms(lambda: library_bwd(x_real, gy_real, w_real),
                               iters=3, warmup=1)
             # in-window pairs of the plan the kernel walks
@@ -587,21 +675,26 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             ))
         else:
             # kernel 6: window_dw over the forward plan (the initial conv)
-            dargs = (keys, x_int, plan.qmeta, start, gy_int, qst.n_active,
-                     plan.dkeys)
-            got = K.window_dw(*dargs, window_r=r)
-            want = K.window_dw_plain(*dargs, window_r=r)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want),
-                    f"window_dw differs from its plain version at {label}")
-            require(float(got.abs().sum()) > 0, f"dw is all 0 at {label}")
+            # the persistent grid must stride: more live tiles than blocks
+            parts = K._dw_parts(dev, tab.batch_size, qst.capacity, k, c, co)
+            require(live_tiles > parts,
+                    f"{live_tiles} live tiles, {parts} window_dw blocks at {label}")
+            for dt in (bf16, torch.float32):
+                dargs = (keys, x_int.to(dt), plan.qmeta, start, gy_int.to(dt),
+                         qst.n_active, plan.dkeys)
+                got = K.window_dw(*dargs, window_r=r)
+                want = K.window_dw_plain(*dargs, window_r=r)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"window_dw differs from its plain version, {dt}, at {label}")
+                require(float(got.abs().sum()) > 0, f"dw is all 0 at {label}")
             rargs_dw = (keys, x_real, plan.qmeta, start, gy_real, qst.n_active,
                         plan.dkeys)
             err = (K.window_dw(*rargs_dw, window_r=r)
                    - K.window_dw_plain(*rargs_dw, window_r=r)).abs().max().item()
             ms = timed_ms(lambda: K.window_dw(*rargs_dw, window_r=r))
             plain_ms = timed_ms(lambda: K.window_dw_plain(*rargs_dw, window_r=r),
-                                iters=2, warmup=1)
+                                iters=2, warmup=1, graph=False)
             lib_ms = timed_ms(
                 lambda: library_bwd(x_real, gy_real, w_real, want_dx=False),
                 iters=3, warmup=1)
@@ -613,7 +706,7 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             results["window_dw"].append(dict(
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                pairs_in_window=pairs_in,
+                pairs_in_window=pairs_in, live_tiles=live_tiles, blocks=parts,
             ))
 
         # ---- dW sidecar on the list the backward walks: the forward list
@@ -641,7 +734,7 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                    - side_dw(x_real, gy_real, False)).abs().max().item()
             ms = timed_ms(lambda: side_dw(x_real, gy_real))
             plain_ms = timed_ms(lambda: side_dw(x_real, gy_real, False),
-                                iters=3, warmup=1)
+                                iters=3, warmup=1, graph=False)
             bi, si = torch.nonzero(valid, as_tuple=True)
             xs = x_real[bi, s_[bi, si].long()]
             gs = gy_real[bi, d_[bi, si].long()]
@@ -686,12 +779,23 @@ def _swap_dx_list(apply, is_dx_call):
     import torch
 
     from sparseeventid_tpu_torch.ops.window.engine import _mirror_perm
+    from sparseeventid_tpu_torch.ops.window.kernels import _ov_bound
 
     def patched(out, table, w, plan):
         if is_dx_call(out, table, plan):
             perm = torch.as_tensor(_mirror_perm(plan.offsets), device=w.device)
-            plan = dataclasses.replace(plan, ov_src=plan.ov_dst,
-                                       ov_dst=plan.ov_src)
+            # transposed, then sorted by the new dst over the walked prefix,
+            # as the sidecar kernel needs every list: the fault is the pair
+            # set, not the order
+            nb = _ov_bound(plan.ov_valid)
+            pos = torch.arange(plan.ov_src.shape[1], device=w.device)
+            key = torch.where(pos[None, :] < nb[:, None], plan.ov_src.long(),
+                              2**40)
+            order = torch.sort(key, dim=1, stable=True).indices
+            take = lambda x: torch.gather(x, 1, order)  # noqa: E731
+            plan = dataclasses.replace(
+                plan, ov_src=take(plan.ov_dst), ov_dst=take(plan.ov_src),
+                ov_k=take(plan.ov_k), ov_valid=take(plan.ov_valid))
             w = w[perm].contiguous()  # perm is an involution: undoes it
         return apply(out, table, w, plan)
 
@@ -853,6 +957,7 @@ def phase_gather_kernels(dataset):
         return torch.where(st.row_mask()[..., None], x, 0).contiguous()
 
     results = {n: [] for n in OPS_KERNELS}
+    results["window_dw"] = []  # its deconv shape; the main shapes: kernel phase
 
     # ---- window_gather
     fwd, rev = E.build_upsample_plan(levels[1], st0, (2, 2, 2),
@@ -881,7 +986,7 @@ def phase_gather_kernels(dataset):
         ms = timed_ms(lambda: K.window_gather(*args, window_r=plan.window_r))
         plain_ms = timed_ms(
             lambda: K.window_gather_plain(*args, window_r=plan.window_r),
-            iters=2, warmup=1)
+            iters=2, warmup=1, graph=False)
         # yardstick: one index gather of the matched rows, indices given
         rows = torch.zeros((qst.batch_size, qst.capacity, k), dtype=torch.int64,
                            device=dev)
@@ -940,6 +1045,48 @@ def phase_gather_kernels(dataset):
             row["deconv_dw"] = dict(
                 two_step_ms=timed_ms(two_step), window_dw_ms=timed_ms(fused),
                 max_abs_diff=err, max_abs=scale)
+            # window_dw's own row at this shape: bit-equal to its plain
+            # version on integer data, then timed as in the kernel phase
+            x_int, gy_int = feats_of(tab, c, integer=True), feats_of(qst, 32, True)
+            for dt in (bf16, torch.float32):
+                dargs = (keys, x_int.to(dt), plan.qmeta, plan.start,
+                         gy_int.to(dt), plan.q_active, plan.dkeys)
+                got_dw = K.window_dw(*dargs, window_r=plan.window_r)
+                want_dw = K.window_dw_plain(*dargs, window_r=plan.window_r)
+                torch.cuda.synchronize()
+                require(torch.equal(got_dw, want_dw) and float(got_dw.abs().sum()) > 0,
+                        f"window_dw differs from its plain version, {dt}, at {label}")
+
+            def plain_dw():
+                return K.window_dw_plain(keys, x, plan.qmeta, plan.start, gy,
+                                         plan.q_active, plan.dkeys,
+                                         window_r=plan.window_r)
+
+            book = rb.build_upsample(tab, qst, (2, 2, 2))
+            nbr_up = book.neighbor_idx.long().reshape(qst.batch_size, -1, 1)
+            hit_up = book.hit[..., None]
+
+            def library_dw():
+                xg = torch.gather(x, 1, nbr_up.expand(-1, -1, c))
+                xg = xg.reshape(*book.hit.shape, c) * hit_up
+                return torch.einsum("bmkc,bmo->kco", xg, gy)
+
+            pairs_in = int(found.sum())
+            b_ms, b_by = bound(
+                (4 + 2 * c) * int(tab.n_active.sum())
+                + (4 * plan.qmeta.shape[1] + 2 * 32) * n_q + 4 * k * live_tiles
+                + nbytes(plan.q_active, b), 2.0 * pairs_in * c * 32)
+            results["window_dw"].append(dict(
+                shape=f"deconv L1->L0 2^3 {c}->32", max_abs_err=float(
+                    (fused() - plain_dw()).abs().max()),
+                ms=timed_ms(fused),
+                plain_ms=timed_ms(plain_dw, iters=2, warmup=1, graph=False),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=timed_ms(library_dw, iters=3, warmup=1),
+                pairs_in_window=pairs_in, live_tiles=live_tiles,
+                blocks=K._dw_parts(dev, qst.batch_size, qst.capacity, k, c, 32)))
+            row["window_dw"] = results["window_dw"][-1]
+            del book, nbr_up, hit_up, x_int, gy_int
         emit({"phase": "gather_kernel", "shape": label,
               "window_r": plan.window_r, "rows": row})
         del got, rows, found, flat, mask, x
@@ -966,7 +1113,7 @@ def phase_gather_kernels(dataset):
                - GC.gather_conv_plain(x, idx, w).float()).abs().max().item()
         ms = timed_ms(lambda: GC.gather_conv(x, idx, w))
         plain_ms = timed_ms(lambda: GC.gather_conv_plain(x, idx, w),
-                            iters=2, warmup=1)
+                            iters=2, warmup=1, graph=False)
         flat = book.neighbor_idx.long().reshape(st.batch_size, -1, 1)
         hit = book.hit.reshape(st.batch_size, -1, 1)
         w2 = w.reshape(27 * c, co)
@@ -1292,7 +1439,10 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
 
 def _device_profile(fn):
     """Run ``fn`` under torch.profiler -> (wall ms, device-busy ms, the 15
-    kernels with the most device time)."""
+    kernels with the most device time, and the device time and launches of
+    each kernel of csrc/ by function name, bf16 and fp32 instances merged)."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1306,9 +1456,16 @@ def _device_profile(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    port = {}
+    for e in kernels:  # the port's kernels live in anonymous namespaces
+        found = re.search(r"\(anonymous namespace\)::(\w+)", e.key)
+        if found:
+            row = port.setdefault(found.group(1), {"ms": 0.0, "count": 0})
+            row["ms"] += e.self_device_time_total / 1e3
+            row["count"] += e.count
     return wall_ms, busy_ms, [
         {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-         "count": e.count} for e in top]
+         "count": e.count} for e in top], port
 
 
 def profile_train_step(dataset, recipe="dune3d", grid=GRID,
@@ -1333,10 +1490,10 @@ def profile_train_step(dataset, recipe="dune3d", grid=GRID,
         return float(step(st, labels, generator)["loss/loss"])
 
     one_step(0)
-    wall_ms, busy_ms, top = _device_profile(lambda: one_step(BATCH))
+    wall_ms, busy_ms, top, port = _device_profile(lambda: one_step(BATCH))
     emit({"phase": f"profile_{phase}", "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-          "top_kernels": top})
+          "top_kernels": top, "port_kernels": port})
 
 
 def profile_one_batch(cfg, dataset, grid=GRID, phase="profile") -> None:
@@ -1345,10 +1502,11 @@ def profile_one_batch(cfg, dataset, grid=GRID, phase="profile") -> None:
     from sparseeventid_tpu_torch.train.evaluate import validate
 
     one = CachedDataset(grid, {0: dataset.batch([0])}, BATCH)
-    wall_ms, busy_ms, top = _device_profile(
+    wall_ms, busy_ms, top, port = _device_profile(
         lambda: validate(cfg, dataset=one, device=DEVICE))
     emit({"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / wall_ms, "top_kernels": top})
+          "device_busy_share": busy_ms / wall_ms, "top_kernels": top,
+          "port_kernels": port})
 
 
 def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
@@ -1632,7 +1790,8 @@ def main() -> int:
         train_launches = phase_train(dataset)
         phase_fp32(dataset)
         phase_fp32_grad(dataset)
-        rows.update(phase_gather_kernels(dataset))
+        for kname, per_shape in phase_gather_kernels(dataset).items():
+            rows.setdefault(kname, []).extend(per_shape)
         ops_launches = phase_engine_ops(dataset)
         del dataset
         dataset_2d = make_dataset_2d()

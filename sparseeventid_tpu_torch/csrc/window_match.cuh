@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <stdint.h>
 
 namespace seid {
@@ -51,11 +52,60 @@ __device__ __forceinline__ int live_tiles(int q_active, int m_bound) {
   return live < bound_tiles ? live : bound_tiles;
 }
 
+// The plan window of a query tile at one column: table rows [lo, end),
+// the window [s, s + window_r) clamped to the table.
+__device__ __forceinline__ void window_rows(long long s, int window_r,
+                                            int n_in, long long& lo,
+                                            long long& end) {
+  lo = s > 0 ? s : 0;
+  end = s + window_r;
+  end = end < n_in ? end : n_in;
+}
+
+// Position of key q in the sorted, unique keys[lo, end), or -1 (a lower
+// bound, then an equality test).  Key arithmetic is in 64 bits.
+__device__ __forceinline__ long long find_key(const int* keys, long long lo,
+                                              long long end, long long q) {
+  long long hi = end;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if ((long long)keys[mid] < q) lo = mid + 1; else hi = mid;
+  }
+  return (lo < end && (long long)keys[lo] == q) ? lo : -1;
+}
+
+// find_key over [0, n) of a window staged in shared memory, for N keys at
+// once (independent searches interleaved, N loads in flight), in 32 bits:
+// a key outside the int range matches nothing, and each lower bound is
+// taken by binary lifting, the same number of steps for every lane.
+template <int N>
+__device__ __forceinline__ void find_keys_staged(const int* keys, int n,
+                                                 const long long (&q)[N],
+                                                 int (&pos)[N]) {
+  int qi[N], lo[N];  // lo: keys below qi
+  bool fits[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    fits[i] = q[i] >= INT_MIN && q[i] <= INT_MAX;
+    qi[i] = (int)q[i];
+    lo[i] = 0;
+  }
+  for (int step = n > 0 ? 1 << (31 - __clz(n)) : 0; step > 0; step >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (lo[i] + step <= n && keys[lo[i] + step - 1] < qi[i]) lo[i] += step;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    pos[i] = (fits[i] && lo[i] < n && keys[lo[i]] == qi[i]) ? lo[i] : -1;
+}
+
 // Table row matched by query row mq at query column col, or -1.  The query
 // is live only where bit col of the packed validity words is set; its key
-// base + dkey is searched only inside the plan window [s, s + window_r) of
-// the sorted, unique keys.  A match outside the window is NOT a match here:
-// it is on the plan's overflow list.  Key arithmetic is in 64 bits.
+// base + dkey is searched only inside the plan window (window_rows) of the
+// sorted, unique keys.  A match outside the window is NOT a match here: it
+// is on the plan's overflow list.  A kernel that stages the window's keys
+// in shared memory searches its copy with find_keys_staged over
+// [0, end - lo) and adds lo: the same pair set.
 __device__ __forceinline__ int match_row(const int* __restrict__ keys_b,
                                          int n_in,
                                          const int* __restrict__ meta_b,
@@ -64,57 +114,80 @@ __device__ __forceinline__ int match_row(const int* __restrict__ keys_b,
                                          int window_r) {
   const int word = meta_b[(long long)(1 + (col >> 5)) * M + mq];
   if (!((word >> (col & 31)) & 1)) return -1;
-  const long long q = (long long)base + dkey;
-  long long lo = s > 0 ? s : 0;
-  long long end = s + window_r;
-  end = end < n_in ? end : n_in;
-  long long hi = end;
-  while (lo < hi) {  // lower bound of q in keys[s, end)
-    const long long mid = (lo + hi) >> 1;
-    if ((long long)keys_b[mid] < q) lo = mid + 1; else hi = mid;
-  }
-  return (lo < end && (long long)keys_b[lo] == q) ? (int)lo : -1;
+  long long lo, end;
+  window_rows(s, window_r, n_in, lo, end);
+  return (int)find_key(keys_b, lo, end, (long long)base + dkey);
 }
 
-// dw[ci, oj] += sum_r a[r][ci] * g[r][oj] over the 128 rows of a tile, for
-// ci < cw, oj < ow, added atomically (float32) onto dw_k (row stride ld).
-// All kThreads threads call it.  Four adjacent lanes share one 4 x 4 output
-// tile and split the rows (r = lane_group + 4 rr), then reduce by shuffles;
-// with the 33-float row pitch every shared-memory read is conflict-free.
-__device__ __forceinline__ void tile_outer_add(
-    const float (*a)[kChunk + 1], const float (*g)[kChunk + 1], int cw,
-    int ow, float* __restrict__ dw_k, int ld) {
-  const int t = threadIdx.x;
-  const int grp = t & 3;
-  const int id = t >> 2;        // 0..63
-  const int ci0 = (id >> 3) * 4;  // same for the 8 tiles of a warp
-  const int oj0 = (id & 7) * 4;
-  if (ci0 >= cw) return;  // warp-uniform
-  float s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int r = grp; r < kTile; r += 4) {
+// The thread layout of a 32 x 32 outer-product tile: four adjacent lanes
+// share one 4 x 4 output tile (rows ci0.., columns oj0..) and split the
+// tile's rows (r = grp + 4 rr).  All kThreads threads take part.
+struct OuterTile {
+  int grp, ci0, oj0;
+  __device__ __forceinline__ OuterTile() {
+    const int t = threadIdx.x;
+    const int id = t >> 2;  // 0..63
+    grp = t & 3;
+    ci0 = (id >> 3) * 4;  // same for the 8 tiles of a warp
+    oj0 = (id & 7) * 4;
+  }
+};
+
+// s[i][j] += sum over this thread's rows r < rows of a[r][ci0 + i] *
+// g[r][oj0 + j], for a warp whose rows start below cw (the others add
+// nothing).  With the 33-float row pitch every shared-memory read is
+// conflict-free.
+__device__ __forceinline__ void tile_outer_acc(
+    const OuterTile& ot, const float (*a)[kChunk + 1],
+    const float (*g)[kChunk + 1], int cw, int rows, float (&s)[4][4]) {
+  if (ot.ci0 >= cw) return;  // warp-uniform
+  for (int r = ot.grp; r < rows; r += 4) {
     float av[4], gv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[r][ci0 + i];
+    for (int i = 0; i < 4; ++i) av[i] = a[r][ot.ci0 + i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) gv[j] = g[r][oj0 + j];
+    for (int j = 0; j < 4; ++j) gv[j] = g[r][ot.oj0 + j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] += av[i] * gv[j];
   }
+}
+
+// The four row groups' partial sums reduced by shuffles: lane group 0
+// holds the tile's sums afterwards.  Whole warps call it.
+__device__ __forceinline__ void tile_outer_reduce(float (&s)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float v = s[i][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (grp == 0 && ci0 + i < cw && oj0 + j < ow && v != 0.f)
-        atomicAdd(dw_k + (long long)(ci0 + i) * ld + oj0 + j, v);
+      s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 1);
+      s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 2);
+    }
+}
+
+// dw[ci, oj] += sum_r a[r][ci] * g[r][oj] over the 128 rows of a tile, for
+// ci < cw, oj < ow, added atomically (float32) onto dw_k (row stride ld).
+// All kThreads threads call it.
+__device__ __forceinline__ void tile_outer_add(
+    const float (*a)[kChunk + 1], const float (*g)[kChunk + 1], int cw,
+    int ow, float* __restrict__ dw_k, int ld) {
+  const OuterTile ot;
+  if (ot.ci0 >= cw) return;  // warp-uniform
+  float s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  tile_outer_acc(ot, a, g, cw, kTile, s);
+  tile_outer_reduce(s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = s[i][j];
+      if (ot.grp == 0 && ot.ci0 + i < cw && ot.oj0 + j < ow && v != 0.f)
+        atomicAdd(dw_k + (long long)(ot.ci0 + i) * ld + ot.oj0 + j, v);
     }
 }
 

@@ -188,7 +188,10 @@ class PoolingDownsample(nn.Module):
     W[k] = w / V for every k (the same plans and kernels as the
     convolutional downsample; the gradient to the shared ``w`` sums over k
     through the broadcast).  The plain backend pools over the rulebook and
-    applies ``w`` in float32.  Features keep their type in both."""
+    applies ``w`` in float32 and keeps the float32 product.  The float32
+    bias is added as it is, so with bfloat16 features the block's output
+    (and every later level) is float32 in both branches, as in the JAX
+    package; without a bias the window branch keeps the feature type."""
 
     def __init__(
         self,
@@ -232,9 +235,8 @@ class PoolingDownsample(nn.Module):
             dropped = ds_dropped.sum()
             pooled = average_pool(st, skeleton, rb, self.stride)
             feats = torch.matmul(pooled.feats.float(), self.w[0].float())
-            feats = feats.to(st.feats.dtype)
         if self.b is not None:
-            feats = feats + self.b.to(feats.dtype)
+            feats = feats + self.b
         out = skeleton.with_feats(
             torch.where(skeleton.row_mask()[..., None], feats, 0)
         )

@@ -48,8 +48,10 @@ SIGNATURES = {
                                _P, _P, _P, _I, _P],
     "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
 }
-# window_dw takes gy where the conv takes w, and returns dw for out
-SIGNATURES["seid_window_dw_f32"] = SIGNATURES["seid_window_conv_f32"]
+# window_dw takes gy where the conv takes w and dw for out, then its
+# partials' scratch and their count
+SIGNATURES["seid_window_dw_f32"] = (
+    SIGNATURES["seid_window_conv_f32"][:-1] + [_P, _I, _P])
 for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
 

@@ -436,6 +436,18 @@ def window_dw_plain(
 window_dw_plain.calls = 0
 
 
+def _dw_parts(device, b: int, m: int, k: int, c: int, co: int) -> int:
+    """Blocks that share out the query tiles in :func:`window_dw`, each
+    summing its tiles into one row of partials: about four blocks an SM in
+    all (the C == 1 route runs one block a part, the tiled route one a part
+    and (offset, 32 channels, 32 outputs) piece of dw), and no more parts
+    than tiles.  The count sets the kernel's summation order, so dw repeats
+    bit for bit on one card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    pieces = 1 if c == 1 and co <= 32 else k * _cdiv(c, 32) * _cdiv(co, 32)
+    return max(1, min(b * _cdiv(m, TILE_T), _cdiv(4 * sms, pieces)))
+
+
 def window_dw(
     keys: torch.Tensor,  # i32[B, N_in] sorted keys of the table
     feats: torch.Tensor,  # [B, N_in, C] table features
@@ -472,12 +484,15 @@ def window_dw(
     if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
         raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
     dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    n_parts = _dw_parts(feats.device, b, m, k, c, co)
+    part = torch.empty((n_parts, k * c * co), dtype=torch.float32,
+                       device=feats.device)
     name = "seid_window_dw_bf16" if dtype == torch.bfloat16 else "seid_window_dw_f32"
     fn = getattr(_native.lib("window_dw"), name)
     err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
              _ptr(start), start.shape[1], k, _ptr(gy), co, _ptr(q_active),
              _query_rows_bound(m, q_bound), int(window_r), _ptr(dw), dk, cols,
-             b, _stream(feats))
+             b, _ptr(part), n_parts, _stream(feats))
     window_dw.launches += 1
     _native.check(err, "window_dw")
     return dw
@@ -570,12 +585,21 @@ def _ov_bound(valid: torch.Tensor) -> torch.Tensor:
     return (valid.to(torch.int32) * idx).amax(dim=1).to(torch.int32)
 
 
+def overflow_dst_ordered(dst: torch.Tensor, n_bound: torch.Tensor) -> bool:
+    """Whether ``dst`` is non-decreasing over every walked prefix (the
+    entries below ``n_bound[b]``): the sidecar kernel's precondition."""
+    idx = torch.arange(1, dst.shape[1], device=dst.device)
+    inside = idx[None, :] < n_bound[:, None].long()
+    return not bool((inside & (dst[:, 1:] < dst[:, :-1])).any())
+
+
 def overflow_apply_plain(base, table, w, src, dst, kk, valid, n_bound=None):
     """Plain version of :func:`overflow_apply`, in place on ``base``.
 
     Entries are applied in list order with the output rounded after each,
     as the kernel does: entries are grouped into rounds that hold at most
-    one entry per output row, and rounds run in order."""
+    one entry per output row, and rounds run in order.  It takes any list;
+    the kernel needs ``dst`` ordered (:func:`overflow_apply`)."""
     overflow_apply_plain.calls += 1
     b, m, co = base.shape
     s = src.shape[1]
@@ -645,7 +669,14 @@ def overflow_apply(
     n_bound: torch.Tensor | None = None,  # i32[B]; default _ov_bound(valid)
 ) -> torch.Tensor:
     """base[b, dst] += W[kk]^T table[b, src] over the valid pairs, in list
-    order.  Adds IN PLACE onto ``base`` and returns it."""
+    order.  Adds IN PLACE onto ``base`` and returns it.
+
+    Precondition of the kernel: over each walked prefix (entries below
+    ``n_bound[b]``, invalid holes included) ``dst`` is non-decreasing, so
+    one output row's entries are contiguous.  Every list of the engine has
+    it (``engine._compact_overflow`` keeps its entries in ascending flat
+    position row * K + k); the kernel gives each row to one block and two
+    blocks that shared a row would race on it."""
     if n_bound is None:
         n_bound = _ov_bound(valid)
     if not _use_kernel(base, table, w, src, dst, kk, valid, n_bound):

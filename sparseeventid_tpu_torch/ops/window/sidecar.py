@@ -4,9 +4,10 @@
 On the TPU the batched sidecars are their own one-hot GEMM kernels for
 C > 1, while the serial walks serve C == 1.  On this card the two entry
 points of each sidecar share one kernel (``csrc/overflow_apply.cu``, which
-computes each chunk of entries in parallel and applies them in list order;
-``csrc/overflow_dw.cu``, which spreads the list over blocks); they keep
-separate launch counts so a run shows which path it took.
+spreads each event's list over blocks aligned to output rows and applies a
+row's entries in list order; ``csrc/overflow_dw.cu``, which spreads the
+list over blocks); they keep separate launch counts so a run shows which
+path it took.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def overflow_apply_batched(
     n_bound: torch.Tensor,  # i32[B] entries to walk (last valid + 1)
 ) -> torch.Tensor:
     """base[b, dst] += W[kk]^T table[b, src] over the valid pairs.  Adds IN
-    PLACE onto ``base`` and returns it."""
+    PLACE onto ``base`` and returns it.  ``dst`` must be non-decreasing over
+    each walked prefix, as for :func:`kernels.overflow_apply`."""
     if not _use_kernel(base, table, w, src, dst, kk, valid, n_bound):
         return overflow_apply_plain(base, table, w, src, dst, kk, valid, n_bound)
     out = launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound)

@@ -268,3 +268,39 @@ def test_pooling_downsample_matches_flax(backend, stride, grid):
     for g, r in zip(got, other):
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)
     assert np.abs(got[2]).sum() > 0
+
+
+@pytest.mark.parametrize("backend", ["xla", "window"])
+def test_pooling_downsample_bf16_promotes_as_flax(backend):
+    """bfloat16 features with the float32 bias on: the flax module's output
+    is float32 in both branches (the bias promotes it, and the plain
+    branch's product is float32 already), and so is the port's, with the
+    same values.  Integer-valued features keep the pool and the window
+    conv's bf16 output exact on both sides, so the tolerance (rtol = atol =
+    1e-4) covers float32 summation order in the 1x1 product and the batch
+    norm only."""
+    coords, feats = random_coo(31, b=2, n=512, grid=GRID, c=C, density=0.1,
+                               integer=True, n_live=[380, 150])
+    sj, st = both(coords, feats, GRID)
+    sj = sj.with_feats(sj.feats.astype(jnp.bfloat16))
+    st = st.with_feats(st.feats.to(torch.bfloat16))
+    mod_j = jblocks.PoolingDownsample(n_out=CO, stride=STRIDE, params=JRepr(),
+                                      out_capacity=NC, backend=backend)
+    v = mod_j.init(jax.random.PRNGKey(0), sj, False)
+    rng = np.random.default_rng(8)
+    params = _flax_variables(rng, v["params"])
+    stats = _flax_variables(rng, v["batch_stats"])
+    want, _ = mod_j.apply({"params": params, "batch_stats": stats}, sj, True,
+                          mutable=["batch_stats", "diagnostics"])
+    assert want.feats.dtype == jnp.float32
+    mod_t = tblocks.PoolingDownsample(C, CO, STRIDE, TRepr(), out_capacity=NC,
+                                      backend=backend)
+    mod_t.load_state_dict(params_from_jax(params, stats))
+    mod_t.train()
+    with torch.no_grad():
+        got, dropped = mod_t(st)
+    assert int(dropped) == 0
+    assert got.feats.dtype == torch.float32
+    np.testing.assert_allclose(got.feats.numpy(), np.asarray(want.feats),
+                               rtol=1e-4, atol=1e-4)
+    assert float(got.feats.abs().sum()) > 0

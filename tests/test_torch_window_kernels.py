@@ -14,6 +14,10 @@ from sparseeventid_tpu.ops.pallas import window_conv as jwc
 from sparseeventid_tpu.ops.pallas import window_engine as jwe
 from sparseeventid_tpu.ops.pallas import window_sidecar as jws
 from sparseeventid_tpu.ops.rulebook import kernel_offsets
+from sparseeventid_tpu_torch import ops as tops
+from sparseeventid_tpu_torch.ops import engine as teng
+from sparseeventid_tpu_torch.ops import rulebook as trb
+from sparseeventid_tpu_torch.ops.window import engine as twe
 from sparseeventid_tpu_torch.ops.window import kernels as tk
 from sparseeventid_tpu_torch.ops.window import query as tq
 from sparseeventid_tpu_torch.ops.window.sidecar import overflow_apply_batched
@@ -219,6 +223,136 @@ def test_overflow_apply_in_order_rounding_with_duplicate_rows():
     got = tk.overflow_apply(base, table, w, idx, idx, idx,
                             torch.ones((1, 2), dtype=torch.bool))
     assert got[0, 0, 0].item() == 256.0 and got[0, 1, 0].item() == 256.0
+
+
+def _port_plan(builder):
+    """(plan, K) from one overflow-list builder of the port, with windows
+    narrow enough (32 rows) to put pairs on its list."""
+    narrow = tq.WindowTuning(window_r=32, window_r_strided=32)
+    if builder == "submanifold_3d":
+        coords, feats, grid = line_coo()
+        st = tops.build_sparse_tensor(torch.from_numpy(coords),
+                                      torch.from_numpy(feats), grid)
+        return twe.build_submanifold_window_plan(st, (3, 3, 3), 32, 512), 27
+    if builder.startswith("multiplane_2d"):
+        ksz = (1, 3, 3) if builder.endswith("1x3x3") else (3, 3, 3)
+        coords, feats = random_coo(4, n=1024, grid=(3, 32, 32), c=4,
+                                   density=0.15)
+        st = tops.build_sparse_tensor(torch.from_numpy(coords),
+                                      torch.from_numpy(feats), (3, 32, 32))
+        plan = twe.build_submanifold_window_plan(st, ksz, 32, 4096)
+        return plan, int(np.prod(ksz))
+    if builder.startswith("strided"):
+        grid, stride = (16, 16, 16), (2, 2, 2)
+    else:  # the deconv's plans, on the plane grid
+        grid, stride = (3, 32, 32), (1, 2, 2)
+    coords, feats = random_coo(3, n=512, grid=grid, c=4, density=0.1)
+    fine = tops.build_sparse_tensor(torch.from_numpy(coords),
+                                    torch.from_numpy(feats), grid)
+    coarse = trb.downsample_sites(fine, stride, 512)
+    if builder.startswith("strided"):
+        fwd, rev = twe.build_strided_window_plans(fine, coarse, stride, 512,
+                                                  tuning=narrow)
+    else:
+        fwd, rev = teng.build_upsample_plan(coarse, fine, stride,
+                                            backend=teng.WINDOW, tuning=narrow)
+    return (fwd if builder.endswith("forward") else rev), int(np.prod(stride))
+
+
+@pytest.mark.parametrize("builder", [
+    "submanifold_3d", "strided_forward", "strided_reverse", "upsample_forward",
+    "upsample_reverse", "multiplane_2d_1x3x3", "multiplane_2d_3x3x3",
+])
+def test_overflow_lists_keep_dst_ordered(builder):
+    """The sidecar kernel gives each output row to one block, so it needs
+    ``dst`` non-decreasing over the walked prefix, holes included: every
+    list builder of the port keeps it, and a row holds at most K entries,
+    all contiguous."""
+    plan, k = _port_plan(builder)
+    nb = tk._ov_bound(plan.ov_valid)
+    assert int(plan.ov_valid.sum()) > 0 and int(plan.ov_dropped.sum()) == 0
+    assert tk.overflow_dst_ordered(plan.ov_dst, nb)
+    for b in range(plan.ov_dst.shape[0]):
+        walked = plan.ov_dst[b, : int(nb[b])]
+        _, runs = torch.unique_consecutive(walked, return_counts=True)
+        assert runs.numel() == torch.unique(walked).numel()
+        assert int(runs.max()) <= k
+
+
+def test_overflow_dst_ordered_reads_only_the_walked_prefix():
+    dst = torch.tensor([[0, 1, 1, 5, 2, 0], [3, 2, 9, 9, 9, 9]])
+    assert tk.overflow_dst_ordered(dst, torch.tensor([4, 1]))
+    assert not tk.overflow_dst_ordered(dst, torch.tensor([5, 1]))
+    assert not tk.overflow_dst_ordered(dst, torch.tensor([4, 2]))
+
+
+def _handmade_list(case, k, m, n, s, seed=0):
+    """(src, dst, kk, valid) of two events, rows in ascending ``dst`` with
+    1..K entries each (distinct offsets).  ``row_of_k``: one row takes all K
+    offsets; ``holes``: 30% of the prefix is invalid, ``dst`` kept in order;
+    ``empty_event``: event 0 has no valid entry (n_bound 0);
+    ``garbage_past_bound``: nothing special, as in every case the entries
+    past the prefix are invalid with indices out of every range."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-9, 3 * n, (2, s)).astype(np.int32)
+    dst = rng.integers(-9, 3 * m, (2, s)).astype(np.int32)
+    kk = rng.integers(-3, 2 * k, (2, s)).astype(np.int32)
+    valid = np.zeros((2, s), bool)
+    for e in range(2):
+        if case == "empty_event" and e == 0:
+            continue
+        rows = np.sort(rng.choice(m, 6, replace=False))
+        runs = rng.integers(1, k + 1, 6)
+        if case == "row_of_k":
+            runs[1] = k
+        entries = [(r, kx) for r, run in zip(rows, runs)
+                   for kx in rng.permutation(k)[:run]][: s - 4]
+        p = len(entries)
+        dst[e, :p] = [r for r, _ in entries]
+        kk[e, :p] = [kx for _, kx in entries]
+        src[e, :p] = rng.integers(0, n, p)
+        valid[e, :p] = True
+        if case == "holes":
+            valid[e, : p - 1] &= rng.random(p - 1) > 0.3
+    return src, dst, kk, valid
+
+
+@pytest.mark.parametrize("entry", ["serial", "batched"])
+@pytest.mark.parametrize(
+    "case", ["row_of_k", "holes", "empty_event", "garbage_past_bound"])
+def test_overflow_apply_plain_on_handmade_lists(case, entry):
+    """The sidecar's plain version against JAX's on lists the engine rarely
+    builds, integer data, bit for bit.  The serial entry (C == 1) against
+    its XLA twin ``window_engine._apply_overflow`` (the Pallas kernel has no
+    interpret mode), the batched one (C == 8) against the Pallas kernel in
+    interpret mode."""
+    k, m, n, s, co = 27, 40, 30, 128, 8
+    c = 1 if entry == "serial" else 8
+    rng = np.random.default_rng(1)
+    base = rng.integers(-4, 5, (2, m, co)).astype(np.float32)
+    table = rng.integers(-3, 4, (2, n, c)).astype(np.float32)
+    w = int_weights(2, (k, c, co))
+    src, dst, kk, valid = _handmade_list(case, k, m, n, s)
+    nb = jwc._ov_bound(jnp.asarray(valid))
+    if entry == "serial":
+        want = jwe._apply_overflow(jnp.asarray(base), jnp.asarray(table),
+                                   jnp.asarray(w), src, dst, kk, valid)
+    else:
+        want = jws.overflow_apply_batched(
+            jnp.asarray(base), jnp.asarray(table), jnp.asarray(w), src, dst,
+            kk, valid, nb, interpret=True)
+    nb_t = tk._ov_bound(torch.from_numpy(valid))
+    assert_equal(nb_t, nb)
+    assert tk.overflow_dst_ordered(torch.from_numpy(dst), nb_t)
+    if case == "empty_event":
+        assert int(nb_t[0]) == 0
+    wrapper = tk.overflow_apply if entry == "serial" else overflow_apply_batched
+    got = wrapper(torch.from_numpy(base.copy()), torch.from_numpy(table),
+                  torch.from_numpy(w), torch.from_numpy(src),
+                  torch.from_numpy(dst), torch.from_numpy(kk),
+                  torch.from_numpy(valid), nb_t)
+    assert_equal(got, want)
+    assert not np.array_equal(np.asarray(want)[1], base[1])
 
 
 def test_wrappers_count_plain_calls_not_launches():
