@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sparseeventid_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -13,9 +13,16 @@ Phases, one JSON line each; any failure exits non-zero:
               (the sidecar and window_dw on fp32 too; the sidecar also on
               hand-made lists at the real list width: a row of K entries
               across a span edge, holes, an empty event, n_bound below the
-              width), max abs error on real-valued data, and times (kernel,
-              plain version, a PyTorch yardstick) beside the card's least
-              time
+              width), max abs error on real-valued data (the conv within
+              one bf16 ulp of its output scale), and times (kernel, plain
+              version, a PyTorch yardstick) beside the card's least time;
+              window_plan and window_conv_apply also at levels 2 and 4, the
+              level-1 downsample (channel widths off the conv's 64-deep
+              chunks) and a hand-made dense block where every query
+              matches at every offset.  With --parent DIR (an earlier
+              commit's sparseeventid_tpu_torch/csrc) the earlier design of
+              those two kernels is built and timed on the same inputs
+              (parent_ms)
   4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
               of the window autograd Functions equal the plain rulebook
               backend's autograd exactly (level-0 series plan and level-0
@@ -343,6 +350,263 @@ def _handmade_lists(n_q, n_t, k, width, seed):
         (valid, torch.bool), (n_bound, torch.int32)))
 
 
+class ParentKernels:
+    """The window_plan and window_conv_apply kernels of an earlier commit,
+    built from its csrc/ and called through its C signatures, to time the
+    earlier design beside the current one on the same inputs in the same
+    run (``--parent DIR``, DIR holding that commit's
+    sparseeventid_tpu_torch/csrc).  Each call checks that both designs
+    agree."""
+
+    def __init__(self, tree):
+        import ctypes
+
+        from sparseeventid_tpu_torch.ops.window import _native
+
+        csrc = Path(tree).resolve() / "sparseeventid_tpu_torch" / "csrc"
+        out = HERE / "build" / "parent_kernels"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {name: subprocess.Popen(
+            [_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+             str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in ("window_plan", "window_conv")}
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            require(proc.returncode == 0, f"parent {name} does not build:\n{log}")
+        self.plan_fn = ctypes.CDLL(str(out / "window_plan.so")).seid_window_plan
+        # the earlier plan entry: no group size
+        self.plan_fn.argtypes = (_native.SIGNATURES["seid_window_plan"][:-2]
+                                 + [ctypes.c_void_p])
+        self.conv_fn = ctypes.CDLL(str(out / "window_conv.so")).seid_window_conv_bf16
+        # the earlier conv entry: no offset groups
+        self.conv_fn.argtypes = (_native.SIGNATURES["seid_window_conv_bf16"][:-2]
+                                 + [ctypes.c_void_p])
+        for fn in (self.plan_fn, self.conv_fn):
+            fn.restype = ctypes.c_int
+
+    def plan(self, pk, qkeys, n_active, window_r, table_cap):
+        import torch
+
+        from sparseeventid_tpu_torch.ops.window import query as Q
+
+        b, npad = pk.shape
+        _, n, k = qkeys.shape
+        n_tiles = Q._cdiv(n, Q.TILE_T)
+        start = torch.empty((b, n_tiles, k), dtype=torch.int32, device=pk.device)
+        uncov = torch.empty((b, n, k), dtype=torch.int32, device=pk.device)
+        err = self.plan_fn(pk.data_ptr(), npad, qkeys.data_ptr(), n, k,
+                           n_active.data_ptr(), start.data_ptr(),
+                           uncov.data_ptr(), b, n_tiles, int(window_r),
+                           Q.conv_max_start(table_cap, window_r),
+                           torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent window_plan: CUDA error {err}")
+        return start, uncov
+
+    def conv(self, keys, feats, qmeta, start, w, q_active, dkeys, window_r):
+        import torch
+
+        from sparseeventid_tpu_torch.ops.window import kernels as K
+
+        b, nw1, m = qmeta.shape
+        n_in, c = feats.shape[1], feats.shape[2]
+        co = w.shape[-1]
+        k, dk, cols = K._offset_args(dkeys, None)
+        out = torch.empty((b, m, co), dtype=feats.dtype, device=feats.device)
+        err = self.conv_fn(keys.data_ptr(), n_in, feats.data_ptr(), c,
+                           qmeta.data_ptr(), nw1 - 1, m, start.data_ptr(),
+                           start.shape[1], k, w.data_ptr(), co,
+                           q_active.data_ptr(), m, int(window_r),
+                           out.data_ptr(), dk, cols, b,
+                           torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent window_conv_apply: CUDA error {err}")
+        return out
+
+
+PARENT: ParentKernels | None = None  # set by --parent
+
+
+def _plan_row(label, args, r, table_cap, n_tab, n_q, keys, qkeys):
+    """window_plan bit-equal to its plain version, timed beside the plain
+    version, torch.searchsorted and (with --parent) the earlier design ->
+    (row, start, uncov)."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    start, uncov = K.window_plan(*args, window_r=r, table_cap=table_cap)
+    start_p, uncov_p = K.window_plan_plain(*args, window_r=r,
+                                           table_cap=table_cap)
+    torch.cuda.synchronize()
+    require(torch.equal(start, start_p) and torch.equal(uncov, uncov_p),
+            f"window_plan differs from its plain version at {label}")
+    ms = timed_ms(lambda: K.window_plan(*args, window_r=r, table_cap=table_cap))
+    plain_ms = timed_ms(lambda: K.window_plan_plain(
+        *args, window_r=r, table_cap=table_cap), iters=3, warmup=1, graph=False)
+    qf = qkeys.reshape(qkeys.shape[0], -1)
+    lib_ms = timed_ms(lambda: torch.searchsorted(keys, qf))
+    parent_ms = None
+    if PARENT is not None:
+        got = PARENT.plan(*args, r, table_cap)
+        require(torch.equal(got[0], start) and torch.equal(got[1], uncov),
+                f"the earlier window_plan differs at {label}")
+        parent_ms = timed_ms(lambda: PARENT.plan(*args, r, table_cap))
+    # reads: the active keys, the live queries' keys; writes: start and
+    # uncovered in full (the function defines every entry)
+    b_ms, b_by = bound(
+        4 * n_tab + 4 * qkeys.shape[2] * n_q + nbytes(args[2], start, uncov), 0)
+    row = dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               parent_ms=parent_ms, uncovered=int(uncov.ne(0).sum()))
+    return row, start, uncov
+
+
+def _bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at magnitude ``scale`` (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def _conv_row(label, keys, plan, start, q_active, n_tab, n_q, live_tiles,
+              idx, hit, pairs_in, x_int, w_int, x_real, w_real):
+    """window_conv_apply bit-equal to its plain version on integer bf16
+    data and within one bf16 ulp of the output scale on real-valued data,
+    timed beside the plain version, the gather + matmul yardstick over the
+    rulebook's neighbours ``idx`` / ``hit`` and (with --parent) the earlier
+    design -> (row, integer output)."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    r = plan.window_r
+    cargs = (keys, x_int, plan.qmeta, start, w_int, q_active, plan.dkeys)
+    out = K.window_conv_apply(*cargs, window_r=r)
+    out_p = K.window_conv_apply_plain(*cargs, window_r=r)
+    torch.cuda.synchronize()
+    require(torch.equal(out, out_p),
+            f"window_conv_apply differs from its plain version at {label}")
+    require(float(out.abs().sum()) > 0, f"window_conv_apply is all 0 at {label}")
+    rargs = (keys, x_real, plan.qmeta, start, w_real, q_active, plan.dkeys)
+    want = K.window_conv_apply_plain(*rargs, window_r=r).float()
+    err = (K.window_conv_apply(*rargs, window_r=r).float() - want
+           ).abs().max().item()
+    scale = want.abs().max().item()
+    require(err <= _bf16_ulp(scale),
+            f"window_conv_apply differs by {err} at {label}, more than one "
+            f"bf16 ulp of the output scale {scale}")
+    ms = timed_ms(lambda: K.window_conv_apply(*rargs, window_r=r))
+    plain_ms = timed_ms(lambda: K.window_conv_apply_plain(*rargs, window_r=r),
+                        iters=3, warmup=1, graph=False)
+    b, m = x_real.shape[0], plan.qmeta.shape[2]
+    k, c, co = w_real.shape
+    w2 = w_real.reshape(k * c, co)
+
+    def library():
+        g = torch.gather(x_real, 1, idx[..., None].expand(-1, -1, c))
+        return torch.matmul((g * hit).reshape(b, m, k * c), w2)
+
+    lib_ms = timed_ms(library)
+    parent_ms = None
+    if PARENT is not None:
+        require(torch.equal(PARENT.conv(*cargs, r), out),
+                f"the earlier window_conv_apply differs at {label}")
+        parent_ms = timed_ms(lambda: PARENT.conv(*rargs, r))
+    # reads: keys and features of the active table rows, the live
+    # queries' meta, the live tiles' starts, W; writes: the output in
+    # full (rows past the live ones are defined as 0)
+    b_ms, b_by = bound(
+        (4 + 2 * c) * n_tab + 4 * plan.qmeta.shape[1] * n_q
+        + 4 * k * live_tiles + nbytes(q_active, w_real, out),
+        2.0 * pairs_in * c * co,
+    )
+    row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               parent_ms=parent_ms, pairs_in_window=pairs_in, out_scale=scale)
+    return row, out
+
+
+def phase_dense_tile():
+    """window_plan and window_conv_apply on a hand-made dense block: two
+    events of a full 34^3 cube of sites, queried at its 32^3 interior with
+    a 3^3 kernel at 192 -> 192 channels (and, bit-equal only, 12 -> 20), so
+    every query of every tile matches at all 27 offsets, each inside its
+    plan window (128 consecutive interior queries span 133 table rows) ->
+    (plan row, conv row)."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.ops import build_sparse_tensor
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import query as Q
+    from sparseeventid_tpu_torch.ops.window.engine import WindowPlan
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    side, b, c, r = 34, 2, 192, Q.WindowTuning().for_level(5)
+    grid = (side,) * 3
+    cube = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+    inner = cube[1:-1, 1:-1, 1:-1].reshape(-1, 3)
+    cube = cube.reshape(-1, 3)
+
+    def sites(coords):
+        xyz = torch.as_tensor(np.broadcast_to(coords, (b, *coords.shape)).copy(),
+                              device=dev)
+        return build_sparse_tensor(xyz, torch.zeros((*xyz.shape[:2], 1),
+                                                    device=dev), grid)
+
+    tab, qst = sites(cube), sites(inner)
+    offs = rb.kernel_offsets((3, 3, 3), centered=True)
+    k = len(offs)
+    keys = tab.keys()
+    qkeys = Q.compute_query_keys(qst, offs)
+    n_tab, n_q = int(tab.n_active.sum()), int(qst.n_active.sum())
+    label = f"dense 34^3 cube, 32^3 queries 3^3 {c}->{c}"
+    args = (Q._padded_table(keys), qkeys, qst.n_active)
+    plan_row, start, uncov = _plan_row(label, args, r, tab.capacity, n_tab,
+                                       n_q, keys, qkeys)
+    require(int(uncov.sum()) == 0, f"a pair of the dense block left its window")
+    plan = WindowPlan(Q.compute_query_meta(qst, offs), start, qst.n_active,
+                      *([None] * 5), offsets=tuple(map(tuple, offs.tolist())),
+                      dkeys=Q.key_deltas(grid, offs), window_r=r)
+    idx = torch.zeros((b, qst.capacity, k), dtype=torch.long, device=dev)
+    found_all = torch.ones((b, qst.capacity, k), dtype=torch.bool, device=dev)
+    for kk, found, rows in K._matched_rows(keys, plan.qmeta, start, qst.n_active,
+                                           plan.dkeys, None, r, None):
+        idx[:, :, kk], found_all[:, :, kk] = rows, found
+    require(bool(found_all[:, : n_q // b].all()),
+            "a query of the dense block misses an offset")
+    live_tiles = int(((qst.n_active + Q.TILE_T - 1) // Q.TILE_T).sum())
+
+    def feats(integer):
+        shape = (b, tab.capacity, c)
+        if integer:
+            return _int_like(shape, gen, dev, torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    w_int = _int_like((k, c, c), gen, dev, torch.bfloat16)
+    w_real = (torch.randn((k, c, c), generator=gen, device=dev)
+              / (k * c) ** 0.5).to(torch.bfloat16)
+    conv_row, _ = _conv_row(
+        label, keys, plan, start, qst.n_active, n_tab, n_q, live_tiles,
+        idx.reshape(b, -1), found_all.reshape(b, -1, 1), k * n_q,
+        feats(True), w_int, feats(False), w_real)
+    # C and CO not multiples of 8: the tensor-core route stages element by
+    # element
+    cargs = (keys, feats(True)[..., :12].contiguous(), plan.qmeta, start,
+             _int_like((k, 12, 20), gen, dev, torch.bfloat16), qst.n_active,
+             plan.dkeys)
+    got = K.window_conv_apply(*cargs, window_r=r)
+    require(torch.equal(got, K.window_conv_apply_plain(*cargs, window_r=r))
+            and float(got.abs().sum()) > 0,
+            "window_conv_apply differs from its plain version at 12->20 "
+            "channels on the dense block")
+    emit({"phase": "kernel", "shape": label, "window_r": r,
+          "rows": {"window_plan": plan_row, "window_conv_apply": conv_row}})
+    return plan_row, conv_row
+
+
 def phase_kernels(dataset, geo=GEOMETRY_3D):
     """Kernel against plain version at main-path shapes -> per-kernel rows."""
     import torch
@@ -391,27 +655,36 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         return w.to(bf16).contiguous()
 
     k_init, k_ser = geo["initial"], geo["series"]
-    # (label, table st, ksz, strided, window_r, C, CO, sidecars): the
-    # overflow sidecars are held against their plain versions on the lists
-    # of the initial conv (the C == 1 entries) and of the level-0 series
-    # (the batched entries); both lists must be non-empty
+    # (label, table st, ksz, query capacity of a downsample, window_r, C,
+    # CO, sidecars): the overflow sidecars are held against their plain
+    # versions on the lists of the initial conv (the C == 1 entries) and of
+    # the level-0 series (the batched entries); both lists must be
+    # non-empty.  Levels 2 and 4 and the level-1 downsample give the conv
+    # channel widths that are not multiples of its 64-channel chunk.
     cases = [
-        (f"{pre}initial {_kname(k_init)} 1->32", st0, k_init, False,
+        (f"{pre}initial {_kname(k_init)} 1->32", st0, k_init, None,
          tuning.window_r_initial, 1, 32, True),
-        (f"{pre}L0 series {_kname(k_ser)} 32->32", st0, k_ser, False,
+        (f"{pre}L0 series {_kname(k_ser)} 32->32", st0, k_ser, None,
          tuning.for_level(0), 32, 32, True),
-        (f"{pre}L5 series {_kname(k_ser)} 192->192", levels[5], k_ser, False,
+        (f"{pre}L2 series {_kname(k_ser)} 96->96", levels[2], k_ser, None,
+         tuning.for_level(2), 96, 96, False),
+        (f"{pre}L4 series {_kname(k_ser)} 160->160", levels[4], k_ser, None,
+         tuning.for_level(4), 160, 160, False),
+        (f"{pre}L5 series {_kname(k_ser)} 192->192", levels[5], k_ser, None,
          tuning.for_level(5), 192, 192, False),
-        (f"{pre}L0 downsample {_kname(stride)} 32->64", st0, stride, True,
+        (f"{pre}L0 downsample {_kname(stride)} 32->64", st0, stride, caps[1],
          tuning.window_r_strided, 32, 64, False),
+        (f"{pre}L1->L2 downsample {_kname(stride)} 64->96", levels[1], stride,
+         caps[2], tuning.window_r_strided, 64, 96, False),
     ]
 
     results = {n: [] for n in REPLACES if n not in OPS_KERNELS}
-    for label, tab, ksz, strided, r, c, co, sidecars in cases:
+    for label, tab, ksz, qcap, r, c, co, sidecars in cases:
+        strided = qcap is not None
         # the plan as the main path builds it (ops.engine), list included
         if strided:
             qst, (plan, rev), _ = E.build_downsample_plan(
-                tab, ksz, caps[1], backend=E.WINDOW, tuning=tuning)
+                tab, ksz, qcap, backend=E.WINDOW, tuning=tuning)
         else:
             qst, plan = tab, E.build_series_plan(tab, ksz, backend=E.WINDOW,
                                                  window_r=r)
@@ -434,31 +707,12 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
 
         # ---- window_plan: bit-equal on the real site sets
         args = (pk, qkeys, qst.n_active)
-        start, uncov = K.window_plan(*args, window_r=r, table_cap=tab.capacity)
-        start_p, uncov_p = K.window_plan_plain(*args, window_r=r,
-                                               table_cap=tab.capacity)
-        torch.cuda.synchronize()
-        require(torch.equal(start, start_p) and torch.equal(uncov, uncov_p),
-                f"window_plan differs from its plain version at {label}")
+        row, start, uncov = _plan_row(label, args, r, tab.capacity, n_tab,
+                                      n_q, keys, qkeys)
         require(torch.equal(start, plan.start),
                 f"window_plan differs from the engine's plan at {label}")
-        ms = timed_ms(lambda: K.window_plan(*args, window_r=r,
-                                            table_cap=tab.capacity))
-        plain_ms = timed_ms(lambda: K.window_plan_plain(
-            *args, window_r=r, table_cap=tab.capacity), iters=3, warmup=1,
-            graph=False)
-        qf = qkeys.reshape(qkeys.shape[0], -1)
-        lib_ms = timed_ms(lambda: torch.searchsorted(keys, qf))
-        # reads: the active keys, the live queries' keys; writes: start and
-        # uncovered in full (the function defines every entry)
-        b_ms, b_by = bound(
-            4 * n_tab + 4 * k * n_q + nbytes(qst.n_active, start, uncov), 0)
+        results["window_plan"].append(row)
         candidates = uncov.ne(0).sum(dim=(1, 2))
-        results["window_plan"].append(dict(
-            shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            uncovered=int(candidates.sum()),
-        ))
 
         # the plan's overflow list, as the engine compacted it
         src, dst, kk, valid = plan.ov_src, plan.ov_dst, plan.ov_k, plan.ov_valid
@@ -475,46 +729,15 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         # ---- window_conv_apply: bit-equal on integer data
         w_int = _int_like((k, c, co), gen, dev, bf16)
         x_int = int_feats(tab, c)
-        cargs = (keys, x_int, plan.qmeta, start, w_int, qst.n_active, plan.dkeys)
-        out = K.window_conv_apply(*cargs, window_r=r)
-        out_p = K.window_conv_apply_plain(*cargs, window_r=r)
-        torch.cuda.synchronize()
-        require(torch.equal(out, out_p),
-                f"window_conv_apply differs from its plain version at {label}")
         x_real, w_real = real_feats(tab, c), real_w(k, c, co)
+        row, out = _conv_row(
+            label, keys, plan, start, qst.n_active, n_tab, n_q, live_tiles,
+            full.neighbor_idx.long().reshape(tab.batch_size, -1),
+            full.hit.reshape(tab.batch_size, -1, 1), pairs_in, x_int, w_int,
+            x_real, w_real)
+        results["window_conv_apply"].append(row)
         rargs = (keys, x_real, plan.qmeta, start, w_real, qst.n_active,
                  plan.dkeys)
-        err = (K.window_conv_apply(*rargs, window_r=r).float()
-               - K.window_conv_apply_plain(*rargs, window_r=r).float()
-               ).abs().max().item()
-        ms = timed_ms(lambda: K.window_conv_apply(*rargs, window_r=r))
-        plain_ms = timed_ms(lambda: K.window_conv_apply_plain(*rargs, window_r=r),
-                            iters=3, warmup=1, graph=False)
-        # yardstick: index gather of every rulebook neighbour + one matmul
-        idx = full.neighbor_idx.long().reshape(tab.batch_size, -1)
-        hit = full.hit.reshape(tab.batch_size, -1, 1)
-        w2 = w_real.reshape(k * c, co)
-
-        def library():
-            g = torch.gather(x_real, 1, idx[..., None].expand(-1, -1, c))
-            g = (g * hit).reshape(tab.batch_size, qst.capacity, k * c)
-            return torch.matmul(g, w2)
-
-        lib_ms = timed_ms(library)
-        # reads: keys and features of the active table rows, the live
-        # queries' meta, the live tiles' starts, W; writes: the output in
-        # full (rows past the live ones are defined as 0)
-        nw1 = plan.qmeta.shape[1]
-        b_ms, b_by = bound(
-            (4 + 2 * c) * n_tab + 4 * nw1 * n_q + 4 * k * live_tiles
-            + nbytes(qst.n_active, w_real, out),
-            2.0 * pairs_in * c * co,
-        )
-        results["window_conv_apply"].append(dict(
-            shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            pairs_in_window=pairs_in,
-        ))
 
         # ---- sidecar on this plan's overflow list (C == 1: serial entry)
         name = "overflow_apply" if c == 1 else "overflow_apply_batched"
@@ -1764,7 +1987,11 @@ def phase_fp32_grad(dataset) -> None:
                 f"{report[fault]}")
 
 
-def main() -> int:
+def main(argv) -> int:
+    global PARENT
+    if argv and (argv[0] != "--parent" or len(argv) != 2):
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1783,8 +2010,13 @@ def main() -> int:
     try:
         name, _ = phase_device()
         phase_build()
+        if argv:
+            PARENT = ParentKernels(argv[1])
         dataset = make_dataset()
         rows = phase_kernels(dataset)
+        for kname, row in zip(("window_plan", "window_conv_apply"),
+                              phase_dense_tile()):
+            rows[kname].append(row)
         phase_grad_check(dataset)
         launches = phase_main(dataset, out_dir)
         train_launches = phase_train(dataset)
@@ -1853,4 +2085,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -34,10 +34,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the arguments window_conv and window_dw share, up to the batch size
+_WINDOW = [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P,
+           _P, _I]
 SIGNATURES = {
-    "seid_window_plan": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "seid_window_conv_f32": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I,
-                             _P, _I, _I, _P, _P, _P, _I, _P],
+    "seid_window_plan": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
+    # then the offset groups and the stream
+    "seid_window_conv_f32": _WINDOW + [_I, _P],
     "seid_overflow_apply_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                                 _P, _P, _I, _I, _P],
     "seid_window_bwd_f32": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I,
@@ -49,9 +53,8 @@ SIGNATURES = {
     "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
 }
 # window_dw takes gy where the conv takes w and dw for out, then its
-# partials' scratch and their count
-SIGNATURES["seid_window_dw_f32"] = (
-    SIGNATURES["seid_window_conv_f32"][:-1] + [_P, _I, _P])
+# partials' scratch, their count and the stream
+SIGNATURES["seid_window_dw_f32"] = _WINDOW + [_P, _I, _P]
 for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
 

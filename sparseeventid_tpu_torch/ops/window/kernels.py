@@ -143,6 +143,16 @@ def window_plan_plain(
 window_plan_plain.calls = 0
 
 
+def _plan_group(sms: int, b: int, n_tiles: int, k: int) -> int:
+    """Offsets one block of :func:`window_plan` takes (its 8 warps share
+    them): up to 32, halved while the grid of (b, tile, group) blocks is
+    under four blocks an SM, down to 8 (one offset a warp)."""
+    g = min(k, 32)
+    while g > 8 and _cdiv(k, g) * n_tiles * b < 4 * sms:
+        g = max(8, _cdiv(g, 2))
+    return max(g, 1)
+
+
 def window_plan(
     padded_keys: torch.Tensor,  # i32[B, Npad] sorted, INVALID_KEY padded
     qkeys: torch.Tensor,  # i32[B, N, K]
@@ -169,10 +179,12 @@ def window_plan(
     n_tiles = _cdiv(n, TILE_T)
     start = torch.empty((b, n_tiles, k), dtype=torch.int32, device=qkeys.device)
     uncov = torch.empty((b, n, k), dtype=torch.int32, device=qkeys.device)
+    sms = torch.cuda.get_device_properties(qkeys.device).multi_processor_count
     fn = _native.lib("window_plan").seid_window_plan
     err = fn(_ptr(padded_keys), npad, _ptr(qkeys), n, k, _ptr(n_active),
              _ptr(start), _ptr(uncov), b, n_tiles, int(window_r),
-             conv_max_start(table_cap, window_r), _stream(qkeys))
+             conv_max_start(table_cap, window_r),
+             _plan_group(sms, b, n_tiles, k), _stream(qkeys))
     window_plan.launches += 1
     _native.check(err, "window_plan")
     return start, uncov
@@ -260,6 +272,26 @@ def window_conv_apply_plain(
 window_conv_apply_plain.calls = 0
 
 
+def _conv_groups(sms: int, b: int, m: int, k: int, c: int, co: int) -> int:
+    """Blocks (one thread-block cluster) that share a query tile's offsets
+    in the tensor-core route of :func:`window_conv_apply`, so that the deep
+    levels, whose few tiles each chain ceil(K * C / 64) steps, spread over
+    the card: a power of two up to 8 (such clusters pack a GPC's SMs), as
+    many as leave every block at least 13 steps (a block's fixed cost is
+    about 6) and keep the (tile, 192-column slab, group) grid within 13
+    blocks an SM.  The host does not know the live tiles; these limits
+    were chosen from a sweep of every level of both recipes on the H100
+    (PERF.md).  1 on the C == 1 route."""
+    if c == 1 and co <= 32:
+        return 1
+    steps = _cdiv(k * c, 64)
+    blocks = b * _cdiv(m, TILE_T) * _cdiv(co, 192)
+    g = 1
+    while 2 * g <= 8 and 2 * g * 13 <= steps and blocks * 2 * g <= 13 * sms:
+        g *= 2
+    return g
+
+
 def window_conv_apply(
     keys: torch.Tensor,  # i32[B, N_in] sorted keys of the table site set
     feats: torch.Tensor,  # [B, N_in, C] table features
@@ -299,10 +331,11 @@ def window_conv_apply(
     out = torch.empty((b, m, co), dtype=dtype, device=feats.device)
     name = "seid_window_conv_bf16" if dtype == torch.bfloat16 else "seid_window_conv_f32"
     fn = getattr(_native.lib("window_conv"), name)
+    sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
     err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
              _ptr(start), start.shape[1], k, _ptr(w), co, _ptr(q_active),
              _query_rows_bound(m, q_bound), int(window_r), _ptr(out),
-             dk, cols, b, _stream(feats))
+             dk, cols, b, _conv_groups(sms, b, m, k, c, co), _stream(feats))
     window_conv_apply.launches += 1
     _native.check(err, "window_conv_apply")
     return out

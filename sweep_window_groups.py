@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Sweep the launch geometry of the window kernels on one NVIDIA card.
+
+    python3 sweep_window_groups.py
+
+For the initial conv and every series level of the dune3d and dune2d
+recipes (chip_smoke.py's synthetic batch 0, bf16), times window_plan with
+each group size G (offsets a block takes) and the tensor-core
+window_conv_apply with each cluster size (blocks that share a tile's
+offsets), next to the size the wrappers pick (kernels._plan_group,
+kernels._conv_groups).  Every plan must equal the wrapper's bit for bit,
+every conv stay within one bf16 ulp of it (the cluster's partial sums add
+in another order).  Prints the card's name and power limit, then one JSON
+line per shape; exits non-zero on a mismatch or without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import chip_smoke as cs
+
+PLAN_GROUPS = (8, 16, 24, 32)
+CONV_GROUPS = (1, 2, 4, 8)
+
+
+def sweep(geo, dataset) -> None:
+    import torch
+
+    from sparseeventid_tpu_torch import io as port_io
+    from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import _native
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import query as Q
+
+    dev = torch.device(cs.DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_fn = _native.lib("window_plan").seid_window_plan
+    conv_fn = _native.lib("window_conv").seid_window_conv_bf16
+    caps = capacity_schedule(geo["rows"], 5, 0.5, 1024)
+    levels = [getattr(port_io, geo["to_sparse"])(
+        dataset.batch([0])["image"], geo["grid"], capacity=caps[0], device=dev)]
+    for cap in caps[1:]:
+        levels.append(rb.downsample_sites(levels[-1], geo["stride"], cap))
+    tuning = Q.WindowTuning()
+    cases = [("initial", levels[0], geo["initial"], tuning.window_r_initial, 1, 32)]
+    cases += [(f"L{lv} series", levels[lv], geo["series"], tuning.for_level(lv),
+               32 * (lv + 1), 32 * (lv + 1)) for lv in range(6)]
+    for label, st, ksz, r, c, co in cases:
+        plan = E.build_series_plan(st, ksz, backend=E.WINDOW, window_r=r)
+        offs = rb.kernel_offsets(ksz, centered=True)
+        qkeys = Q.compute_query_keys(st, offs)
+        keys, k = st.keys(), len(offs)
+        pk = Q._padded_table(keys)
+        b, npad = pk.shape
+        m = st.capacity
+        n_tiles = Q._cdiv(m, Q.TILE_T)
+        row = {"shape": geo["prefix"] + label, "tiles": b * n_tiles,
+               "live_tiles": int(((st.n_active + Q.TILE_T - 1) // Q.TILE_T).sum()),
+               "plan_pick": K._plan_group(sms, b, n_tiles, k)}
+        start, uncov = K.window_plan(pk, qkeys, st.n_active, window_r=r,
+                                     table_cap=st.capacity)
+        s_, u_ = torch.empty_like(start), torch.empty_like(uncov)
+
+        def run_plan(g):
+            err = plan_fn(pk.data_ptr(), npad, qkeys.data_ptr(), m, k,
+                          st.n_active.data_ptr(), s_.data_ptr(), u_.data_ptr(),
+                          b, n_tiles, r, Q.conv_max_start(st.capacity, r), g,
+                          torch.cuda.current_stream().cuda_stream)
+            cs.require(err == 0, f"window_plan: CUDA error {err}")
+
+        for g in sorted({min(g, k) for g in PLAN_GROUPS}):
+            run_plan(g)
+            torch.cuda.synchronize()
+            cs.require(torch.equal(s_, start) and torch.equal(u_, uncov),
+                       f"window_plan with G={g} differs at {row['shape']}")
+            row[f"plan_ms_G{g}"] = cs.timed_ms(lambda: run_plan(g))
+        if c > 1:
+            x = (torch.randn((b, m, c), generator=gen, device=dev)
+                 * st.row_mask()[..., None]).to(torch.bfloat16).contiguous()
+            w = (torch.randn((k, c, co), generator=gen, device=dev)
+                 / (k * c) ** 0.5).to(torch.bfloat16).contiguous()
+            want = K.window_conv_apply(keys, x, plan.qmeta, plan.start, w,
+                                       st.n_active, plan.dkeys, window_r=r)
+            out = torch.empty_like(want)
+            _, dk, cols = K._offset_args(plan.dkeys, None)
+            row["conv_pick"] = K._conv_groups(sms, b, m, k, c, co)
+
+            def run_conv(g):
+                err = conv_fn(keys.data_ptr(), m, x.data_ptr(), c,
+                              plan.qmeta.data_ptr(), plan.qmeta.shape[1] - 1,
+                              m, plan.start.data_ptr(), n_tiles, k,
+                              w.data_ptr(), co, st.n_active.data_ptr(), m, r,
+                              out.data_ptr(), dk, cols, b, g,
+                              torch.cuda.current_stream().cuda_stream)
+                cs.require(err == 0, f"window_conv_apply: CUDA error {err}")
+
+            scale = want.float().abs().max().item()
+            for g in CONV_GROUPS:
+                run_conv(g)
+                torch.cuda.synchronize()
+                diff = (out.float() - want.float()).abs().max().item()
+                cs.require(diff <= cs._bf16_ulp(scale),
+                           f"window_conv_apply with {g} blocks a tile differs "
+                           f"by {diff} at {row['shape']}")
+                row[f"conv_ms_g{g}"] = cs.timed_ms(lambda: run_conv(g))
+        print(json.dumps(row), flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("sweep_window_groups: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("sweep_window_groups: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        cs.phase_device()
+        sweep(cs.GEOMETRY_3D, cs.make_dataset())
+        sweep(cs.GEOMETRY_2D, cs.make_dataset_2d())
+    except cs.Failure as e:
+        print(f"sweep_window_groups: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

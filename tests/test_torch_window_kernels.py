@@ -4,6 +4,8 @@ result must be bit-equal.  On CPU tensors the port's wrappers run their
 plain versions; the CUDA kernels are held against these on the card by
 chip_smoke.py."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,10 +24,13 @@ from sparseeventid_tpu_torch.ops.window import kernels as tk
 from sparseeventid_tpu_torch.ops.window import query as tq
 from sparseeventid_tpu_torch.ops.window.sidecar import overflow_apply_batched
 
-# (name, kernel size, window rows): the initial 5^3 conv, a series conv, and
-# a window narrow enough to push many pairs out of it
+# (name, kernel size, window rows): the initial 5^3 conv, a series conv, a
+# window narrow enough to push many pairs out of it, and the 2D kernels,
+# whose K (9, 25) is not a multiple of the 8 offsets a kernel block takes
+# at least
 PLAN_CASES = [("k125", (5, 5, 5), 176), ("k27", (3, 3, 3), 160),
-              ("k27_narrow", (3, 3, 3), 32)]
+              ("k27_narrow", (3, 3, 3), 32), ("k9_2d", (1, 3, 3), 160),
+              ("k25_2d", (1, 5, 5), 176)]
 
 
 def _subm_inputs(ksz, seed=0, n_live=None, grid=(12, 12, 12)):
@@ -97,15 +102,16 @@ def test_window_plan_strided_forward_and_reverse():
     assert_equal(unc_t, unc_j)
 
 
-def _conv_case(ksz, c, co, seed, strided=False, narrow=False):
+def _conv_case(ksz, c, co, seed, strided=False, narrow=False, n=512,
+               n_live=(400, 0)):
     """(JAX tensor, port tensor, JAX-built plan, weights) of one
     window_conv_apply.  ``narrow``: the forced-overflow geometry with a
     32-row window, so some matches lie outside it and must not count."""
     if narrow:
         coords, feats, grid = line_coo(c=c)
     else:
-        coords, feats = random_coo(seed, n=512, grid=(12, 12, 12), c=c,
-                                   density=0.25, n_live=[400, 0])
+        coords, feats = random_coo(seed, n=n, grid=(12, 12, 12), c=c,
+                                   density=0.25, n_live=list(n_live))
         grid = (12, 12, 12)
     sj, st = both(coords, feats, grid)
     w = int_weights(seed + 1, (int(np.prod(ksz)), c, co))
@@ -129,34 +135,130 @@ def _skel(sj):
     return (skj,)
 
 
+def _dense_tile_case(ksz, c, co, seed):
+    """A fully dense block: the table is every site of a 3 x 3 x 130 rod,
+    the queries its 128 interior sites (1, 1, 1..128), one tile whose every
+    query has all 27 neighbours, each inside the tile's plan window (a
+    neighbour offset shifts the 128 rows by a constant).  -> the
+    _conv_case tuple, the plan built from the JAX functions."""
+    grid = (3, 3, 130)
+    cube = np.stack(np.meshgrid(*[np.arange(g) for g in grid], indexing="ij"),
+                    -1).reshape(1, -1, 3).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    feats = rng.integers(-3, 4, (1, cube.shape[1], c)).astype(np.float32)
+    inner = np.stack([np.ones(128), np.ones(128), np.arange(1, 129)],
+                     -1).reshape(1, -1, 3).astype(np.int32)
+    sj, st = both(cube, feats, grid)
+    qj, _ = both(inner, np.zeros((1, 128, 1), np.float32), grid)
+    offs = kernel_offsets(ksz, centered=True)
+    r = 160
+    start, unc = _jax_plan(sj.keys(), jwc.compute_query_keys(qj, offs),
+                           qj.n_active, r, sj.capacity)
+    assert int(np.asarray(unc).sum()) == 0  # every pair inside its window
+    plan = types.SimpleNamespace(
+        qmeta=jwc.compute_query_meta(qj, offs), start=start,
+        q_active=qj.n_active, dkeys=jwc.key_deltas(grid, offs),
+        offsets=tuple(map(tuple, offs.tolist())), window_r=r)
+    return sj, st, plan, int_weights(seed + 1, (len(offs), c, co))
+
+
+# (name, kernel size, C, CO, strided, mirrored kmap, narrow window).
+# C and CO not multiples of 64 (24 -> 40, 96 -> 160) are the ragged edges
+# of the kernel's 64-deep chunks; k27_q_bound and k27_dense_tile take the
+# inputs of CONV_Q_BOUND and _dense_tile_case.
 CONV_CASES = [
     ("k125_c1", (5, 5, 5), 1, 16, False, False, False),
     ("k27_c8", (3, 3, 3), 8, 16, False, False, False),
     ("k8_strided", (2, 2, 2), 8, 16, True, False, False),
     ("k27_kmap_mirror", (3, 3, 3), 8, 16, False, True, False),
     ("k27_out_of_window", (3, 3, 3), 4, 8, False, False, True),
+    ("k27_c24_co40", (3, 3, 3), 24, 40, False, False, False),
+    ("k27_c96_co160", (3, 3, 3), 96, 160, False, False, False),
+    ("k27_q_bound", (3, 3, 3), 8, 16, False, False, False),
+    ("k27_dense_tile", (3, 3, 3), 8, 16, False, False, False),
 ]
+# a static row bound below M = 1024 rows, a multiple of 512 as the engine's
+# (ops.engine.query_bound), with live rows on both sides of it
+CONV_Q_BOUND = {"k27_q_bound": (512, dict(n=1024, n_live=(900, 300)))}
 
 
 @pytest.mark.parametrize("name,ksz,c,co,strided,mirror,narrow", CONV_CASES)
 def test_window_conv_apply_bit_equal(name, ksz, c, co, strided, mirror, narrow):
-    sj, st, plan, w = _conv_case(ksz, c, co, seed=5, strided=strided,
-                                 narrow=narrow)
+    q_bound, rows = CONV_Q_BOUND.get(name, (None, {}))
+    if name == "k27_dense_tile":
+        sj, st, plan, w = _dense_tile_case(ksz, c, co, seed=5)
+    else:
+        sj, st, plan, w = _conv_case(ksz, c, co, seed=5, strided=strided,
+                                     narrow=narrow, **rows)
     kmap = None
     if mirror:
         kmap = tuple(int(x) for x in jwe._mirror_perm(plan.offsets))
-    keys_in = sj.keys()
-    want = jwc.window_conv_apply(
-        keys_in, sj.feats, plan.qmeta, plan.start, jnp.asarray(w),
-        plan.q_active, plan.dkeys, kmap=kmap, interpret=True,
-        window_r=plan.window_r,
-    )
-    got = tk.window_conv_apply(
-        st.keys(), st.feats, t(plan.qmeta), t(plan.start), torch.from_numpy(w),
-        t(plan.q_active), plan.dkeys, kmap, window_r=plan.window_r,
-    )
-    assert_equal(got, want)
-    assert float(np.abs(np.asarray(want)).sum()) > 0
+
+    def run(bound):
+        want = jwc.window_conv_apply(
+            sj.keys(), sj.feats, plan.qmeta, plan.start, jnp.asarray(w),
+            plan.q_active, plan.dkeys, kmap=kmap, interpret=True,
+            window_r=plan.window_r, q_bound=bound,
+        )
+        got = tk.window_conv_apply(
+            st.keys(), st.feats, t(plan.qmeta), t(plan.start),
+            torch.from_numpy(w), t(plan.q_active), plan.dkeys, kmap,
+            window_r=plan.window_r, q_bound=bound,
+        )
+        assert_equal(got, want)
+        return np.asarray(want)
+
+    want = run(q_bound)
+    assert float(np.abs(want).sum()) > 0
+    if q_bound is not None:  # the rows past the bound are 0, and not by chance
+        assert float(np.abs(want[:, q_bound:]).sum()) == 0
+        assert float(np.abs(run(None)[:, q_bound:]).sum()) > 0
+    if name == "k27_dense_tile":  # every query matches at every offset
+        for _, found, _ in tk._matched_rows(
+                st.keys(), t(plan.qmeta), t(plan.start), t(plan.q_active),
+                plan.dkeys, None, plan.window_r, None):
+            assert bool(found.all())
+
+
+@pytest.mark.parametrize("m,k,c,co,want", [
+    (50176, 27, 32, 32, 1),   # level 0: 14 steps a tile
+    (25088, 27, 64, 64, 1),   # level 1: the grid is full
+    (12800, 27, 96, 96, 2),   # level 2: 41 steps
+    (6656, 27, 128, 128, 4),  # level 3: 54 steps
+    (3584, 27, 160, 160, 4),  # level 4: 68 steps
+    (2048, 27, 192, 192, 4),  # level 5: 81 steps
+    (2048, 9, 192, 192, 2),   # dune2d level 5: 27 steps
+    (4096, 9, 160, 160, 1),   # dune2d level 4: 23 steps
+    (2048, 8, 160, 192, 1),   # a downsample into level 5: 20 steps
+    (50176, 125, 1, 32, 1),   # the C == 1 route takes the tile whole
+])
+def test_conv_groups_spread_the_deep_levels(m, k, c, co, want):
+    """The wrapper's choice of blocks (a cluster) that share a tile's
+    offsets in window_conv_apply (8 events, 132 SMs): a power of two up to
+    8, at least 13 of the tile's 64-deep steps a block, at most 13 blocks
+    an SM."""
+    g = tk._conv_groups(132, 8, m, k, c, co)
+    assert g == want
+    assert g in (1, 2, 4, 8)
+    assert g == 1 or (-(-k * c // 64) >= 13 * g
+                      and 8 * -(-m // 128) * -(-co // 192) * g <= 13 * 132)
+
+
+@pytest.mark.parametrize("b,n_tiles,k,want", [
+    (8, 392, 27, 27),   # level 0: one group of all offsets
+    (8, 392, 125, 32),  # the initial 5^3 conv: groups of 32
+    (8, 16, 27, 8),     # level 5: 128 tiles spread over 4 groups of 8
+    (8, 16, 9, 8),      # dune2d level 5: K = 9 -> 8 + 1
+    (1, 4, 4, 4),       # fewer offsets than warps
+])
+def test_plan_group_fills_the_card(b, n_tiles, k, want):
+    """The wrapper's choice of offsets a window_plan block takes (132 SMs):
+    at most 32, and halved while the grid has under 4 blocks an SM, down to
+    one offset a warp."""
+    g = tk._plan_group(132, b, n_tiles, k)
+    assert g == want
+    blocks = -(-k // g) * n_tiles * b
+    assert blocks >= 4 * 132 or g == min(k, 8)
 
 
 def _overflow_inputs(c=4, co=8):
