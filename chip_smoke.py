@@ -10,19 +10,23 @@ Phases, one JSON line each; any failure exits non-zero:
   3. kernel   each kernel, forward and backward, against its plain PyTorch
               version on the card, at the main path's shapes from one
               synthetic dune3d batch: bit-equal on integer-valued bf16 data
-              (the sidecar and window_dw on fp32 too; the sidecar also on
-              hand-made lists at the real list width: a row of K entries
-              across a span edge, holes, an empty event, n_bound below the
-              width), max abs error on real-valued data (the conv within
-              one bf16 ulp of its output scale), and times (kernel, plain
-              version, a PyTorch yardstick) beside the card's least time;
+              (the sidecars, window_dw and the backward, both entries of
+              each, on fp32 too; the sidecar also on hand-made lists at the
+              real list width: a row of K entries across a span edge,
+              holes, an empty event, n_bound below the width), max abs
+              error on real-valued data (the conv and the backward's dx
+              within one bf16 ulp of the output scale, the backward's and
+              the sidecar's dw within 1e-4 of theirs), the backward and the
+              dW sidecar the same bits on two runs of real-valued bf16 and
+              fp32 data, and times (kernel, plain version, a PyTorch
+              yardstick) beside the card's least time;
               window_plan and window_conv_apply also at levels 2 and 4, the
               level-1 downsample (channel widths off the conv's 64-deep
               chunks) and a hand-made dense block where every query
               matches at every offset.  With --parent DIR (an earlier
-              commit's sparseeventid_tpu_torch/csrc) the earlier design of
-              those two kernels is built and timed on the same inputs
-              (parent_ms)
+              commit's sparseeventid_tpu_torch/csrc) its plan, conv,
+              backward and dW sidecar are built and timed on the same
+              inputs (parent_ms)
   4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
               of the window autograd Functions equal the plain rulebook
               backend's autograd exactly (level-0 series plan and level-0
@@ -38,7 +42,9 @@ Phases, one JSON line each; any failure exits non-zero:
               timed steps; finite loss, no dropped pairs, a finite gradient
               on every parameter and a non-zero one on every conv weight,
               running statistics moved, the launch counts of every kernel
-              as expected; a profiled step
+              as expected; a profiled step; two backward passes of one
+              batch from the same weights, whose conv weight gradients
+              must be the same bits (train_repeat)
   7. fp32     one batch at fp32, window kernels against the plain rulebook
               backend on the card: forward features and logits, then every
               parameter gradient of one train step; each check must also
@@ -351,12 +357,16 @@ def _handmade_lists(n_q, n_t, k, width, seed):
 
 
 class ParentKernels:
-    """The window_plan and window_conv_apply kernels of an earlier commit,
-    built from its csrc/ and called through its C signatures, to time the
-    earlier design beside the current one on the same inputs in the same
-    run (``--parent DIR``, DIR holding that commit's
-    sparseeventid_tpu_torch/csrc).  Each call checks that both designs
-    agree."""
+    """The kernels of an earlier commit (one whose plan and conv entries
+    take the group sizes the current ones take), built from its
+    csrc/ and called through its C signatures, to time the earlier design
+    beside the current one on the same inputs in the same run (``--parent
+    DIR``, DIR holding that commit's sparseeventid_tpu_torch/csrc): the
+    plan and the conv (the same designs, so the same times), and the
+    backward and the dW sidecar that this design replaces.  Each call's
+    result is checked against the current kernel's."""
+
+    SOURCES = ("window_plan", "window_conv", "window_bwd", "overflow_dw")
 
     def __init__(self, tree):
         import ctypes
@@ -370,24 +380,36 @@ class ParentKernels:
             [_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
              str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name in ("window_plan", "window_conv")}
+            for name in self.SOURCES}
         for name, proc in procs.items():
             log, _ = proc.communicate()
             require(proc.returncode == 0, f"parent {name} does not build:\n{log}")
-        self.plan_fn = ctypes.CDLL(str(out / "window_plan.so")).seid_window_plan
-        # the earlier plan entry: no group size
-        self.plan_fn.argtypes = (_native.SIGNATURES["seid_window_plan"][:-2]
-                                 + [ctypes.c_void_p])
-        self.conv_fn = ctypes.CDLL(str(out / "window_conv.so")).seid_window_conv_bf16
-        # the earlier conv entry: no offset groups
-        self.conv_fn.argtypes = (_native.SIGNATURES["seid_window_conv_bf16"][:-2]
-                                 + [ctypes.c_void_p])
-        for fn in (self.plan_fn, self.conv_fn):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in self.SOURCES}
+        self.plan_fn = lib["window_plan"].seid_window_plan
+        self.plan_fn.argtypes = _native.SIGNATURES["seid_window_plan"]
+        self.conv_fn = lib["window_conv"].seid_window_conv_bf16
+        self.conv_fn.argtypes = _native.SIGNATURES["seid_window_conv_bf16"]
+        # the earlier backward: w as it is, dw zeroed and added onto
+        self.bwd_fn = lib["window_bwd"].seid_window_bwd_bf16
+        self.bwd_fn.argtypes = [P, I, P, I, P, I, P, I, I, P, I, I, P, P, I, I,
+                                P, P, P, P, I, P]
+        # the earlier dW sidecar: dw zeroed and added onto, no scratch
+        self.ov_dw_fn = lib["overflow_dw"].seid_overflow_dw_bf16
+        self.ov_dw_fn.argtypes = [P, I, P, I, I, P, I, I, P, P, P, P, P, I, I, P]
+        for fn in (self.plan_fn, self.conv_fn, self.bwd_fn, self.ov_dw_fn):
             fn.restype = ctypes.c_int
+
+    @staticmethod
+    def _stream():
+        import torch
+
+        return torch.cuda.current_stream().cuda_stream
 
     def plan(self, pk, qkeys, n_active, window_r, table_cap):
         import torch
 
+        from sparseeventid_tpu_torch.ops.window import kernels as K
         from sparseeventid_tpu_torch.ops.window import query as Q
 
         b, npad = pk.shape
@@ -395,11 +417,12 @@ class ParentKernels:
         n_tiles = Q._cdiv(n, Q.TILE_T)
         start = torch.empty((b, n_tiles, k), dtype=torch.int32, device=pk.device)
         uncov = torch.empty((b, n, k), dtype=torch.int32, device=pk.device)
+        sms = torch.cuda.get_device_properties(pk.device).multi_processor_count
         err = self.plan_fn(pk.data_ptr(), npad, qkeys.data_ptr(), n, k,
                            n_active.data_ptr(), start.data_ptr(),
                            uncov.data_ptr(), b, n_tiles, int(window_r),
                            Q.conv_max_start(table_cap, window_r),
-                           torch.cuda.current_stream().cuda_stream)
+                           K._plan_group(sms, b, n_tiles, k), self._stream())
         require(err == 0, f"parent window_plan: CUDA error {err}")
         return start, uncov
 
@@ -413,14 +436,49 @@ class ParentKernels:
         co = w.shape[-1]
         k, dk, cols = K._offset_args(dkeys, None)
         out = torch.empty((b, m, co), dtype=feats.dtype, device=feats.device)
+        sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
         err = self.conv_fn(keys.data_ptr(), n_in, feats.data_ptr(), c,
                            qmeta.data_ptr(), nw1 - 1, m, start.data_ptr(),
                            start.shape[1], k, w.data_ptr(), co,
                            q_active.data_ptr(), m, int(window_r),
                            out.data_ptr(), dk, cols, b,
-                           torch.cuda.current_stream().cuda_stream)
+                           K._conv_groups(sms, b, m, k, c, co), self._stream())
         require(err == 0, f"parent window_conv_apply: CUDA error {err}")
         return out
+
+    def bwd(self, keys_out, gy, feats, bp, w):
+        """(dx, dw) of the earlier window_bwd_strided over plan ``bp``."""
+        import torch
+
+        from sparseeventid_tpu_torch.ops.window import kernels as K
+
+        b, nw1, m = bp.qmeta.shape
+        n_out, co = gy.shape[1], gy.shape[2]
+        c = feats.shape[2]
+        k, dk, cols = K._offset_args(bp.dkeys, None)
+        dx = torch.empty((b, m, c), dtype=feats.dtype, device=feats.device)
+        dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+        err = self.bwd_fn(keys_out.data_ptr(), n_out, gy.data_ptr(), co,
+                          feats.data_ptr(), c, bp.qmeta.data_ptr(), nw1 - 1, m,
+                          bp.start.data_ptr(), bp.start.shape[1], k,
+                          w.data_ptr(), bp.q_active.data_ptr(),
+                          m, int(bp.window_r), dx.data_ptr(), dw.data_ptr(), dk,
+                          cols, b, self._stream())
+        require(err == 0, f"parent window_bwd_strided: CUDA error {err}")
+        return dx, dw
+
+    def overflow_dw(self, x, gy, k, src, dst, kk, valid, n_bound):
+        import torch
+
+        b, n, c = x.shape
+        m, co = gy.shape[1], gy.shape[2]
+        dw = torch.zeros((k, c, co), dtype=torch.float32, device=x.device)
+        err = self.ov_dw_fn(dw.data_ptr(), k, x.data_ptr(), n, c,
+                            gy.data_ptr(), m, co, src.data_ptr(),
+                            dst.data_ptr(), kk.data_ptr(), valid.data_ptr(),
+                            n_bound.data_ptr(), src.shape[1], b, self._stream())
+        require(err == 0, f"parent overflow_dw: CUDA error {err}")
+        return dw
 
 
 PARENT: ParentKernels | None = None  # set by --parent
@@ -837,9 +895,10 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
 
         nw1 = plan.qmeta.shape[1]
         if c > 1:
-            # kernel 5: the fused backward.  Submanifold: window_bwd_subm on
-            # the forward plan; strided: window_bwd_strided on the reverse
-            # plan (queries are the INPUT rows, the table is gy's).
+            # kernel 5: the backward.  Submanifold: window_bwd_subm on the
+            # forward plan (and window_bwd_strided with w[perm], its other
+            # entry); strided: window_bwd_strided on the reverse plan
+            # (queries are the INPUT rows, the table is gy's).
             bp = rev if strided else plan
             perm = None if strided else _mirror_perm(plan.offsets)
             bkeys = qst.keys()
@@ -852,29 +911,74 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                 return f(bkeys, gy, x, bp.qmeta, bp.start, wk, bp.q_active,
                          bp.dkeys, window_r=bp.window_r)
 
-            before = K.window_bwd_strided.launches
-            if not strided:  # the thin call the engine makes
-                got = K.window_bwd_subm(
-                    bkeys, x_int, gy_int, bp.qmeta, bp.start, w_int,
-                    bp.q_active, perm, bp.dkeys, window_r=bp.window_r)
-            else:
-                got = fused(x_int, gy_int, w_int)
-            require(K.window_bwd_strided.launches == before + 1,
-                    "window_bwd_strided did not count its launch")
-            want = fused(x_int, gy_int, w_int, kernel=False)
-            torch.cuda.synchronize()
-            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                    f"window_bwd_strided differs from its plain version at {label}")
-            require(float(got[1].abs().sum()) > 0, f"dw is all 0 at {label}")
-            rk, rp = fused(x_real, gy_real, w_real), fused(x_real, gy_real,
-                                                           w_real, False)
-            err = max((rk[0].float() - rp[0].float()).abs().max().item(),
-                      (rk[1] - rp[1]).abs().max().item())
+            def subm(x, gy, w):  # the thin call the engine makes
+                return K.window_bwd_subm(
+                    bkeys, x, gy, bp.qmeta, bp.start, w, bp.q_active, perm,
+                    bp.dkeys, window_r=bp.window_r)
+
+            entries = [("window_bwd_strided", fused)]
+            if not strided:
+                entries.append(("window_bwd_subm", subm))
+            for dt in (bf16, torch.float32):
+                ints = (x_int.to(dt), gy_int.to(dt), w_int.to(dt))
+                want = fused(*ints, kernel=False)
+                for entry, f in entries:
+                    before = K.window_bwd_strided.launches
+                    got = f(*ints)
+                    require(K.window_bwd_strided.launches == before + 1,
+                            f"{entry} did not count its launch")
+                    torch.cuda.synchronize()
+                    require(torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1]),
+                            f"{entry} differs from its plain version, {dt}, "
+                            f"at {label}")
+                require(float(got[1].abs().sum()) > 0, f"dw is all 0 at {label}")
+            # real-valued data: dx within one bf16 ulp of its scale (fp32:
+            # 1e-4 of it), dw within 1e-4 of its scale (float32 sums in
+            # another order); two runs give the same bits
+            err, worst = 0.0, {}
+            for dt in (bf16, torch.float32):
+                reals = (x_real.to(dt), gy_real.to(dt), w_real.to(dt))
+                rp = fused(*reals, kernel=False)
+                dx_scale = rp[0].float().abs().max().item()
+                dw_scale = rp[1].abs().max().item()
+                for entry, f in entries:
+                    rk, again = f(*reals), f(*reals)
+                    torch.cuda.synchronize()
+                    require(torch.equal(rk[0], again[0])
+                            and torch.equal(rk[1], again[1]),
+                            f"{entry} is not the same bits on two runs, {dt}, "
+                            f"at {label}")
+                    dx_err = (rk[0].float() - rp[0].float()).abs().max().item()
+                    dw_err = (rk[1] - rp[1]).abs().max().item()
+                    dx_tol = (_bf16_ulp(dx_scale) if dt == bf16
+                              else 1e-4 * dx_scale)
+                    require(dx_err <= dx_tol and dw_err <= 1e-4 * dw_scale,
+                            f"{entry} {dt} at {label}: dx off by {dx_err} "
+                            f"(limit {dx_tol}), dw by {dw_err} (limit "
+                            f"{1e-4 * dw_scale})")
+                    worst[f"{entry} {dt}"] = dict(dx=dx_err, dw=dw_err)
+                    if dt == bf16:
+                        err = max(err, dx_err, dw_err)
+            rk = fused(x_real, gy_real, w_real)
             ms = timed_ms(lambda: fused(x_real, gy_real, w_real))
             plain_ms = timed_ms(lambda: fused(x_real, gy_real, w_real, False),
                                 iters=2, warmup=1, graph=False)
             lib_ms = timed_ms(lambda: library_bwd(x_real, gy_real, w_real),
                               iters=3, warmup=1)
+            parent_ms = None
+            if PARENT is not None:
+                wk = w_real if strided else w_real[perm_t].contiguous()
+                pargs = (bkeys, gy_real, x_real, bp, wk)
+                got = PARENT.bwd(*pargs)
+                # the earlier design sums in another order (dw with atomics)
+                dx_scale = rk[0].float().abs().max().item()
+                require((got[0].float() - rk[0].float()).abs().max().item()
+                        <= 2 * _bf16_ulp(dx_scale)
+                        and (got[1] - rk[1]).abs().max().item()
+                        <= 1e-4 * rk[1].abs().max().item(),
+                        f"the earlier window_bwd_strided differs at {label}")
+                parent_ms = timed_ms(lambda: PARENT.bwd(*pargs))
             # in-window pairs of the plan the kernel walks
             n_rev_ov = int(bp.ov_valid.sum())
             pairs_bwd = pairs_total - n_rev_ov
@@ -890,11 +994,16 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                 + nbytes(bp.q_active, w_real, rk[0], rk[1]),
                 4.0 * pairs_bwd * c * co,
             )
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            m_in = bp.qmeta.shape[2]
             results["window_bwd_strided"].append(dict(
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                pairs_in_window=pairs_bwd,
+                parent_ms=parent_ms, pairs_in_window=pairs_bwd,
                 entry="window_bwd_strided" if strided else "window_bwd_subm",
+                real_valued_err=worst, repeats_bit_for_bit=True,
+                dx_groups=K._conv_groups(sms, tab.batch_size, m_in, k, co, c),
+                dw_parts=K._bwd_dw_parts(sms, tab.batch_size, m_in, k, c, co),
             ))
         else:
             # kernel 6: window_dw over the forward plan (the initial conv)
@@ -940,24 +1049,54 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             nb = K._ov_bound(valid)
             s_, d_ = (src, dst) if c == 1 else (dst, src)
 
-            def side_dw(x, gy, kernel=True):
+            def side_dw(x, gy, kernel=True, entry=dname):
                 sargs = (x, gy, k, s_, d_, kk, valid, nb)
                 if not kernel:
                     return K.overflow_dw_plain(*sargs)
-                return K.overflow_dw(*sargs) if c == 1 else overflow_dw_batched(*sargs)
+                if entry == "overflow_dw":
+                    return K.overflow_dw(*sargs)
+                return overflow_dw_batched(*sargs)
 
-            got = side_dw(x_int, gy_int)
-            want = side_dw(x_int, gy_int, kernel=False)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want),
-                    f"{dname} differs from its plain version at {label}")
-            require(float(got.abs().sum()) > 0,
-                    f"sidecar dw is all 0 at {label}")
-            err = (side_dw(x_real, gy_real)
-                   - side_dw(x_real, gy_real, False)).abs().max().item()
+            # both entries (one kernel), integer data bit-equal in bf16 and
+            # fp32; real-valued data within 1e-4 of the scale and the same
+            # bits on two runs
+            err = 0.0
+            for dt in (bf16, torch.float32):
+                ints = (x_int.to(dt), gy_int.to(dt))
+                reals = (x_real.to(dt), gy_real.to(dt))
+                want = side_dw(*ints, kernel=False)
+                rp = side_dw(*reals, kernel=False)
+                for entry in ("overflow_dw", "overflow_dw_batched"):
+                    got = side_dw(*ints, entry=entry)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want),
+                            f"{entry} differs from its plain version, {dt}, "
+                            f"at {label}")
+                    require(float(got.abs().sum()) > 0,
+                            f"sidecar dw is all 0 at {label}")
+                    rk, again = (side_dw(*reals, entry=entry),
+                                 side_dw(*reals, entry=entry))
+                    torch.cuda.synchronize()
+                    require(torch.equal(rk, again),
+                            f"{entry} is not the same bits on two runs, {dt}, "
+                            f"at {label}")
+                    e_ = (rk - rp).abs().max().item()
+                    require(e_ <= 1e-4 * rp.abs().max().item(),
+                            f"{entry} {dt} off by {e_} at {label}")
+                    if dt == bf16:
+                        err = max(err, e_)
             ms = timed_ms(lambda: side_dw(x_real, gy_real))
             plain_ms = timed_ms(lambda: side_dw(x_real, gy_real, False),
                                 iters=3, warmup=1, graph=False)
+            parent_ms = None
+            if PARENT is not None:
+                pargs = (x_real, gy_real, k, s_, d_, kk, valid, nb)
+                got = PARENT.overflow_dw(*pargs)
+                want = side_dw(x_real, gy_real)
+                require((got - want).abs().max().item()
+                        <= 1e-4 * want.abs().max().item(),
+                        f"the earlier overflow_dw differs at {label}")
+                parent_ms = timed_ms(lambda: PARENT.overflow_dw(*pargs))
             bi, si = torch.nonzero(valid, as_tuple=True)
             xs = x_real[bi, s_[bi, si].long()]
             gs = gy_real[bi, d_[bi, si].long()]
@@ -978,10 +1117,13 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                 + 2 * co * int(torch.unique(grows).numel()),
                 2.0 * n_ov * c * co,
             )
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             results[dname].append(dict(
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                entries=n_ov, walked=int(nb.sum()),
+                parent_ms=parent_ms, entries=n_ov, walked=int(nb.sum()),
+                parts=K._ov_dw_parts(sms, k, c, co),
+                piece=K._ov_dw_piece(k, c, co), repeats_bit_for_bit=True,
             ))
         del gy_int, gy_real, nbr, hit4, flat_rows
         emit({"phase": "kernel", "shape": label, "window_r": r,
@@ -1657,7 +1799,62 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
                       "timed_steps": len(timed), "batch": BATCH,
                       "precision": "bfloat16"}), flush=True)
     profile_train_step(dataset, recipe, grid, phase)
+    gradients_repeat(dataset, recipe, grid, phase)
     return launches
+
+
+def gradients_repeat(dataset, recipe="dune3d", grid=GRID, phase="train"):
+    """Two backward passes of one bf16 batch from the same weights (and the
+    same dropout draws): every conv weight's gradient must be the same bits
+    on both.  Prints how many parameter gradients differ in any bit."""
+    import torch
+
+    from sparseeventid_tpu_torch.config.schema import OptimizerConfig
+    from sparseeventid_tpu_torch.train.evaluate import (
+        class_weights_of,
+        feature_dtype,
+        prepare_batch,
+    )
+    from sparseeventid_tpu_torch.train.losses import multi_head_loss
+    from sparseeventid_tpu_torch.train.trainer import build_training
+
+    cfg = train_config(["run.precision=bfloat16"], recipe)
+    dev = torch.device(DEVICE)
+    state, _, _ = build_training(cfg, N_BATCHES, None, dev)
+    model = state.model
+    scheme = (getattr(cfg.mode, "optimizer", None)
+              or OptimizerConfig()).loss_balance_scheme
+    weights = class_weights_of(scheme, dev)
+    st, labels = prepare_batch(dataset.batch([0]), grid,
+                               model.encoder.capacities[0], feature_dtype(cfg),
+                               dev)
+
+    def gradients():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        logits, _ = model(st, gen)
+        loss, _ = multi_head_loss(logits, labels, scheme, weights)
+        loss.backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    first, second = gradients(), gradients()
+    params = dict(model.named_parameters())
+    differ = sorted(n for n in first if not torch.equal(first[n], second[n]))
+    conv_differ = [n for n in differ if params[n].dim() == 3]
+    conv_weights = sum(1 for p in params.values() if p.dim() == 3)
+    emit({"phase": f"{phase}_repeat", "recipe": recipe,
+          "gradients": len(first), "differ": len(differ),
+          "differ_names": differ[:20], "conv_weights": conv_weights,
+          "conv_weights_differ": len(conv_differ)})
+    require(len(first) == len(params) and conv_weights == 55,
+            f"{len(first)} gradients of {len(params)} parameters, "
+            f"{conv_weights} conv weights")
+    require(not conv_differ,
+            f"conv weight gradients differ between two backward passes of one "
+            f"batch: {conv_differ}")
 
 
 def _device_profile(fn):
@@ -1683,7 +1880,9 @@ def _device_profile(fn):
     for e in kernels:  # the port's kernels live in anonymous namespaces
         found = re.search(r"\(anonymous namespace\)::(\w+)", e.key)
         if found:
-            row = port.setdefault(found.group(1), {"ms": 0.0, "count": 0})
+            # the backward's dX runs the conv kernels as seid::BwdDx
+            name = found.group(1) + (" (dX)" if "BwdDx" in e.key else "")
+            row = port.setdefault(name, {"ms": 0.0, "count": 0})
             row["ms"] += e.self_device_time_total / 1e3
             row["count"] += e.count
     return wall_ms, busy_ms, [
@@ -2073,7 +2272,7 @@ def main(argv) -> int:
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], shape=head["shape"],
-                shapes=per_shape,
+                parent_ms=head.get("parent_ms"), shapes=per_shape,
             ))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -53,32 +53,6 @@ constexpr int kSlots = kMaxK / kWarps;  // offsets a warp owns, at most
 constexpr int kGroups = kTile / 32;     // queries a lane takes in a tile
 constexpr unsigned kFull = 0xffffffffu;
 
-// The live query tiles of all events, numbered in event order: their
-// count, and the (event, tile) of number g.  B is a batch, so a scan of it
-// per tile is cheap; sharing out live tiles (not all tiles) keeps the
-// blocks' loads even.
-__device__ __forceinline__ int event_tiles(const int* q_active, int b,
-                                           int m_bound, int m_tiles) {
-  const int n = live_tiles(q_active[b], m_bound);
-  return n < m_tiles ? n : m_tiles;
-}
-
-__device__ __forceinline__ int count_live(const int* q_active, int B,
-                                          int m_bound, int m_tiles) {
-  int n = 0;
-  for (int b = 0; b < B; ++b) n += event_tiles(q_active, b, m_bound, m_tiles);
-  return n;
-}
-
-__device__ __forceinline__ void live_tile(const int* q_active, int m_bound,
-                                          int m_tiles, int g, int& b,
-                                          int& tile) {
-  b = 0;
-  for (int n; g >= (n = event_tiles(q_active, b, m_bound, m_tiles)); ++b)
-    g -= n;
-  tile = g;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 4)
 dw_c1_kernel(const int* __restrict__ keys, int n_in,

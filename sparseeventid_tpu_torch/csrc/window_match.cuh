@@ -1,8 +1,9 @@
-// Shared pieces of the window kernels (forward conv, fused backward, dW):
-// the one definition of which (query, offset) pairs are IN-WINDOW, so that
-// forward and backward cannot disagree on the pair set the overflow list
-// complements; the float conversions; and the tile outer-product reduction
-// the two backward kernels use for dW.
+// Shared pieces of the window kernels (forward conv, backward, dW): the one
+// definition of which (query, offset) pairs are IN-WINDOW, so that forward
+// and backward cannot disagree on the pair set the overflow list
+// complements; the float conversions; the numbering of the live query
+// tiles that the dW kernels share out among their blocks; and the tile
+// outer-product sum of window_dw.cu.  Nothing here adds with atomics.
 
 #pragma once
 
@@ -50,6 +51,32 @@ __device__ __forceinline__ int live_tiles(int q_active, int m_bound) {
   const int live = (q_active + kTile - 1) / kTile;
   const int bound_tiles = (m_bound + kTile - 1) / kTile;
   return live < bound_tiles ? live : bound_tiles;
+}
+
+// The live query tiles of all events, numbered in event order: their
+// count, and the (event, tile) of number g.  B is a batch, so a scan of it
+// per tile is cheap; sharing out live tiles (not all tiles) keeps the
+// blocks' loads even.
+__device__ __forceinline__ int event_tiles(const int* q_active, int b,
+                                           int m_bound, int m_tiles) {
+  const int n = live_tiles(q_active[b], m_bound);
+  return n < m_tiles ? n : m_tiles;
+}
+
+__device__ __forceinline__ int count_live(const int* q_active, int B,
+                                          int m_bound, int m_tiles) {
+  int n = 0;
+  for (int b = 0; b < B; ++b) n += event_tiles(q_active, b, m_bound, m_tiles);
+  return n;
+}
+
+__device__ __forceinline__ void live_tile(const int* q_active, int m_bound,
+                                          int m_tiles, int g, int& b,
+                                          int& tile) {
+  b = 0;
+  for (int n; g >= (n = event_tiles(q_active, b, m_bound, m_tiles)); ++b)
+    g -= n;
+  tile = g;
 }
 
 // The plan window of a query tile at one column: table rows [lo, end),
@@ -166,29 +193,48 @@ __device__ __forceinline__ void tile_outer_reduce(float (&s)[4][4]) {
     }
 }
 
-// dw[ci, oj] += sum_r a[r][ci] * g[r][oj] over the 128 rows of a tile, for
-// ci < cw, oj < ow, added atomically (float32) onto dw_k (row stride ld).
-// All kThreads threads call it.
-__device__ __forceinline__ void tile_outer_add(
-    const float (*a)[kChunk + 1], const float (*g)[kChunk + 1], int cw,
-    int ow, float* __restrict__ dw_k, int ld) {
-  const OuterTile ot;
-  if (ot.ci0 >= cw) return;  // warp-uniform
-  float s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  tile_outer_acc(ot, a, g, cw, kTile, s);
-  tile_outer_reduce(s);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = s[i][j];
-      if (ot.grp == 0 && ot.ci0 + i < cw && ot.oj0 + j < ow && v != 0.f)
-        atomicAdd(dw_k + (long long)(ot.ci0 + i) * ld + ot.oj0 + j, v);
-    }
+}  // namespace seid
+
+// out[e] = part[0, e] + part[1, e] + ... in that order: the second pass of
+// the dW kernels whose blocks each write their partial sums once to a row of
+// a float32 scratch [n_parts, n] (window_bwd.cu, overflow_dw.cu), so that dW
+// has the same bits on every run.  A block takes `cols` outputs (a power of
+// two dividing kThreads); its kThreads / cols thread groups sum the rows
+// p = g, g + groups, ... in order, and the groups' sums are added in the
+// order g = 0, 1, ...  ordered_sum picks cols so that a small dW still
+// spreads over the card.
+namespace {
+
+__global__ void __launch_bounds__(seid::kThreads)
+ordered_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
+                   int n_parts, long long n, int cols) {
+  __shared__ float sums[seid::kThreads];
+  const int col = threadIdx.x % cols;
+  const int g = threadIdx.x / cols;
+  const int groups = seid::kThreads / cols;
+  const long long e = (long long)blockIdx.x * cols + col;
+  float sum = 0.f;
+  if (e < n) {
+#pragma unroll 4
+    for (int p = g; p < n_parts; p += groups)
+      sum += part[(long long)p * n + e];
+  }
+  sums[threadIdx.x] = sum;
+  __syncthreads();
+  if (g != 0 || e >= n) return;
+  float total = sums[col];
+  for (int i = 1; i < groups; ++i) total += sums[i * cols + col];
+  out[e] = total;
 }
 
-}  // namespace seid
+// ordered_sum_kernel over n outputs on stream st: 64 outputs a block, or
+// fewer (down to 8) while that leaves under about 264 blocks.
+inline cudaError_t ordered_sum(float* out, const float* part, int n_parts,
+                               long long n, cudaStream_t st) {
+  int cols = 64;
+  while (cols > 8 && (n + cols - 1) / cols < 264) cols /= 2;
+  ordered_sum_kernel<<<(unsigned)((n + cols - 1) / cols), seid::kThreads, 0,
+                       st>>>(out, part, n_parts, n, cols);
+  return cudaGetLastError();
+}
+}  // namespace

@@ -26,7 +26,7 @@ BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
            "window_dw", "overflow_dw", "window_gather", "gather_conv")
 # headers a source includes: an edited header rebuilds every source
-HEADERS = ("window_match.cuh",)
+HEADERS = ("window_match.cuh", "window_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,10 +44,13 @@ SIGNATURES = {
     "seid_window_conv_f32": _WINDOW + [_I, _P],
     "seid_overflow_apply_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                                 _P, _P, _I, _I, _P],
+    # then the dX offset groups, the dW scratch, its parts and the stream
     "seid_window_bwd_f32": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I,
-                            _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+                            _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I,
+                            _P],
+    # then the scratch, its parts, the piece (offsets, channels), the stream
     "seid_overflow_dw_f32": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
-                             _P, _I, _I, _P],
+                             _P, _I, _I, _P, _I, _I, _I, _P],
     "seid_window_gather_f32": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I,
                                _P, _P, _P, _I, _P],
     "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P],

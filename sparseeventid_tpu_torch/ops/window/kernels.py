@@ -345,7 +345,7 @@ window_conv_apply.launches = 0
 
 
 # --------------------------------------------------------------------------
-# window_bwd_strided / window_bwd_subm: dX and dW from one gather of gy
+# window_bwd_strided / window_bwd_subm: dX and dW through the backward plan
 # --------------------------------------------------------------------------
 
 def window_bwd_strided_plain(
@@ -371,6 +371,30 @@ def window_bwd_strided_plain(
 
 window_bwd_strided_plain.calls = 0
 
+_SCRATCH_BYTES = 64 << 20  # most float32 partials a dW kernel keeps
+_BWD_PIECE = 32  # dw rows and columns a warp of the backward's dW owns
+
+
+def _bwd_dw_parts(sms: int, b: int, m: int, k: int, c: int, co: int) -> int:
+    """Warps that share out the live query tiles of
+    :func:`window_bwd_strided`'s dW for each (offset, 32 x 32) piece of dw,
+    each writing its partial once to a row of the float32 scratch: about 24
+    warps an SM in all (three blocks of 8), no more parts than query tiles,
+    and the scratch within ``_SCRATCH_BYTES``.  The count fixes the
+    summation order, so dw repeats bit for bit on one card."""
+    pieces = k * _cdiv(c, _BWD_PIECE) * _cdiv(co, _BWD_PIECE)
+    budget = _SCRATCH_BYTES // (4 * k * c * co)
+    return max(1, min(b * _cdiv(m, TILE_T), _cdiv(24 * sms, pieces), budget))
+
+
+def _bwd_weights(w: torch.Tensor, perm: Sequence[int] | None = None
+                 ) -> torch.Tensor:
+    """The dX kernel's weights: w[perm] (the submanifold twin), transposed
+    to a contiguous [K, CO, C]."""
+    if perm is not None:
+        w = w[torch.as_tensor([int(p) for p in perm], device=w.device)]
+    return w.transpose(1, 2).contiguous()
+
 
 def window_bwd_strided(
     keys_out: torch.Tensor,  # i32[B, N_out] sorted keys of the gy table
@@ -390,12 +414,24 @@ def window_bwd_strided(
     over the batch) over the in-window pairs of the plan:
     dx[t] = sum_k w[k] gy[n(t, k)],  dw[k] = sum_t x[t] (outer) gy[n(t, k)].
     Dead tiles and rows past ``q_bound`` give dx = 0.  ``window_r`` must be
-    the plan's."""
+    the plan's.  On the card both are the same bits on every run."""
     if not _use_kernel(keys_out, gy, feats, rq, rs, w, r_active):
         return window_bwd_strided_plain(
             keys_out, gy, feats, rq, rs, w, r_active, dkeys, kmap,
             window_r=window_r, q_bound=q_bound,
         )
+    return _launch_bwd(keys_out, gy, feats, rq, rs, _bwd_weights(w), w.shape,
+                       r_active, dkeys, kmap, window_r, q_bound)
+
+
+window_bwd_strided.launches = 0
+
+
+def _launch_bwd(keys_out, gy, feats, rq, rs, w_t, w_shape, r_active, dkeys,
+                kmap, window_r, q_bound):
+    """The backward kernels (csrc/window_bwd.cu) with the transposed weights
+    ``w_t`` [K, CO, C] of ``w_shape`` [K, C, CO]; counts one launch of
+    :func:`window_bwd_strided`."""
     dtype = _float_dtype(feats, "window_bwd_strided")
     b, nw1, m = rq.shape
     n_out, co = gy.shape[1], gy.shape[2]
@@ -406,27 +442,35 @@ def window_bwd_strided(
     _check(feats, "feats", dtype, 3)
     _check(rq, "rq", torch.int32, 3)
     _check(rs, "rs", torch.int32, 3)
-    _check(w, "w", dtype, 3)
+    _check(w_t, "w_t", dtype, 3)
     _check(r_active, "r_active", torch.int32, 1)
-    if (w.shape != (k, c, co) or keys_out.shape != (b, n_out)
-            or feats.shape[:2] != (b, m) or gy.shape[0] != b):
+    if (tuple(w_shape) != (k, c, co) or w_t.shape != (k, co, c)
+            or keys_out.shape != (b, n_out) or feats.shape[:2] != (b, m)
+            or gy.shape[0] != b):
         raise ValueError("window_bwd_strided: inconsistent shapes")
     if rs.shape[2] != k or rs.shape[1] < _cdiv(m, TILE_T):
         raise ValueError(f"rs {tuple(rs.shape)} does not fit M={m}, K={k}")
-    dx = torch.empty((b, m, c), dtype=dtype, device=feats.device)
-    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+    dev = feats.device
+    dx = torch.empty((b, m, c), dtype=dtype, device=dev)
+    # the kernels write all of dw, but launch nothing without rows
+    dw = (torch.zeros if b * m == 0 else torch.empty)(
+        (k, c, co), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_parts = _bwd_dw_parts(sms, b, m, k, c, co)
+    part = torch.empty((n_parts if n_parts > 1 else 0, k * c * co),
+                       dtype=torch.float32, device=dev)
     name = "seid_window_bwd_bf16" if dtype == torch.bfloat16 else "seid_window_bwd_f32"
     fn = getattr(_native.lib("window_bwd"), name)
     err = fn(_ptr(keys_out), n_out, _ptr(gy), co, _ptr(feats), c, _ptr(rq),
-             nw1 - 1, m, _ptr(rs), rs.shape[1], k, _ptr(w), _ptr(r_active),
+             nw1 - 1, m, _ptr(rs), rs.shape[1], k, _ptr(w_t), _ptr(r_active),
              _query_rows_bound(m, q_bound), int(window_r), _ptr(dx), _ptr(dw),
-             dk, cols, b, _stream(feats))
+             # dX is the conv of gy (CO channels) into dx (C): the conv's
+             # cluster rule with the channels swapped
+             dk, cols, b, _conv_groups(sms, b, m, k, co, c), _ptr(part),
+             n_parts, _stream(feats))
     window_bwd_strided.launches += 1
     _native.check(err, "window_bwd_strided")
     return dx, dw
-
-
-window_bwd_strided.launches = 0
 
 
 def window_bwd_subm(
@@ -437,11 +481,15 @@ def window_bwd_subm(
     input sites, and the forward pair (i <- j, k) is the twin of
     (j <- i, perm[k]), so this is :func:`window_bwd_strided` with w[perm].
     -> (dx, dw_mirror); dW = (dw_mirror + twin sidecar)[perm]."""
-    perm_t = torch.as_tensor([int(p) for p in perm], device=w.device)
-    return window_bwd_strided(
-        keys, gy, feats, qmeta, start, w[perm_t].contiguous(), q_active, dkeys,
-        window_r=window_r, q_bound=q_bound,
-    )
+    if not _use_kernel(keys, feats, gy, qmeta, start, w, q_active):
+        perm_t = torch.as_tensor([int(p) for p in perm], device=w.device)
+        return window_bwd_strided(
+            keys, gy, feats, qmeta, start, w[perm_t].contiguous(), q_active,
+            dkeys, window_r=window_r, q_bound=q_bound,
+        )
+    # the kernel needs only w[perm] transposed: one copy
+    return _launch_bwd(keys, gy, feats, qmeta, start, _bwd_weights(w, perm),
+                       w.shape, q_active, dkeys, None, window_r, q_bound)
 
 
 # --------------------------------------------------------------------------
@@ -747,6 +795,37 @@ def overflow_dw_plain(x, gy, k, src, dst, kk, valid, n_bound=None):
 overflow_dw_plain.calls = 0
 
 
+_OV_PIECE = 4096  # floats of dw a block of the dW sidecar holds
+_OV_SUM = 1 << 20  # most partial floats the dW sidecar's ordered sum reads
+
+
+def _ov_dw_piece(k: int, c: int, co: int) -> Tuple[int, int]:
+    """-> (offsets, input channels) of the dW sidecar's piece of dw: whole
+    [C, CO] panels of as many offsets as fit ``_OV_PIECE`` floats (CO padded
+    to a multiple of 4), else one offset and the channels cut about evenly
+    in multiples of 8 (so a piece's rows start on 16 bytes)."""
+    cop = _round_up(co, 4)
+    if c * cop <= _OV_PIECE:
+        return min(k, _OV_PIECE // (c * cop)), c
+    cr = _round_up(_cdiv(c, _cdiv(c * cop, _OV_PIECE)), 8)
+    while cr > 8 and cr * cop > _OV_PIECE:
+        cr -= 8
+    return 1, cr if cr * cop <= _OV_PIECE else max(1, _OV_PIECE // cop)
+
+
+def _ov_dw_parts(sms: int, k: int, c: int, co: int) -> int:
+    """Runs of the walked list entries the dW sidecar splits among its
+    blocks (each writes its pieces' partials once): about two blocks an SM
+    over all pieces, at most 256, and at most ``_OV_SUM`` partial floats for
+    the ordered sum to read (4 MB; the scratch stays under
+    ``_SCRATCH_BYTES``).  It depends on the shape only, never on the list,
+    and fixes the summation order.  ``sweep_window_groups.py`` times the
+    alternatives on the lists of both recipes' initial and level-0 convs."""
+    kr, cr = _ov_dw_piece(k, c, co)
+    pieces = _cdiv(k, kr) * _cdiv(c, cr)
+    return max(1, min(256, _cdiv(2 * sms, pieces), _OV_SUM // (k * c * co)))
+
+
 def launch_overflow_dw_kernel(x, gy, k, src, dst, kk, valid, n_bound):
     """The dW sidecar kernel (csrc/overflow_dw.cu) -> float32 [K, C, CO]."""
     dtype = _float_dtype(x, "overflow_dw")
@@ -760,11 +839,20 @@ def launch_overflow_dw_kernel(x, gy, k, src, dst, kk, valid, n_bound):
     _check(valid, "valid", torch.bool, 2)
     if gy.shape[0] != b or src.shape[0] != b:
         raise ValueError("overflow_dw: inconsistent shapes")
-    dw = torch.zeros((k, c, co), dtype=torch.float32, device=x.device)
+    k = int(k)
+    # the kernel writes all of dw, but launches nothing without events
+    dw = (torch.zeros if b == 0 else torch.empty)(
+        (k, c, co), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_parts = _ov_dw_parts(sms, k, c, co)
+    kr, cr = _ov_dw_piece(k, c, co)
+    part = torch.empty((n_parts if n_parts > 1 else 0, k * c * co),
+                       dtype=torch.float32, device=x.device)
     name = "seid_overflow_dw_bf16" if dtype == torch.bfloat16 else "seid_overflow_dw_f32"
     fn = getattr(_native.lib("overflow_dw"), name)
-    err = fn(_ptr(dw), int(k), _ptr(x), n, c, _ptr(gy), m, co, _ptr(src),
-             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b, _stream(x))
+    err = fn(_ptr(dw), k, _ptr(x), n, c, _ptr(gy), m, co, _ptr(src),
+             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b, _ptr(part),
+             n_parts, kr, cr, _stream(x))
     _native.check(err, "overflow_dw")
     return dw
 

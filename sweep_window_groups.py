@@ -8,10 +8,18 @@ recipes (chip_smoke.py's synthetic batch 0, bf16), times window_plan with
 each group size G (offsets a block takes) and the tensor-core
 window_conv_apply with each cluster size (blocks that share a tile's
 offsets), next to the size the wrappers pick (kernels._plan_group,
-kernels._conv_groups).  Every plan must equal the wrapper's bit for bit,
-every conv stay within one bf16 ulp of it (the cluster's partial sums add
-in another order).  Prints the card's name and power limit, then one JSON
-line per shape; exits non-zero on a mismatch or without a CUDA device.
+kernels._conv_groups); then the backward (window_bwd_subm's kernels) with
+each dX cluster size and with dW's parts (warps that share a piece's
+tiles) at the pick, half and twice it, four times it and 1, beside the
+wrapper's picks (kernels._conv_groups with the channels swapped,
+kernels._bwd_dw_parts); and, on the lists of the initial and level-0
+plans, the dW sidecar with 16 to 512 parts beside kernels._ov_dw_parts.
+Every plan must equal the wrapper's bit for bit, every conv and dX stay
+within one bf16 ulp of it (the cluster's partial sums add in another
+order), the sidecar's dW within 1e-4 of its scale and the backward's
+within 1e-3 (at one part it sums thousands of tiles in one float32 run).
+Prints the card's name and power limit, then one JSON line per shape;
+exits non-zero on a mismatch or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import chip_smoke as cs
 
 PLAN_GROUPS = (8, 16, 24, 32)
 CONV_GROUPS = (1, 2, 4, 8)
+OV_PARTS = (16, 32, 64, 128, 256, 512)
 
 
 def sweep(geo, dataset) -> None:
@@ -108,7 +117,112 @@ def sweep(geo, dataset) -> None:
                            f"window_conv_apply with {g} blocks a tile differs "
                            f"by {diff} at {row['shape']}")
                 row[f"conv_ms_g{g}"] = cs.timed_ms(lambda: run_conv(g))
+            sweep_backward(row, st, plan, x, w, gen, sms)
+        sweep_overflow_dw(row, st, plan, c, co, gen, sms)
         print(json.dumps(row), flush=True)
+
+
+def sweep_backward(row, st, plan, x, w, gen, sms) -> None:
+    """The submanifold backward on the series plan (gy on the same sites)
+    with each dX cluster size and several dW part counts."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import _native
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window.engine import _mirror_perm
+
+    dev = x.device
+    b, m, c = x.shape
+    k, _, co = w.shape
+    r = plan.window_r
+    keys = st.keys()
+    gy = (torch.randn((b, m, co), generator=gen, device=dev)
+          * st.row_mask()[..., None]).to(torch.bfloat16).contiguous()
+    perm = _mirror_perm(plan.offsets)
+    dx_want, dw_want = K.window_bwd_subm(keys, x, gy, plan.qmeta, plan.start, w,
+                                         st.n_active, perm, plan.dkeys,
+                                         window_r=r)
+    w_t = K._bwd_weights(w, perm)
+    _, dk, cols = K._offset_args(plan.dkeys, None)
+    fn = _native.lib("window_bwd").seid_window_bwd_bf16
+    dx, dw = torch.empty_like(dx_want), torch.empty_like(dw_want)
+    pick_g = K._conv_groups(sms, b, m, k, co, c)
+    pick_p = K._bwd_dw_parts(sms, b, m, k, c, co)
+    row["bwd_dx_pick"], row["bwd_dw_parts_pick"] = pick_g, pick_p
+    part = torch.empty((max(4 * pick_p, 2), k * c * co), dtype=torch.float32,
+                       device=dev)
+
+    def run(g, p):
+        err = fn(keys.data_ptr(), m, gy.data_ptr(), co, x.data_ptr(), c,
+                 plan.qmeta.data_ptr(), plan.qmeta.shape[1] - 1, m,
+                 plan.start.data_ptr(), plan.start.shape[1], k, w_t.data_ptr(),
+                 st.n_active.data_ptr(), m, r, dx.data_ptr(), dw.data_ptr(), dk,
+                 cols, b, g, part.data_ptr(), p,
+                 torch.cuda.current_stream().cuda_stream)
+        cs.require(err == 0, f"window_bwd: CUDA error {err}")
+
+    dx_scale = dx_want.float().abs().max().item()
+    dw_scale = dw_want.abs().max().item()
+    parts = sorted({1, max(1, pick_p // 2), pick_p, 2 * pick_p, 4 * pick_p})
+    for g, p in [(g, pick_p) for g in CONV_GROUPS] + [(pick_g, p) for p in parts]:
+        run(g, p)
+        torch.cuda.synchronize()
+        e_dx = (dx.float() - dx_want.float()).abs().max().item()
+        e_dw = (dw - dw_want).abs().max().item()
+        # one part sums thousands of tiles in one float32 run: 1e-3
+        cs.require(e_dx <= cs._bf16_ulp(dx_scale) and e_dw <= 1e-3 * dw_scale,
+                   f"window_bwd with {g} dX blocks a tile and {p} dW parts "
+                   f"differs by {e_dx}, {e_dw} at {row['shape']}")
+        row[f"bwd_ms_g{g}_p{p}"] = cs.timed_ms(lambda: run(g, p))
+
+
+def sweep_overflow_dw(row, st, plan, c, co, gen, sms) -> None:
+    """The dW sidecar over the plan's own list at 16 to 512 parts, where the
+    list is long enough to matter (the initial and level-0 plans)."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import _native
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    valid = plan.ov_valid
+    if not (row["shape"].endswith("initial") or row["shape"].endswith("L0 series")):
+        return
+    dev = valid.device
+    b, m = st.batch_size, st.capacity
+    k = plan.num_offsets
+    x = (torch.randn((b, m, c), generator=gen, device=dev)
+         * st.row_mask()[..., None]).to(torch.bfloat16).contiguous()
+    gy = (torch.randn((b, m, co), generator=gen, device=dev)
+          * st.row_mask()[..., None]).to(torch.bfloat16).contiguous()
+    args = (x, gy, k, plan.ov_dst, plan.ov_src, plan.ov_k, valid,
+            K._ov_bound(valid))
+    want = K.overflow_dw_plain(*args)
+    kr, cr = K._ov_dw_piece(k, c, co)
+    fn = _native.lib("overflow_dw").seid_overflow_dw_bf16
+    out = torch.empty_like(want)
+    src, dst, kk, nb = args[3], args[4], args[5], args[7]
+    row["ov_dw_entries"] = int(valid.sum())
+    row["ov_dw_parts_pick"] = K._ov_dw_parts(sms, k, c, co)
+    parts = sorted(set(OV_PARTS) | {row["ov_dw_parts_pick"]})
+    part = torch.empty((max(parts), k * c * co), dtype=torch.float32,
+                       device=dev)
+
+    def run(p):
+        err = fn(out.data_ptr(), k, x.data_ptr(), m, c, gy.data_ptr(), m, co,
+                 src.data_ptr(), dst.data_ptr(), kk.data_ptr(),
+                 valid.data_ptr(), nb.data_ptr(), src.shape[1], b,
+                 part.data_ptr(), p, kr, cr,
+                 torch.cuda.current_stream().cuda_stream)
+        cs.require(err == 0, f"overflow_dw: CUDA error {err}")
+
+    scale = want.abs().max().item()
+    for p in parts:
+        run(p)
+        torch.cuda.synchronize()
+        diff = (out - want).abs().max().item()
+        cs.require(diff <= 1e-4 * scale,
+                   f"overflow_dw with {p} parts differs by {diff} at {row['shape']}")
+        row[f"ov_dw_ms_p{p}"] = cs.timed_ms(lambda: run(p))
 
 
 def main() -> int:

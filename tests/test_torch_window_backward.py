@@ -117,6 +117,93 @@ def test_window_bwd_subm_bit_equal():
     assert float(dw.abs().sum()) > 0
 
 
+def test_window_bwd_subm_c192_matches_jax():
+    """The deep levels' width, C = CO = 192 (the dX kernel's widest slab and
+    nine 64 x 64 pieces of dw an offset), on the forced-overflow grid."""
+    sj, st, plan = subm_case(c=192)
+    w = int_weights(15, (27, 192, 192))
+    gy = int_gy(16, (1, sj.capacity, 192), np.asarray(sj.row_mask()))
+    perm = jwe._mirror_perm(plan.offsets)
+    dx_j, dw_j = jwc.window_bwd_subm(
+        sj.keys(), sj.feats, jnp.asarray(gy), jnp.asarray(plan.qmeta.numpy()),
+        jnp.asarray(plan.start.numpy()), jnp.asarray(w), sj.n_active, perm,
+        dkeys=plan.dkeys, interpret=True, window_r=plan.window_r,
+    )
+    dx, dw = tk.window_bwd_subm(
+        st.keys(), st.feats, torch.from_numpy(gy), plan.qmeta, plan.start,
+        torch.from_numpy(w), st.n_active, perm, plan.dkeys,
+        window_r=plan.window_r,
+    )
+    assert_equal(dx, dx_j)
+    assert_equal(dw, dw_j)
+    assert float(dx.abs().sum()) > 0 and float(dw.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("entry", ["strided", "subm"])
+def test_dx_is_the_conv_through_the_backward_plan(entry):
+    """The dX kernel's identity: dx of the backward equals the forward conv
+    of gy through the backward plan with the weights the wrapper builds,
+    ``_bwd_weights`` (w, or w[perm] for the submanifold twin, transposed
+    to [K, CO, C]); that argument equals the JAX package's w[perm]^T."""
+    if entry == "strided":
+        sj, st, skj, skt, _, plan = strided_case(c=16)
+        gy_st, x_st, perm = skt, st, None
+        w = int_weights(17, (8, 16, 32))
+    else:
+        sj, st, plan = subm_case(c=16)
+        gy_st, x_st = st, st
+        perm = twe._mirror_perm(plan.offsets)
+        w = int_weights(18, (27, 16, 32))
+    gy = torch.from_numpy(int_gy(19, (gy_st.batch_size, gy_st.capacity, 32),
+                                 gy_st.row_mask().numpy()))
+    w_t = tk._bwd_weights(torch.from_numpy(w), perm)
+    want_t = np.transpose(w if perm is None else w[list(perm)], (0, 2, 1))
+    assert w_t.is_contiguous() and w_t.shape == (w.shape[0], 32, 16)
+    assert_equal(w_t, jnp.asarray(want_t))
+    wk = torch.from_numpy(w if perm is None else w[list(perm)])
+    dx, _ = tk.window_bwd_strided(
+        gy_st.keys(), gy, x_st.feats, plan.qmeta, plan.start, wk,
+        plan.q_active, plan.dkeys, window_r=plan.window_r)
+    conv = tk.window_conv_apply_plain(
+        gy_st.keys(), gy, plan.qmeta, plan.start, w_t, plan.q_active,
+        plan.dkeys, window_r=plan.window_r)
+    assert torch.equal(dx, conv) and float(dx.abs().sum()) > 0
+
+
+# (M input rows, K, C, CO, dX groups, dW parts) of every backward of both
+# recipes at 8 events: the series convs of levels 0-5 and the downsamples
+BWD_SHAPES = [
+    ("L0 series", 50176, 27, 32, 32, 1, 118),
+    ("L1 series", 25088, 27, 64, 64, 1, 30),
+    ("L2 series", 12800, 27, 96, 96, 2, 14),
+    ("L3 series", 6656, 27, 128, 128, 4, 8),
+    ("L4 series", 3584, 27, 160, 160, 4, 5),
+    ("L5 series", 2048, 27, 192, 192, 4, 4),
+    ("L0 downsample", 50176, 8, 32, 64, 1, 198),
+    ("L4 downsample", 3584, 8, 160, 192, 1, 14),
+    ("2d L0 series", 60416, 9, 32, 32, 1, 352),
+    ("2d L4 series", 4096, 9, 160, 160, 1, 15),
+    ("2d L5 series", 2048, 9, 192, 192, 2, 10),
+    ("2d L0 downsample", 60416, 4, 32, 64, 1, 396),
+]
+
+
+@pytest.mark.parametrize("label,m,k,c,co,groups,parts", BWD_SHAPES)
+def test_bwd_launch_geometry(label, m, k, c, co, groups, parts):
+    """The wrapper's picks for the backward on 132 SMs: dX's cluster size is
+    the conv's rule with the channel counts swapped (it is the conv of gy
+    into dx); dW's parts fill about 24 warps an SM over the (offset,
+    32 x 32) pieces a warp owns, with no more parts than query tiles and
+    the float32 scratch within 64 MB."""
+    assert tk._conv_groups(132, 8, m, k, co, c) == groups
+    p = tk._bwd_dw_parts(132, 8, m, k, c, co)
+    assert p == parts
+    pieces = k * -(-c // 32) * -(-co // 32)
+    assert 1 <= p <= 8 * -(-m // 128)
+    assert p * k * c * co * 4 <= 64 << 20
+    assert p * pieces >= 24 * 132
+
+
 @pytest.mark.parametrize("name,ksz,c,co,mirror", [
     ("initial_k125_c1", (5, 5, 5), 1, 32, False),
     ("k27_c16_kmap", (3, 3, 3), 16, 16, True),

@@ -457,6 +457,39 @@ def test_overflow_apply_plain_on_handmade_lists(case, entry):
     assert not np.array_equal(np.asarray(want)[1], base[1])
 
 
+# (K, C, CO, piece (offsets, channels), parts) of every dW sidecar list of
+# both recipes: the initial convs, the series convs, the downsamples
+OV_SHAPES = [
+    ("initial 5^3", 125, 1, 32, (125, 1), 256),
+    ("2d initial", 25, 1, 32, (25, 1), 256),
+    ("L0 series", 27, 32, 32, (4, 32), 37),
+    ("L2 series", 27, 96, 96, (1, 32), 4),
+    ("L5 series", 27, 192, 192, (1, 16), 1),
+    ("2d L0 series", 9, 32, 32, (4, 32), 88),
+    ("2d L5 series", 9, 192, 192, (1, 16), 3),
+    ("L0 downsample", 8, 32, 64, (2, 32), 64),
+    ("L1 downsample", 8, 64, 96, (1, 32), 17),
+    ("L4 downsample", 8, 160, 192, (1, 16), 4),
+]
+
+
+@pytest.mark.parametrize("label,k,c,co,piece,parts", OV_SHAPES)
+def test_overflow_dw_geometry(label, k, c, co, piece, parts):
+    """The dW sidecar's piece of dw (whole [C, CO] panels of as many offsets
+    as fit 4096 floats, CO padded to 4, else one offset with the channels
+    cut about evenly in multiples of 8) and its parts on 132 SMs: about two
+    blocks an SM, at most 256, and at most 2^20 partial floats for the
+    ordered sum (a 4 MB scratch).  They depend on the shape only, never on
+    the list."""
+    assert tk._ov_dw_piece(k, c, co) == piece
+    kr, cr = piece
+    assert kr * cr * -(-co // 4) * 4 <= 4096 and 1 <= kr <= k and 1 <= cr <= c
+    assert (kr == 1 and cr % 8 == 0) or cr == c
+    p = tk._ov_dw_parts(132, k, c, co)
+    assert p == parts
+    assert 1 <= p <= 256 and p * k * c * co <= 1 << 20
+
+
 def test_wrappers_count_plain_calls_not_launches():
     sj, st, plan, base, w = _overflow_inputs()
     before = (tk.overflow_apply.launches, tk.overflow_apply_plain.calls)
