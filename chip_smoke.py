@@ -25,8 +25,10 @@ Phases, one JSON line each; any failure exits non-zero:
               chunks) and a hand-made dense block where every query
               matches at every offset.  With --parent DIR (an earlier
               commit's sparseeventid_tpu_torch/csrc) its plan, conv,
-              backward and dW sidecar are built and timed on the same
-              inputs (parent_ms)
+              backward, dW sidecar, window_gather and gather_conv are built
+              and timed on the same inputs (parent_ms); the plan, conv,
+              backward, sidecar and window_gather must give the current
+              kernels' bits
   4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
               of the window autograd Functions equal the plain rulebook
               backend's autograd exactly (level-0 series plan and level-0
@@ -51,10 +53,15 @@ Phases, one JSON line each; any failure exits non-zero:
               catch two planted faults of the overflow sidecars
   8. gather   window_gather (the deconv's shape and the level-0 series
               shape) bit-equal to its plain version on real-valued bf16
-              data, gather_conv (levels 0 and 5 over the real rulebooks)
-              bit-equal on integer-valued data; the deconv's two-step dW
-              timed beside window_dw at the same shape, and window_dw's
-              own row there (bit-equal on integer bf16 and fp32 data)
+              and fp32 data (and at C = 12, its per-value route);
+              gather_conv over the real rulebooks of levels 0, 2, 4 and 5
+              bit-equal on integer-valued bf16 and fp32 data (its dX form,
+              mirrored index columns and W transposed, too at level 0, and
+              12 -> 20 channels, its element route, at level 5), within one
+              bf16 ulp of the output scale on real-valued bf16 data and the
+              same bits on two runs; the deconv's two-step dW timed beside
+              window_dw at the same shape, and window_dw's own row there
+              (bit-equal on integer bf16 and fp32 data)
   9. engine_ops  integer-valued fp32: the window deconv (forward, dX, dW)
               against the plain backend's autograd, PoolingDownsample's
               window branch against its plain branch, the gather conv
@@ -357,16 +364,16 @@ def _handmade_lists(n_q, n_t, k, width, seed):
 
 
 class ParentKernels:
-    """The kernels of an earlier commit (one whose plan and conv entries
-    take the group sizes the current ones take), built from its
-    csrc/ and called through its C signatures, to time the earlier design
-    beside the current one on the same inputs in the same run (``--parent
-    DIR``, DIR holding that commit's sparseeventid_tpu_torch/csrc): the
-    plan and the conv (the same designs, so the same times), and the
-    backward and the dW sidecar that this design replaces.  Each call's
-    result is checked against the current kernel's."""
+    """The kernels of an earlier commit, built from its csrc/ (``--parent
+    DIR``, DIR holding that commit's sparseeventid_tpu_torch/csrc) and run
+    through the current wrappers, to time the earlier design beside the
+    current one on the same inputs in the same run.  The earlier C entries
+    must take the current arguments, except the gather conv's, which takes
+    no cluster size.  Each call's result is checked against the current
+    kernel's."""
 
-    SOURCES = ("window_plan", "window_conv", "window_bwd", "overflow_dw")
+    SOURCES = ("window_plan", "window_conv", "window_bwd", "overflow_dw",
+               "window_gather", "gather_conv")
 
     def __init__(self, tree):
         import ctypes
@@ -384,101 +391,48 @@ class ParentKernels:
         for name, proc in procs.items():
             log, _ = proc.communicate()
             require(proc.returncode == 0, f"parent {name} does not build:\n{log}")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in self.SOURCES}
-        self.plan_fn = lib["window_plan"].seid_window_plan
-        self.plan_fn.argtypes = _native.SIGNATURES["seid_window_plan"]
-        self.conv_fn = lib["window_conv"].seid_window_conv_bf16
-        self.conv_fn.argtypes = _native.SIGNATURES["seid_window_conv_bf16"]
-        # the earlier backward: w as it is, dw zeroed and added onto
-        self.bwd_fn = lib["window_bwd"].seid_window_bwd_bf16
-        self.bwd_fn.argtypes = [P, I, P, I, P, I, P, I, I, P, I, I, P, P, I, I,
-                                P, P, P, P, I, P]
-        # the earlier dW sidecar: dw zeroed and added onto, no scratch
-        self.ov_dw_fn = lib["overflow_dw"].seid_overflow_dw_bf16
-        self.ov_dw_fn.argtypes = [P, I, P, I, I, P, I, I, P, P, P, P, P, I, I, P]
-        for fn in (self.plan_fn, self.conv_fn, self.bwd_fn, self.ov_dw_fn):
-            fn.restype = ctypes.c_int
+        self.libs = {name: ctypes.CDLL(str(out / f"{name}.so"))
+                     for name in self.SOURCES}
+        for dll in self.libs.values():
+            for fn, argtypes in _native.SIGNATURES.items():
+                if hasattr(dll, fn):
+                    getattr(dll, fn).argtypes = argtypes
+                    getattr(dll, fn).restype = ctypes.c_int
+        # the earlier gather conv: the current arguments but the cluster size
+        self.gather_conv_fn = self.libs["gather_conv"].seid_gather_conv_bf16
+        sig = _native.SIGNATURES["seid_gather_conv_bf16"]
+        self.gather_conv_fn.argtypes = sig[:-2] + sig[-1:]
 
-    @staticmethod
-    def _stream():
+    def run(self, fn, *args, **kwargs):
+        """``fn`` (a wrapper of the current package, or a function that
+        calls one) with the earlier kernels in place of the current ones."""
+        from sparseeventid_tpu_torch.ops.window import _native
+
+        with _native._lock:
+            saved = {name: _native._libs.get(name) for name in self.libs}
+            _native._libs.update(self.libs)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            with _native._lock:
+                for name, dll in saved.items():
+                    if dll is None:
+                        _native._libs.pop(name, None)
+                    else:
+                        _native._libs[name] = dll
+
+    def gather_conv(self, feats, idx, w):
         import torch
 
-        return torch.cuda.current_stream().cuda_stream
-
-    def plan(self, pk, qkeys, n_active, window_r, table_cap):
-        import torch
-
-        from sparseeventid_tpu_torch.ops.window import kernels as K
-        from sparseeventid_tpu_torch.ops.window import query as Q
-
-        b, npad = pk.shape
-        _, n, k = qkeys.shape
-        n_tiles = Q._cdiv(n, Q.TILE_T)
-        start = torch.empty((b, n_tiles, k), dtype=torch.int32, device=pk.device)
-        uncov = torch.empty((b, n, k), dtype=torch.int32, device=pk.device)
-        sms = torch.cuda.get_device_properties(pk.device).multi_processor_count
-        err = self.plan_fn(pk.data_ptr(), npad, qkeys.data_ptr(), n, k,
-                           n_active.data_ptr(), start.data_ptr(),
-                           uncov.data_ptr(), b, n_tiles, int(window_r),
-                           Q.conv_max_start(table_cap, window_r),
-                           K._plan_group(sms, b, n_tiles, k), self._stream())
-        require(err == 0, f"parent window_plan: CUDA error {err}")
-        return start, uncov
-
-    def conv(self, keys, feats, qmeta, start, w, q_active, dkeys, window_r):
-        import torch
-
-        from sparseeventid_tpu_torch.ops.window import kernels as K
-
-        b, nw1, m = qmeta.shape
-        n_in, c = feats.shape[1], feats.shape[2]
-        co = w.shape[-1]
-        k, dk, cols = K._offset_args(dkeys, None)
+        b, n, c = feats.shape
+        k, co = w.shape[0], w.shape[2]
+        m = idx.shape[1]
         out = torch.empty((b, m, co), dtype=feats.dtype, device=feats.device)
-        sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
-        err = self.conv_fn(keys.data_ptr(), n_in, feats.data_ptr(), c,
-                           qmeta.data_ptr(), nw1 - 1, m, start.data_ptr(),
-                           start.shape[1], k, w.data_ptr(), co,
-                           q_active.data_ptr(), m, int(window_r),
-                           out.data_ptr(), dk, cols, b,
-                           K._conv_groups(sms, b, m, k, c, co), self._stream())
-        require(err == 0, f"parent window_conv_apply: CUDA error {err}")
+        err = self.gather_conv_fn(feats.data_ptr(), n, c, idx.data_ptr(), m, k,
+                                  w.data_ptr(), co, out.data_ptr(), b,
+                                  torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent gather_conv: CUDA error {err}")
         return out
-
-    def bwd(self, keys_out, gy, feats, bp, w):
-        """(dx, dw) of the earlier window_bwd_strided over plan ``bp``."""
-        import torch
-
-        from sparseeventid_tpu_torch.ops.window import kernels as K
-
-        b, nw1, m = bp.qmeta.shape
-        n_out, co = gy.shape[1], gy.shape[2]
-        c = feats.shape[2]
-        k, dk, cols = K._offset_args(bp.dkeys, None)
-        dx = torch.empty((b, m, c), dtype=feats.dtype, device=feats.device)
-        dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
-        err = self.bwd_fn(keys_out.data_ptr(), n_out, gy.data_ptr(), co,
-                          feats.data_ptr(), c, bp.qmeta.data_ptr(), nw1 - 1, m,
-                          bp.start.data_ptr(), bp.start.shape[1], k,
-                          w.data_ptr(), bp.q_active.data_ptr(),
-                          m, int(bp.window_r), dx.data_ptr(), dw.data_ptr(), dk,
-                          cols, b, self._stream())
-        require(err == 0, f"parent window_bwd_strided: CUDA error {err}")
-        return dx, dw
-
-    def overflow_dw(self, x, gy, k, src, dst, kk, valid, n_bound):
-        import torch
-
-        b, n, c = x.shape
-        m, co = gy.shape[1], gy.shape[2]
-        dw = torch.zeros((k, c, co), dtype=torch.float32, device=x.device)
-        err = self.ov_dw_fn(dw.data_ptr(), k, x.data_ptr(), n, c,
-                            gy.data_ptr(), m, co, src.data_ptr(),
-                            dst.data_ptr(), kk.data_ptr(), valid.data_ptr(),
-                            n_bound.data_ptr(), src.shape[1], b, self._stream())
-        require(err == 0, f"parent overflow_dw: CUDA error {err}")
-        return dw
 
 
 PARENT: ParentKernels | None = None  # set by --parent
@@ -505,10 +459,11 @@ def _plan_row(label, args, r, table_cap, n_tab, n_q, keys, qkeys):
     lib_ms = timed_ms(lambda: torch.searchsorted(keys, qf))
     parent_ms = None
     if PARENT is not None:
-        got = PARENT.plan(*args, r, table_cap)
+        got = PARENT.run(K.window_plan, *args, window_r=r, table_cap=table_cap)
         require(torch.equal(got[0], start) and torch.equal(got[1], uncov),
                 f"the earlier window_plan differs at {label}")
-        parent_ms = timed_ms(lambda: PARENT.plan(*args, r, table_cap))
+        parent_ms = timed_ms(lambda: PARENT.run(
+            K.window_plan, *args, window_r=r, table_cap=table_cap))
     # reads: the active keys, the live queries' keys; writes: start and
     # uncovered in full (the function defines every entry)
     b_ms, b_by = bound(
@@ -567,9 +522,15 @@ def _conv_row(label, keys, plan, start, q_active, n_tab, n_q, live_tiles,
     lib_ms = timed_ms(library)
     parent_ms = None
     if PARENT is not None:
-        require(torch.equal(PARENT.conv(*cargs, r), out),
+        # the same design: the same bits on integer and real-valued data
+        got = K.window_conv_apply(*rargs, window_r=r)
+        require(torch.equal(PARENT.run(K.window_conv_apply, *cargs, window_r=r),
+                            out)
+                and torch.equal(PARENT.run(K.window_conv_apply, *rargs,
+                                           window_r=r), got),
                 f"the earlier window_conv_apply differs at {label}")
-        parent_ms = timed_ms(lambda: PARENT.conv(*rargs, r))
+        parent_ms = timed_ms(lambda: PARENT.run(K.window_conv_apply, *rargs,
+                                                window_r=r))
     # reads: keys and features of the active table rows, the live
     # queries' meta, the live tiles' starts, W; writes: the output in
     # full (rows past the live ones are defined as 0)
@@ -968,17 +929,12 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                               iters=3, warmup=1)
             parent_ms = None
             if PARENT is not None:
-                wk = w_real if strided else w_real[perm_t].contiguous()
-                pargs = (bkeys, gy_real, x_real, bp, wk)
-                got = PARENT.bwd(*pargs)
-                # the earlier design sums in another order (dw with atomics)
-                dx_scale = rk[0].float().abs().max().item()
-                require((got[0].float() - rk[0].float()).abs().max().item()
-                        <= 2 * _bf16_ulp(dx_scale)
-                        and (got[1] - rk[1]).abs().max().item()
-                        <= 1e-4 * rk[1].abs().max().item(),
+                # the same design: the same bits
+                got = PARENT.run(fused, x_real, gy_real, w_real)
+                require(torch.equal(got[0], rk[0]) and torch.equal(got[1], rk[1]),
                         f"the earlier window_bwd_strided differs at {label}")
-                parent_ms = timed_ms(lambda: PARENT.bwd(*pargs))
+                parent_ms = timed_ms(
+                    lambda: PARENT.run(fused, x_real, gy_real, w_real))
             # in-window pairs of the plan the kernel walks
             n_rev_ov = int(bp.ov_valid.sum())
             pairs_bwd = pairs_total - n_rev_ov
@@ -1090,13 +1046,11 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                                 iters=3, warmup=1, graph=False)
             parent_ms = None
             if PARENT is not None:
-                pargs = (x_real, gy_real, k, s_, d_, kk, valid, nb)
-                got = PARENT.overflow_dw(*pargs)
-                want = side_dw(x_real, gy_real)
-                require((got - want).abs().max().item()
-                        <= 1e-4 * want.abs().max().item(),
+                require(torch.equal(PARENT.run(side_dw, x_real, gy_real),
+                                    side_dw(x_real, gy_real)),
                         f"the earlier overflow_dw differs at {label}")
-                parent_ms = timed_ms(lambda: PARENT.overflow_dw(*pargs))
+                parent_ms = timed_ms(
+                    lambda: PARENT.run(side_dw, x_real, gy_real))
             bi, si = torch.nonzero(valid, as_tuple=True)
             xs = x_real[bi, s_[bi, si].long()]
             gs = gy_real[bi, d_[bi, si].long()]
@@ -1290,10 +1244,11 @@ def phase_gather_kernels(dataset):
     """Kernels 9 and 10 against their plain versions at dune3d shapes ->
     per-kernel rows.  window_gather: the deconv's shape (level-1 table,
     level-0 queries over the reverse plan, K = 8) and the level-0 series
-    shape (K = 27, C = 32), bit-equal on real-valued bf16 data.
-    gather_conv: levels 0 and 5 over the real rulebooks, bit-equal on
-    integer-valued data.  The deconv's two-step dW is timed beside
-    window_dw at the same shape."""
+    shape (K = 27, C = 32), bit-equal on real-valued bf16 and fp32 data.
+    gather_conv: levels 0, 2, 4 and 5 over the real rulebooks, bit-equal
+    on integer-valued bf16 and fp32 data, within one bf16 ulp on
+    real-valued data and the same bits twice.  The deconv's two-step dW is
+    timed beside window_dw at the same shape."""
     import torch
 
     from sparseeventid_tpu_torch.io import larcv_batch_to_sparse_3d
@@ -1348,7 +1303,28 @@ def phase_gather_kernels(dataset):
         n_matched = int(matched.sum())
         require(n_matched > 0, f"window_gather matched nothing at {label}")
         del want
+        # real-valued fp32 data (the 16-byte route at these C), and at the
+        # deconv's shape C = 12 bf16, 24-byte rows: the per-value route
+        routes = [("fp32", torch.randn(x.shape, generator=gen, device=dev))]
+        if plan is rev:
+            routes.append(("bf16 C=12", feats_of(tab, 12)))
+        for what, xr in routes:
+            xr = torch.where(tab.row_mask()[..., None], xr, 0).contiguous()
+            rargs = (keys, xr) + args[2:]
+            require(torch.equal(K.window_gather(*rargs, window_r=plan.window_r),
+                                K.window_gather_plain(*rargs,
+                                                      window_r=plan.window_r)),
+                    f"window_gather differs from its plain version, {what}, "
+                    f"at {label}")
+            del xr, rargs
         ms = timed_ms(lambda: K.window_gather(*args, window_r=plan.window_r))
+        parent_ms = None
+        if PARENT is not None:
+            require(torch.equal(PARENT.run(K.window_gather, *args,
+                                           window_r=plan.window_r), got),
+                    f"the earlier window_gather differs at {label}")
+            parent_ms = timed_ms(lambda: PARENT.run(
+                K.window_gather, *args, window_r=plan.window_r))
         plain_ms = timed_ms(
             lambda: K.window_gather_plain(*args, window_r=plan.window_r),
             iters=2, warmup=1, graph=False)
@@ -1384,7 +1360,8 @@ def phase_gather_kernels(dataset):
         results["window_gather"].append(dict(
             shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            matched_slots=n_matched, output_mb=nbytes(got) / 1e6,
+            parent_ms=parent_ms, matched_slots=n_matched,
+            output_mb=nbytes(got) / 1e6,
         ))
         row = {"window_gather": results["window_gather"][-1]}
         if plan is rev:
@@ -1457,25 +1434,59 @@ def phase_gather_kernels(dataset):
         del got, rows, found, flat, mask, x
         torch.cuda.empty_cache()
 
-    # ---- gather_conv over the full rulebooks
-    for label, st, c, co in (("L0 series 3^3 32->32", st0, 32, 32),
-                             ("L5 series 3^3 192->192", levels[5], 192, 192)):
+    # ---- gather_conv over the full rulebooks (L0, L2, L4, L5 series)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for lv in (0, 2, 4, 5):
+        st = levels[lv]
+        c = co = (32, 64, 96, 128, 160, 192)[lv]
+        label = f"L{lv} series 3^3 {c}->{co}"
         book = rb.build_submanifold_rulebook(st, (3, 3, 3))
         idx = GC._encode_miss(book, st.capacity)
         pairs = int(book.hit.sum())
         w_int = _int_like((27, c, co), gen, dev, bf16)
         x_int = feats_of(st, c, integer=True)
-        got = GC.gather_conv(x_int, idx, w_int)
-        want = GC.gather_conv_plain(x_int, idx, w_int)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"gather_conv differs from its plain version at {label}")
-        require(float(got.float().abs().sum()) > 0, f"all 0 at {label}")
+        # integer-valued data, bf16 and fp32: bit-equal to the plain version
+        for dt in (bf16, torch.float32):
+            got = GC.gather_conv(x_int.to(dt), idx, w_int.to(dt))
+            want = GC.gather_conv_plain(x_int.to(dt), idx, w_int.to(dt))
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"gather_conv differs from its plain version, {dt}, at {label}")
+            require(float(got.float().abs().sum()) > 0, f"all 0 at {label}")
+        if lv == 0:
+            # the backward's dX form: mirrored index columns, W transposed
+            perm = torch.as_tensor(GC.mirror_permutation(book.offsets), device=dev)
+            idx_m = idx[:, :, perm].contiguous()
+            for dt in (bf16, torch.float32):
+                w_t = w_int.to(dt).transpose(1, 2).contiguous()
+                require(torch.equal(GC.gather_conv(x_int.to(dt), idx_m, w_t),
+                                    GC.gather_conv_plain(x_int.to(dt), idx_m, w_t)),
+                        f"gather_conv's dX form differs, {dt}, at {label}")
+            del idx_m, w_t
+        if lv == 5:
+            # 12 -> 20 channels: the element-by-element route
+            x12 = feats_of(st, 12, integer=True)
+            w12 = _int_like((27, 12, 20), gen, dev, bf16)
+            require(torch.equal(GC.gather_conv(x12, idx, w12),
+                                GC.gather_conv_plain(x12, idx, w12)),
+                    f"gather_conv differs from its plain version at {label} "
+                    "12->20")
+            del x12, w12
+        # real-valued bf16: within one bf16 ulp of the output scale, the
+        # same bits on two runs
         x = feats_of(st, c)
         w = (torch.randn((27, c, co), generator=gen, device=dev)
              / (27 * c) ** 0.5).to(bf16).contiguous()
-        err = (GC.gather_conv(x, idx, w).float()
-               - GC.gather_conv_plain(x, idx, w).float()).abs().max().item()
+        want = GC.gather_conv_plain(x, idx, w).float()
+        got, again = GC.gather_conv(x, idx, w), GC.gather_conv(x, idx, w)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"gather_conv is not the same bits on two runs at {label}")
+        scale = want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        require(err <= _bf16_ulp(scale),
+                f"gather_conv differs by {err} at {label}, more than one bf16 "
+                f"ulp of the output scale {scale}")
         ms = timed_ms(lambda: GC.gather_conv(x, idx, w))
         plain_ms = timed_ms(lambda: GC.gather_conv_plain(x, idx, w),
                             iters=2, warmup=1, graph=False)
@@ -1488,6 +1499,12 @@ def phase_gather_kernels(dataset):
             return torch.matmul(g.reshape(st.batch_size, st.capacity, 27 * c), w2)
 
         lib_ms = timed_ms(library)
+        parent_ms = None
+        if PARENT is not None:
+            require(torch.equal(PARENT.gather_conv(x_int, idx, w_int),
+                                GC.gather_conv(x_int, idx, w_int)),
+                    f"the earlier gather_conv differs at {label}")
+            parent_ms = timed_ms(lambda: PARENT.gather_conv(x, idx, w))
         n_live = int(st.n_active.sum())
         # reads: the features of the active rows, the live rows' indices,
         # W; writes: the output in full; flops: the hit pairs only
@@ -1496,11 +1513,13 @@ def phase_gather_kernels(dataset):
             2.0 * pairs * c * co)
         results["gather_conv"].append(dict(
             shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pairs=pairs,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            parent_ms=parent_ms, pairs=pairs, out_scale=scale,
+            groups=GC.gather_groups(sms, st.batch_size, st.capacity, 27, c, co),
         ))
         emit({"phase": "gather_kernel", "shape": label,
               "rows": {"gather_conv": results["gather_conv"][-1]}})
-        del got, want, x, x_int, flat, hit, idx, book
+        del got, again, want, x, x_int, w, w_int, flat, hit, idx, book
         torch.cuda.empty_cache()
     return results
 
@@ -2245,7 +2264,7 @@ def main(argv) -> int:
                     ms=head["ms"], plain_ms=head["plain_ms"],
                     bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                     library_ms=head["library_ms"], shape=head["shape"],
-                    shapes=per_shape,
+                    parent_ms=head.get("parent_ms"), shapes=per_shape,
                 ))
                 continue
             per_shape = per_shape + rows_2d[kname]

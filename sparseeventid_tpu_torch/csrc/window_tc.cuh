@@ -3,10 +3,14 @@
 // same conv through the backward plan with transposed weights): the cp.async,
 // ldmatrix and mma.sync wrappers; the tile's search (stage_queries,
 // search_slots: each warp stages its offsets' plan windows with cp.async and
-// searches them with find_keys_staged, match_row's pair set); the three conv
-// routes (conv_c1_kernel, conv_tc_kernel with its cluster sum through
-// distributed shared memory in a fixed order, conv_f32_kernel) and their
-// launch (conv_launch).  window_conv.cu's head comment describes the design.
+// searches them with find_keys_staged, match_row's pair set), which
+// window_gather.cu uses too; the three conv routes (conv_c1_kernel,
+// conv_tc_kernel, conv_f32_kernel) and their launch (conv_launch).
+// conv_tc_kernel's GEMM (tc_product: the ring, ldmatrix, mma) and its
+// store (tc_store, with the cluster sum through distributed shared memory
+// in a fixed order) take their rows from a row source, so gather_conv.cu's
+// tensor-core kernel runs the same GEMM on a rulebook's rows.
+// window_conv.cu's head comment describes the design.
 //
 // Replaces: sparseeventid_tpu/ops/pallas/window_conv.py, window_conv_apply
 // (Pallas kernel _conv_kernel), and the dX half of window_bwd_strided
@@ -27,6 +31,9 @@
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
+#include <utility>
 
 #include "window_match.cuh"
 
@@ -319,212 +326,224 @@ constexpr int kApitch = kKc + 8;  // bf16; a row of 16 * odd bytes keeps
 // for the narrowest slab, which fits three blocks an SM that way.
 __host__ __device__ constexpr int stages(int nt) { return nt <= 2 ? 2 : 3; }
 
-// NT: 8-column mma tiles a warp holds; the block's slab is 16 * NT columns
-// (8 warps: 4 row groups of 32 x 2 column groups of 8 * NT).  The GEMM
-// depth is the tile's active offsets times C, flattened (offset-major) and
-// walked in chunks of kKc: a chunk may hold the end of one offset and the
-// start of the next, and small C packs several offsets into one chunk.
-// With G = groups > 1 the G blocks of a (tile, slab) are one thread-block
-// cluster, each taking kg = ceil(K / G) of the offsets (the last ones may
-// get fewer, or none); each leaves its fp32 partial tile in its shared
-// memory, and block g then adds rows [g * 128 / G, ..) of the G partials,
-// read through distributed shared memory in the order 0, 1, .., G - 1,
-// and writes them: the same sums on every run, no atomics.
-template <class Role, int NT>
-__global__ void __launch_bounds__(kThreads, NT <= 2 ? 3 : NT <= 6 ? 2 : 1)
-conv_tc_kernel(const int* __restrict__ keys, int n_in,
-               const __nv_bfloat16* __restrict__ feats, int C,
-               const int* __restrict__ qmeta, int nw, int M,
-               const int* __restrict__ start, int n_tiles, int K,
-               const __nv_bfloat16* __restrict__ w, int CO,
-               const int* __restrict__ q_active, int m_bound, int window_r,
-               __nv_bfloat16* __restrict__ out, Offsets offs,
-               int ring_bytes, bool vec, int groups) {
+// Where a tensor-core block's rows come from.  rows.at(k) is slot k of the
+// block (offset k0 + k); rows.at(k)(r) is the table row that row r of the
+// tile reads at that offset, or -1 (a miss: zeros).
+//   WindowRows (the window conv): the tile's search, a 16-bit position in
+//   the slot's plan window (pos [kg][kTile], -1 unmatched) past the
+//   window's first row max(st[k], 0).
+//   IndexRows (the gather conv): the tile's staged index block, row r's
+//   entry at nbr[r * pitch + k], already -1 where it missed.
+struct WindowRows {
+  const short* pos;
+  const int* st;
+  struct At {
+    const short* p;
+    long long lo;
+    __device__ __forceinline__ long long operator()(int r) const {
+      const int v = p[r];
+      return v >= 0 ? lo + v : -1;
+    }
+  };
+  __device__ __forceinline__ At at(int k) const {
+    return At{pos + k * kTile, (long long)max(st[k], 0)};
+  }
+};
+
+struct IndexRows {
+  const int* nbr;
+  int pitch;
+  struct At {
+    const int* p;
+    int pitch;
+    __device__ __forceinline__ long long operator()(int r) const {
+      return p[r * pitch];
+    }
+  };
+  __device__ __forceinline__ At at(int k) const { return At{nbr + k, pitch}; }
+};
+
+// The block's slots k < nk that any row of the tile hits, in order, into
+// act[0 .. act[kg]); hits[k * kQ + i] is slot k's ballot of rows
+// lane + 32 i.  Warp 0 alone; the caller synchronises before and after.
+__device__ __forceinline__ void list_active(const unsigned* hits, int nk,
+                                            int kg, int* act) {
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  for (int base = 0; base < nk; base += 32) {
+    const int k = base + lane;
+    bool on = false;
+    if (k < nk)
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) on |= hits[k * kQ + i] != 0u;
+    const unsigned m = __ballot_sync(kFull, on);
+    if (on) act[cnt + __popc(m & ((1u << lane) - 1u))] = k;
+    cnt += __popc(m);
+  }
+  if (lane == 0) act[kg] = cnt;
+}
+
+// The tile's product on the tensor cores, the GEMM of both tensor-core
+// kernels: acc += the tile's rows at the listed slots act[0 .. n_act) (W of
+// offset k0 + slot) times the [.., 16 * NT] slab of W at columns n0 ...
+// NT: 8-column mma tiles a warp holds (8 warps: 4 row groups of 32 x 2
+// column groups of 8 * NT); acc is the warp's piece.  The GEMM depth (the
+// listed slots times C, flattened slot-major) is walked in chunks of kKc
+// through a ring of stages(NT) cp.async stages in `ring`: a chunk may hold
+// the end of one slot and the start of the next, and small C packs several
+// slots into one chunk.  vec: C % 8 == 0, CO % 8 == 0 and 16-byte aligned
+// bases (16-byte copies, zero-filled at a miss); else element by element.
+template <int NT, class Rows>
+__device__ __forceinline__ void tc_product(
+    __nv_bfloat16* ring, const int* act, int n_act, const Rows& rows,
+    const __nv_bfloat16* __restrict__ feats_b,
+    const __nv_bfloat16* __restrict__ feats, int C,
+    const __nv_bfloat16* __restrict__ w, int k0, int CO, int n0, bool vec,
+    float (&acc)[2][NT][4]) {
   constexpr int kSlab = 16 * NT;
   constexpr int kStages = stages(NT);
   constexpr int kBpitch = kSlab + 8;
   constexpr int kStageElems = kTile * kApitch + kKc * kBpitch;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the stage ring (the warps' window buffers while searching, the partial
-  // tile at the end), then the window positions [kg][kTile], the ballots,
-  // the list of offsets with a match and its length, the query meta and
-  // the window starts
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  int* wbuf = reinterpret_cast<int*>(smem_raw);
-  const int kg = (K + groups - 1) / groups;  // offsets a block takes
-  short* pos = reinterpret_cast<short*>(smem_raw + ring_bytes);
-  unsigned* hits = reinterpret_cast<unsigned*>(
-      smem_raw + ring_bytes + ((kg * kTile * sizeof(short) + 15) & ~15));
-  int* act = reinterpret_cast<int*>(hits + kg * kQ);
-  int* qm = act + kg + 1;
-  int* st = qm + (1 + nw) * kTile;
-
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const int grp = blockIdx.z % groups;  // the block's rank in its cluster
-  const int n0 = blockIdx.z / groups * kSlab;
-  const int k0 = grp * kg;
-  const int nk = min(kg, K - k0);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int wr = warp & 3;   // rows wr * 32 ..
   const int wc = warp >> 2;  // columns wc * 8 * NT ..
-  const long long m0 = (long long)tile * kTile;
+  const int n_steps = (n_act * C + kKc - 1) / kKc;
 
-  float acc[2][NT][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // cluster-uniform: the blocks of a cluster share the tile
-  const bool live = tile < live_tiles(q_active[b], m_bound);
-  if (live) {
-    stage_queries(qmeta + (long long)b * (1 + nw) * M, nw, M, m0, m_bound,
-                  start + ((long long)b * n_tiles + tile) * K, offs, k0, nk,
-                  qm, st);
-    __syncthreads();
-    search_slots(keys + (long long)b * n_in, n_in, qm, st, offs, k0, nk,
-                 window_r, wbuf, pos, kTile, hits);
-    __syncthreads();
-    if (warp == 0) {  // the offsets with any match, in order
-      int cnt = 0;
-      for (int base = 0; base < nk; base += 32) {
-        const int k = base + lane;
-        bool on = false;
-        if (k < nk)
-#pragma unroll
-          for (int i = 0; i < kQ; ++i) on |= hits[k * kQ + i] != 0u;
-        const unsigned m = __ballot_sync(kFull, on);
-        if (on) act[cnt + __popc(m & ((1u << lane) - 1u))] = k;
-        cnt += __popc(m);
+  // stage `step` (depth f0 = step * kKc ..) into ring slot `slot`:
+  // depth f is channel f % C of listed slot f / C
+  auto load_stage = [&](int step, int slot) {
+    const int f0 = step * kKc;
+    const int a0 = f0 / C;
+    const int c0 = f0 - a0 * C;
+    __nv_bfloat16* as = ring + slot * kStageElems;
+    __nv_bfloat16* bs = as + kTile * kApitch;
+    if (vec && c0 + kKc <= C) {  // the chunk lies inside one slot
+      const int k = act[a0];  // the block's slot; offset k0 + k
+      const auto src_rows = rows.at(k);
+      const int seg = (t & 7) << 3;
+      const __nv_bfloat16* src = feats_b + c0 + seg;
+      for (int r = t >> 3; r < kTile; r += kThreads / 8) {
+        const long long row = src_rows(r);
+        cp_async16(as + r * kApitch + seg,
+                   row >= 0 ? src + row * C : feats, row >= 0 ? 16 : 0);
       }
-      if (lane == 0) act[kg] = cnt;
-    }
-    __syncthreads();  // also: every window buffer is read; the ring is free
-    const int n_act = act[kg];
-    const int n_steps = (n_act * C + kKc - 1) / kKc;
-    const __nv_bfloat16* feats_b = feats + (long long)b * n_in * C;
-
-    // stage `step` (depth f0 = step * kKc ..) into ring slot `slot`:
-    // depth f is channel f % C of active offset f / C
-    auto load_stage = [&](int step, int slot) {
-      const int f0 = step * kKc;
-      const int a0 = f0 / C;
-      const int c0 = f0 - a0 * C;
-      __nv_bfloat16* as = ring + slot * kStageElems;
-      __nv_bfloat16* bs = as + kTile * kApitch;
-      if (vec && c0 + kKc <= C) {  // the chunk lies inside one offset
-        const int k = act[a0];  // the block's slot; offset k0 + k
-        const long long lo = max(st[k], 0);
-        const int seg = (t & 7) << 3;
-        const __nv_bfloat16* src = feats_b + c0 + seg;
-        for (int r = t >> 3; r < kTile; r += kThreads / 8) {
-          const int p = pos[k * kTile + r];
-          cp_async16(as + r * kApitch + seg,
-                     p >= 0 ? src + (lo + p) * C : feats, p >= 0 ? 16 : 0);
-        }
-        constexpr int bsegs = kSlab >> 3;
-        const __nv_bfloat16* wk = w + ((long long)(k0 + k) * C + c0) * CO + n0;
-        for (int idx = t; idx < kKc * bsegs; idx += kThreads) {
-          const int ci = idx / bsegs;
-          const int o = (idx - ci * bsegs) << 3;
-          const int bytes = max(0, min(16, 2 * (CO - n0 - o)));
-          cp_async16(bs + ci * kBpitch + o,
-                     bytes ? wk + (long long)ci * CO + o : w, bytes);
-        }
-      } else if (vec) {  // C % 8 == 0, CO % 8 == 0, 16-byte aligned bases
-        // this thread's 8-channel segment of rows r = t / 8 + 32 j
-        const int seg = (t & 7) << 3;
-        int a = a0, c = c0 + seg;
-        while (c >= C) { c -= C; ++a; }
-        const bool on = a < n_act;
-        const int k = on ? act[a] : 0;
-        const long long lo = on ? max(st[k], 0) : 0;
-        for (int r = t >> 3; r < kTile; r += kThreads / 8) {
-          const int p = on ? pos[k * kTile + r] : -1;
-          cp_async16(as + r * kApitch + seg,
-                     p >= 0 ? feats_b + (lo + p) * C + c : feats,
-                     p >= 0 ? 16 : 0);
-        }
-        constexpr int bsegs = kSlab >> 3;
-        for (int idx = t; idx < kKc * bsegs; idx += kThreads) {
-          const int ci = idx / bsegs;
-          const int o = (idx - ci * bsegs) << 3;
-          int ab = a0, cb = c0 + ci;
-          while (cb >= C) { cb -= C; ++ab; }
-          const int bytes = ab < n_act ? max(0, min(16, 2 * (CO - n0 - o))) : 0;
-          cp_async16(bs + ci * kBpitch + o,
-                     bytes ? w + ((long long)(k0 + act[ab]) * C + cb) * CO + n0 + o
-                           : w,
-                     bytes);
-        }
-      } else {  // element by element, zero-filled the same way
-        const __nv_bfloat16 zero = __float2bfloat16(0.f);
-        for (int idx = t; idx < kTile * kKc; idx += kThreads) {
-          const int r = idx / kKc;
-          const int e = idx - r * kKc;
-          const int f = f0 + e;
-          const int a = f / C;
-          __nv_bfloat16 v = zero;
-          if (a < n_act) {
-            const int k = act[a];
-            const int p = pos[k * kTile + r];
-            if (p >= 0)
-              v = feats_b[((long long)max(st[k], 0) + p) * C + f - a * C];
-          }
-          as[r * kApitch + e] = v;
-        }
-        for (int idx = t; idx < kKc * kSlab; idx += kThreads) {
-          const int ci = idx / kSlab;
-          const int o = idx - ci * kSlab;
-          const int f = f0 + ci;
-          const int a = f / C;
-          bs[ci * kBpitch + o] = (a < n_act && n0 + o < CO)
-              ? w[((long long)(k0 + act[a]) * C + f - a * C) * CO + n0 + o]
-              : zero;
-        }
+      constexpr int bsegs = kSlab >> 3;
+      const __nv_bfloat16* wk = w + ((long long)(k0 + k) * C + c0) * CO + n0;
+      for (int idx = t; idx < kKc * bsegs; idx += kThreads) {
+        const int ci = idx / bsegs;
+        const int o = (idx - ci * bsegs) << 3;
+        const int bytes = max(0, min(16, 2 * (CO - n0 - o)));
+        cp_async16(bs + ci * kBpitch + o,
+                   bytes ? wk + (long long)ci * CO + o : w, bytes);
       }
-    };
-
-#pragma unroll
-    for (int p = 0; p < kStages - 1; ++p) {
-      if (p < n_steps) load_stage(p, p);
-      cp_async_commit();
-    }
-    for (int s = 0; s < n_steps; ++s) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // step s is in; every warp is done with step s - 1
-      const int nx = s + kStages - 1;
-      if (nx < n_steps) load_stage(nx, nx % kStages);
-      cp_async_commit();
-      const __nv_bfloat16* as = ring + (s % kStages) * kStageElems;
-      const __nv_bfloat16* bs = as + kTile * kApitch;
-#pragma unroll
-      for (int kk = 0; kk < kKc; kk += 16) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldsm_x4(a[mi], as + (wr * 32 + mi * 16 + (lane & 15)) * kApitch + kk
-                             + ((lane >> 4) << 3));
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          unsigned bb[4];
-          ldsm_x4_t(bb, bs + (kk + (lane & 15)) * kBpitch + wc * 8 * NT
-                            + np * 16 + ((lane >> 4) << 3));
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][2 * np], a[mi], bb[0], bb[1]);
-            mma_bf16(acc[mi][2 * np + 1], a[mi], bb[2], bb[3]);
-          }
+    } else if (vec) {  // C % 8 == 0, CO % 8 == 0, 16-byte aligned bases
+      // this thread's 8-channel segment of rows r = t / 8 + 32 j
+      const int seg = (t & 7) << 3;
+      int a = a0, c = c0 + seg;
+      while (c >= C) { c -= C; ++a; }
+      const bool on = a < n_act;
+      const auto src_rows = rows.at(on ? act[a] : 0);
+      for (int r = t >> 3; r < kTile; r += kThreads / 8) {
+        const long long row = on ? src_rows(r) : -1;
+        cp_async16(as + r * kApitch + seg,
+                   row >= 0 ? feats_b + row * C + c : feats,
+                   row >= 0 ? 16 : 0);
+      }
+      constexpr int bsegs = kSlab >> 3;
+      for (int idx = t; idx < kKc * bsegs; idx += kThreads) {
+        const int ci = idx / bsegs;
+        const int o = (idx - ci * bsegs) << 3;
+        int ab = a0, cb = c0 + ci;
+        while (cb >= C) { cb -= C; ++ab; }
+        const int bytes = ab < n_act ? max(0, min(16, 2 * (CO - n0 - o))) : 0;
+        cp_async16(bs + ci * kBpitch + o,
+                   bytes ? w + ((long long)(k0 + act[ab]) * C + cb) * CO + n0 + o
+                         : w,
+                   bytes);
+      }
+    } else {  // element by element, zero-filled the same way
+      const __nv_bfloat16 zero = __float2bfloat16(0.f);
+      for (int idx = t; idx < kTile * kKc; idx += kThreads) {
+        const int r = idx / kKc;
+        const int e = idx - r * kKc;
+        const int f = f0 + e;
+        const int a = f / C;
+        __nv_bfloat16 v = zero;
+        if (a < n_act) {
+          const long long row = rows.at(act[a])(r);
+          if (row >= 0) v = feats_b[row * C + f - a * C];
         }
+        as[r * kApitch + e] = v;
+      }
+      for (int idx = t; idx < kKc * kSlab; idx += kThreads) {
+        const int ci = idx / kSlab;
+        const int o = idx - ci * kSlab;
+        const int f = f0 + ci;
+        const int a = f / C;
+        bs[ci * kBpitch + o] = (a < n_act && n0 + o < CO)
+            ? w[((long long)(k0 + act[a]) * C + f - a * C) * CO + n0 + o]
+            : zero;
       }
     }
-    cp_async_wait<0>();
+  };
+
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n_steps) load_stage(p, p);
+    cp_async_commit();
   }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step s is in; every warp is done with step s - 1
+    const int nx = s + kStages - 1;
+    if (nx < n_steps) load_stage(nx, nx % kStages);
+    cp_async_commit();
+    const __nv_bfloat16* as = ring + (s % kStages) * kStageElems;
+    const __nv_bfloat16* bs = as + kTile * kApitch;
+#pragma unroll
+    for (int kk = 0; kk < kKc; kk += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], as + (wr * 32 + mi * 16 + (lane & 15)) * kApitch + kk
+                           + ((lane >> 4) << 3));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bb[4];
+        ldsm_x4_t(bb, bs + (kk + (lane & 15)) * kBpitch + wc * 8 * NT
+                          + np * 16 + ((lane >> 4) << 3));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], bb[0], bb[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Write the tile's [128, slab] output (columns n0 ..) of batch element b,
+// cast to bf16 once.  groups == 1: each warp writes its accumulators.
+// Otherwise the block is rank grp of a cluster of G = groups blocks that
+// share the tile's offsets: each leaves its fp32 partial tile in its own
+// ring (smem_raw), and block g adds rows [g * 128 / G, ..) of the G
+// partials, read through distributed shared memory in the order 0, 1, ..,
+// G - 1, and writes them: the same sums on every run, no atomics.  live
+// must be cluster-uniform; a tile that is not writes zeros.
+template <int NT>
+__device__ __forceinline__ void tc_store(
+    const float (&acc)[2][NT][4], unsigned char* smem_raw, bool live,
+    int groups, int grp, long long m0, int M, int b, int CO, int n0,
+    __nv_bfloat16* __restrict__ out) {
+  constexpr int kSlab = 16 * NT;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int wr = warp & 3;
+  const int wc = warp >> 2;
   // accumulator (mi, nj): rows lane / 4 (+ 8), columns 2 (lane % 4) (+ 1)
   const bool pairs = (CO & 1) == 0;
   if (groups == 1) {
@@ -594,6 +613,73 @@ conv_tc_kernel(const int* __restrict__ keys, int n_in,
       if (n0 + o + e < CO) orow[o + e] = __float2bfloat16(v[e]);
   }
   if (live) cluster.sync();  // the other blocks are done reading this one
+}
+
+// The window conv on the tensor cores: one block (or a cluster of
+// `groups`, each taking kg = ceil(K / G) of the offsets; the last ones may
+// get fewer, or none) per (tile, slab).  The tile's search (search_slots)
+// gives each query's window position per offset; the offsets with any
+// match are listed, then tc_product and tc_store.
+template <class Role, int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 2 ? 3 : NT <= 6 ? 2 : 1)
+conv_tc_kernel(const int* __restrict__ keys, int n_in,
+               const __nv_bfloat16* __restrict__ feats, int C,
+               const int* __restrict__ qmeta, int nw, int M,
+               const int* __restrict__ start, int n_tiles, int K,
+               const __nv_bfloat16* __restrict__ w, int CO,
+               const int* __restrict__ q_active, int m_bound, int window_r,
+               __nv_bfloat16* __restrict__ out, Offsets offs,
+               int ring_bytes, bool vec, int groups) {
+  constexpr int kSlab = 16 * NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the stage ring (the warps' window buffers while searching, the partial
+  // tile at the end), then the window positions [kg][kTile], the ballots,
+  // the list of offsets with a match and its length, the query meta and
+  // the window starts
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  int* wbuf = reinterpret_cast<int*>(smem_raw);
+  const int kg = (K + groups - 1) / groups;  // offsets a block takes
+  short* pos = reinterpret_cast<short*>(smem_raw + ring_bytes);
+  unsigned* hits = reinterpret_cast<unsigned*>(
+      smem_raw + ring_bytes + ((kg * kTile * sizeof(short) + 15) & ~15));
+  int* act = reinterpret_cast<int*>(hits + kg * kQ);
+  int* qm = act + kg + 1;
+  int* st = qm + (1 + nw) * kTile;
+
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int grp = blockIdx.z % groups;  // the block's rank in its cluster
+  const int n0 = blockIdx.z / groups * kSlab;
+  const int k0 = grp * kg;
+  const int nk = min(kg, K - k0);
+  const int warp = threadIdx.x >> 5;
+  const long long m0 = (long long)tile * kTile;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // cluster-uniform: the blocks of a cluster share the tile
+  const bool live = tile < live_tiles(q_active[b], m_bound);
+  if (live) {
+    stage_queries(qmeta + (long long)b * (1 + nw) * M, nw, M, m0, m_bound,
+                  start + ((long long)b * n_tiles + tile) * K, offs, k0, nk,
+                  qm, st);
+    __syncthreads();
+    search_slots(keys + (long long)b * n_in, n_in, qm, st, offs, k0, nk,
+                 window_r, wbuf, pos, kTile, hits);
+    __syncthreads();
+    if (warp == 0) list_active(hits, nk, kg, act);  // the offsets with any match
+    __syncthreads();  // also: every window buffer is read; the ring is free
+    tc_product<NT>(ring, act, act[kg], WindowRows{pos, st},
+                   feats + (long long)b * n_in * C, feats, C, w, k0, CO, n0,
+                   vec, acc);
+  }
+  tc_store<NT>(acc, smem_raw, live, groups, grp, m0, M, b, CO, n0, out);
 }
 
 // ---- float32, C > 1: float32 FMAs on the CUDA cores ----------------------
@@ -707,6 +793,61 @@ cudaError_t fit_smem(F* kernel, size_t smem) {
                               (int)smem);
 }
 
+// Bytes at the head of a tensor-core block's shared memory: the largest of
+// the ring's stages, `other` (what the kernel keeps there before the
+// product) and the cluster's fp32 partial tile, rounded to 16.
+template <int NT>
+size_t tc_ring_bytes(size_t other) {
+  const int slab = 16 * NT;
+  const size_t ring = (size_t)stages(NT) * 2
+      * ((size_t)kTile * kApitch + (size_t)kKc * (slab + 8));
+  const size_t partial = sizeof(float) * kTile * (size_t)(slab + 4);
+  const size_t bytes = ring > other ? ring : other;
+  return ((bytes > partial ? bytes : partial) + 15) / 16 * 16;
+}
+
+// The slab of a tensor-core block, all of CO up to kMaxSlab columns in
+// 16-column steps (an even number of 8-column tiles a warp): calls
+// f(std::integral_constant<int, NT>) with the block's NT.
+template <class F>
+int with_slab(int CO, F&& f) {
+  const int n_slabs = (CO + kMaxSlab - 1) / kMaxSlab;
+  const int per = (CO + n_slabs - 1) / n_slabs;
+  switch (((per + 31) / 32) * 2) {
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 10: return f(std::integral_constant<int, 10>());
+    default: return f(std::integral_constant<int, 12>());
+  }
+}
+
+// Launch a tensor-core kernel on `grid`, its z blocks grouped into clusters
+// of `groups` (the blocks that share a tile's offsets), with `smem` bytes
+// of dynamic shared memory.
+template <typename... P, typename... A>
+cudaError_t launch_clusters(void (*kernel)(P...), dim3 grid, size_t smem,
+                            int groups, cudaStream_t st, A&&... args) {
+  cudaError_t err = fit_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = groups;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 struct Args {
   const void *keys, *feats, *qmeta, *start, *w, *q_active;
   void* out;
@@ -719,40 +860,21 @@ int launch_tc(const Args& a, const Offsets& offs, cudaStream_t st) {
   const int slab = 16 * NT;
   const int groups = a.groups < 1 ? 1 : a.groups > 8 ? 8 : a.groups;
   const int kg = (a.K + groups - 1) / groups;
-  const size_t ring = (size_t)stages(NT) * 2
-      * ((size_t)kTile * kApitch + (size_t)kKc * (slab + 8));
-  const size_t windows = sizeof(int) * kWarps * kWinBufs * (size_t)a.window_r;
-  const size_t partial = sizeof(float) * kTile * (size_t)(slab + 4);
-  size_t ring_bytes = ring > windows ? ring : windows;
-  ring_bytes = ((ring_bytes > partial ? ring_bytes : partial) + 15) / 16 * 16;
+  const size_t ring_bytes = tc_ring_bytes<NT>(
+      sizeof(int) * kWarps * kWinBufs * (size_t)a.window_r);
   const size_t smem = ring_bytes
       + ((size_t)kg * kTile * sizeof(short) + 15) / 16 * 16
       + sizeof(int) * ((size_t)kg * kQ + kg + 1
                        + (size_t)(1 + a.nw) * kTile + kg);
-  cudaError_t err = fit_smem(conv_tc_kernel<Role, NT>, smem);
-  if (err != cudaSuccess) return (int)err;
   const bool vec = a.C % 8 == 0 && a.CO % 8 == 0
       && ((uintptr_t)a.feats & 15) == 0 && ((uintptr_t)a.w & 15) == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(m_tiles, a.B, (a.CO + slab - 1) / slab * groups);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = groups;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, conv_tc_kernel<Role, NT>, (const int*)a.keys, a.n_in,
-      (const __nv_bfloat16*)a.feats, a.C, (const int*)a.qmeta, a.nw, a.M,
-      (const int*)a.start, a.n_tiles, a.K, (const __nv_bfloat16*)a.w, a.CO,
-      (const int*)a.q_active, a.m_bound, a.window_r, (__nv_bfloat16*)a.out,
-      offs, (int)ring_bytes, vec, groups);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_clusters(
+      conv_tc_kernel<Role, NT>,
+      dim3(m_tiles, a.B, (a.CO + slab - 1) / slab * groups), smem, groups, st,
+      (const int*)a.keys, a.n_in, (const __nv_bfloat16*)a.feats, a.C,
+      (const int*)a.qmeta, a.nw, a.M, (const int*)a.start, a.n_tiles, a.K,
+      (const __nv_bfloat16*)a.w, a.CO, (const int*)a.q_active, a.m_bound,
+      a.window_r, (__nv_bfloat16*)a.out, offs, (int)ring_bytes, vec, groups);
 }
 
 template <class Role, typename T>
@@ -769,19 +891,9 @@ int conv_launch(const Args& a, const Offsets& offs, cudaStream_t st) {
     return (int)cudaGetLastError();
   }
   if constexpr (sizeof(T) == 2) {
-    // the slab: all of CO up to kMaxSlab columns, in 16-column steps an
-    // even number of 8-column tiles a warp
-    const int n_slabs = (a.CO + kMaxSlab - 1) / kMaxSlab;
-    const int per = (a.CO + n_slabs - 1) / n_slabs;
-    const int nt = ((per + 31) / 32) * 2;
-    switch (nt) {
-      case 2: return launch_tc<Role, 2>(a, offs, st);
-      case 4: return launch_tc<Role, 4>(a, offs, st);
-      case 6: return launch_tc<Role, 6>(a, offs, st);
-      case 8: return launch_tc<Role, 8>(a, offs, st);
-      case 10: return launch_tc<Role, 10>(a, offs, st);
-      default: return launch_tc<Role, 12>(a, offs, st);
-    }
+    return with_slab(a.CO, [&](auto nt) {
+      return launch_tc<Role, decltype(nt)::value>(a, offs, st);
+    });
   } else {
     conv_f32_kernel<Role><<<dim3(m_tiles, a.B, (a.CO + kCo - 1) / kCo),
                             kThreads, 0, st>>>(

@@ -22,7 +22,9 @@ import torch
 from .rulebook import Rulebook
 from .sparse_tensor import SparseTensor
 from .window import _native
-from .window.kernels import _check, _float_dtype, _ptr, _stream, _use_kernel
+from .window.kernels import (
+    _check, _conv_groups, _float_dtype, _ptr, _stream, _use_kernel,
+)
 
 
 def _gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -44,6 +46,19 @@ def gather_conv_plain(feats, idx, w) -> torch.Tensor:
 
 
 gather_conv_plain.calls = 0
+
+
+def gather_groups(sms: int, b: int, m: int, k: int, c: int, co: int) -> int:
+    """Blocks (one thread-block cluster) that share a 128-row tile's
+    offsets in the bf16 route of :func:`gather_conv`: the window conv's
+    rule (``kernels._conv_groups``, whose tensor-core product and cluster
+    sum the kernel shares) with at least 20 of the tile's 64-deep steps a
+    block where the conv takes 13.  A gather block stages the tile's whole
+    index block and every tile runs (the host cannot tell the live ones), so
+    its fixed cost is larger; the limit is the best of 1, 2, 4 and 8 blocks
+    at every dune3d level in ``sweep_window_groups.py --gather-conv`` on the
+    H100 (PERF.md).  The fp32 route takes a tile in one block."""
+    return _conv_groups(sms, b, m, k, c, co, min_steps=20)
 
 
 def gather_conv(
@@ -68,8 +83,9 @@ def gather_conv(
     name = ("seid_gather_conv_bf16" if dtype == torch.bfloat16
             else "seid_gather_conv_f32")
     fn = getattr(_native.lib("gather_conv"), name)
+    sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
     err = fn(_ptr(feats), n, c, _ptr(idx), m, k, _ptr(w), co, _ptr(out), b,
-             _stream(feats))
+             gather_groups(sms, b, m, k, c, co), _stream(feats))
     gather_conv.launches += 1
     _native.check(err, "gather_conv")
     return out

@@ -53,7 +53,8 @@ SIGNATURES = {
                              _P, _I, _I, _P, _I, _I, _I, _P],
     "seid_window_gather_f32": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I,
                                _P, _P, _P, _I, _P],
-    "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P],
+    # then the offset groups and the stream
+    "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P],
 }
 # window_dw takes gy where the conv takes w and dw for out, then its
 # partials' scratch, their count and the stream

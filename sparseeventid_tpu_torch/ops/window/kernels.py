@@ -272,22 +272,24 @@ def window_conv_apply_plain(
 window_conv_apply_plain.calls = 0
 
 
-def _conv_groups(sms: int, b: int, m: int, k: int, c: int, co: int) -> int:
+def _conv_groups(sms: int, b: int, m: int, k: int, c: int, co: int,
+                 min_steps: int = 13) -> int:
     """Blocks (one thread-block cluster) that share a query tile's offsets
     in the tensor-core route of :func:`window_conv_apply`, so that the deep
     levels, whose few tiles each chain ceil(K * C / 64) steps, spread over
     the card: a power of two up to 8 (such clusters pack a GPC's SMs), as
-    many as leave every block at least 13 steps (a block's fixed cost is
-    about 6) and keep the (tile, 192-column slab, group) grid within 13
-    blocks an SM.  The host does not know the live tiles; these limits
-    were chosen from a sweep of every level of both recipes on the H100
-    (PERF.md).  1 on the C == 1 route."""
+    many as leave every block at least ``min_steps`` steps (13: a block's
+    fixed cost is about 6) and keep the (tile, 192-column slab, group) grid
+    within 13 blocks an SM.  The host does not know the live tiles; these
+    limits were chosen from a sweep of every level of both recipes on the
+    H100 (PERF.md).  1 on the C == 1 route."""
     if c == 1 and co <= 32:
         return 1
     steps = _cdiv(k * c, 64)
     blocks = b * _cdiv(m, TILE_T) * _cdiv(co, 192)
     g = 1
-    while 2 * g <= 8 and 2 * g * 13 <= steps and blocks * 2 * g <= 13 * sms:
+    while (2 * g <= 8 and 2 * g * min_steps <= steps
+           and blocks * 2 * g <= 13 * sms):
         g *= 2
     return g
 

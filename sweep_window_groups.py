@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the launch geometry of the window kernels on one NVIDIA card.
 
-    python3 sweep_window_groups.py
+    python3 sweep_window_groups.py [--gather-conv]
 
 For the initial conv and every series level of the dune3d and dune2d
 recipes (chip_smoke.py's synthetic batch 0, bf16), times window_plan with
@@ -14,6 +14,9 @@ tiles) at the pick, half and twice it, four times it and 1, beside the
 wrapper's picks (kernels._conv_groups with the channels swapped,
 kernels._bwd_dw_parts); and, on the lists of the initial and level-0
 plans, the dW sidecar with 16 to 512 parts beside kernels._ov_dw_parts.
+With --gather-conv, only the bf16 gather_conv over the submanifold
+rulebook of every dune3d series level with each cluster size, beside
+gather_conv.gather_groups (within one bf16 ulp of the wrapper's result).
 Every plan must equal the wrapper's bit for bit, every conv and dX stay
 within one bf16 ulp of it (the cluster's partial sums add in another
 order), the sidecar's dW within 1e-4 of its scale and the backward's
@@ -225,7 +228,63 @@ def sweep_overflow_dw(row, st, plan, c, co, gen, sms) -> None:
         row[f"ov_dw_ms_p{p}"] = cs.timed_ms(lambda: run(p))
 
 
-def main() -> int:
+def sweep_gather_conv(geo, dataset) -> None:
+    """gather_conv (bf16) over the submanifold rulebook of every series
+    level with each cluster size, beside the wrapper's pick
+    (gather_conv.gather_groups)."""
+    import torch
+
+    from sparseeventid_tpu_torch import io as port_io
+    from sparseeventid_tpu_torch.models.encoder import capacity_schedule
+    from sparseeventid_tpu_torch.ops import gather_conv as GC
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import _native
+
+    dev = torch.device(cs.DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = _native.lib("gather_conv").seid_gather_conv_bf16
+    caps = capacity_schedule(geo["rows"], 5, 0.5, 1024)
+    levels = [getattr(port_io, geo["to_sparse"])(
+        dataset.batch([0])["image"], geo["grid"], capacity=caps[0], device=dev)]
+    for cap in caps[1:]:
+        levels.append(rb.downsample_sites(levels[-1], geo["stride"], cap))
+    for lv, st in enumerate(levels):
+        c = co = 32 * (lv + 1)
+        book = rb.build_submanifold_rulebook(st, geo["series"])
+        idx = GC._encode_miss(book, st.capacity)
+        b, m, k = idx.shape
+        x = (torch.randn((b, m, c), generator=gen, device=dev)
+             * st.row_mask()[..., None]).to(torch.bfloat16).contiguous()
+        w = (torch.randn((k, c, co), generator=gen, device=dev)
+             / (k * c) ** 0.5).to(torch.bfloat16).contiguous()
+        want = GC.gather_conv(x, idx, w)
+        out = torch.empty_like(want)
+        row = {"shape": f"{geo['prefix']}L{lv} series gather_conv",
+               "gather_pick": GC.gather_groups(sms, b, m, k, c, co)}
+
+        def run(g):
+            err = fn(x.data_ptr(), m, c, idx.data_ptr(), m, k, w.data_ptr(),
+                     co, out.data_ptr(), b, g,
+                     torch.cuda.current_stream().cuda_stream)
+            cs.require(err == 0, f"gather_conv: CUDA error {err}")
+
+        scale = want.float().abs().max().item()
+        for g in CONV_GROUPS:
+            run(g)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs().max().item()
+            cs.require(diff <= cs._bf16_ulp(scale),
+                       f"gather_conv with {g} blocks a tile differs by {diff} "
+                       f"at {row['shape']}")
+            row[f"gather_ms_g{g}"] = cs.timed_ms(lambda: run(g))
+        print(json.dumps(row), flush=True)
+
+
+def main(argv) -> int:
+    if argv not in ([], ["--gather-conv"]):
+        print("usage: sweep_window_groups.py [--gather-conv]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -236,6 +295,9 @@ def main() -> int:
         return 2
     try:
         cs.phase_device()
+        if argv:
+            sweep_gather_conv(cs.GEOMETRY_3D, cs.make_dataset())
+            return 0
         sweep(cs.GEOMETRY_3D, cs.make_dataset())
         sweep(cs.GEOMETRY_2D, cs.make_dataset_2d())
     except cs.Failure as e:
@@ -245,4 +307,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

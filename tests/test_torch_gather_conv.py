@@ -15,6 +15,7 @@ from sparseeventid_tpu.ops.pallas import gather_conv as jgc
 from sparseeventid_tpu_torch.ops import conv as tconv
 from sparseeventid_tpu_torch.ops import gather_conv as tgc
 from sparseeventid_tpu_torch.ops import rulebook as trb
+from sparseeventid_tpu_torch.ops.window import kernels as tk
 
 # (name, grid, kernel): the 3D series kernel and the 2D plane kernel
 GEOMETRIES = [("3d", (12, 12, 12), (3, 3, 3)), ("plane", (3, 12, 12), (1, 3, 3))]
@@ -149,3 +150,78 @@ def test_dx_with_both_permuted_is_wrong(monkeypatch):
     monkeypatch.setattr(tgc, "mirror_permutation",
                         lambda offsets: np.arange(len(offsets)))
     assert not torch.equal(dx(), sound)
+
+
+# (name, N table rows, M output rows, K, C, CO): the edges of the bf16
+# kernel's 128-row tiles, 64-deep chunks and 192-column slabs
+EDGE_CASES = [
+    ("m_not_tile_multiple", 300, 200, 9, 16, 24),
+    ("c48_co40_partial_depth", 200, 192, 27, 48, 40),
+    ("c8_k27_offsets_share_a_chunk", 160, 130, 27, 8, 16),
+    ("co200_two_slabs", 150, 130, 8, 16, 200),
+]
+
+
+@pytest.mark.parametrize("name,n,m,k,c,co", EDGE_CASES)
+def test_gather_conv_edges_match_pallas(name, n, m, k, c, co):
+    """The plain version against gather_conv_single in interpret mode, per
+    event, on integer-valued data: exact.  Event 0's indices miss at about
+    a third of its entries (miss = N), event 1's all miss (its output is
+    0)."""
+    rng = np.random.default_rng(len(name))
+    feats = rng.integers(-3, 4, (2, n, c)).astype(np.float32)
+    idx = rng.integers(0, n, (2, m, k)).astype(np.int32)
+    idx[0][rng.random((m, k)) < 0.3] = n
+    idx[1] = n
+    w = int_weights(3, (k, c, co))
+    got = tgc.gather_conv(torch.from_numpy(feats), torch.from_numpy(idx),
+                          torch.from_numpy(w))
+    assert got.shape == (2, m, co)
+    for b in range(2):
+        want = jgc.gather_conv_single(jnp.asarray(feats[b]), jnp.asarray(idx[b]),
+                                      jnp.asarray(w), interpret=True)
+        assert_equal(got[b], want)
+    assert float(got[0].abs().sum()) > 0
+    assert float(got[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("miss", [-1, 2 * 150, -(2**31)])
+def test_gather_conv_any_index_outside_the_table_misses(miss):
+    """-1, 2N and INT_MIN give the output of the rulebook's encoding N, which
+    the Pallas kernel takes."""
+    n, m, k, c, co = 150, 140, 27, 8, 16
+    rng = np.random.default_rng(7)
+    feats = rng.integers(-3, 4, (1, n, c)).astype(np.float32)
+    idx = rng.integers(0, n, (1, m, k)).astype(np.int32)
+    at = rng.random((1, m, k)) < 0.4
+    w = torch.from_numpy(int_weights(4, (k, c, co)))
+    x = torch.from_numpy(feats)
+    idx_n = np.where(at, n, idx).astype(np.int32)
+    idx_miss = np.where(at, miss, idx).astype(np.int32)
+    with_n = tgc.gather_conv(x, torch.from_numpy(idx_n), w)
+    other = tgc.gather_conv(x, torch.from_numpy(idx_miss), w)
+    assert torch.equal(other, with_n)
+    want = jgc.gather_conv_single(jnp.asarray(feats[0]), jnp.asarray(idx_n[0]),
+                                  jnp.asarray(w.numpy()), interpret=True)
+    assert_equal(with_n[0], want)
+
+
+@pytest.mark.parametrize("m,c,co,want", [
+    (50176, 32, 32, 1),    # level 0: 14 of the 64-deep steps a tile
+    (25088, 64, 64, 1),    # level 1: 27 steps
+    (12800, 96, 96, 2),    # level 2: 41 steps
+    (6656, 128, 128, 2),   # level 3: 54 steps (the window conv takes 4)
+    (3584, 160, 160, 2),   # level 4: 68 steps (the window conv takes 4)
+    (2048, 192, 192, 4),   # level 5: 81 steps, 128 tiles
+])
+def test_gather_groups_at_the_dune3d_levels(m, c, co, want):
+    """The wrapper's cluster size for the bf16 route at the dune3d levels
+    (8 events, 132 SMs): a power of two up to 8, at least 20 of the tile's
+    64-deep steps a block, at most 13 blocks an SM."""
+    g = tgc.gather_groups(132, 8, m, 27, c, co)
+    assert g == want
+    assert g in (1, 2, 4, 8)
+    assert g == 1 or (-(-27 * c // 64) >= 20 * g
+                      and 8 * -(-m // 128) * -(-co // 192) * g <= 13 * 132)
+    assert g <= tk._conv_groups(132, 8, m, 27, c, co)
+

@@ -538,6 +538,48 @@ def test_window_gather_bit_equal(name, ksz, mirror, n_live, integer):
         assert float(got[b, first_dead_row:].abs().sum()) == 0
 
 
+@pytest.mark.parametrize("name,deconv,c", [
+    ("k27_c12", False, 12),
+    ("k8_deconv_c12", True, 12),
+    ("k8_deconv_c16", True, 16),
+])
+def test_window_gather_real_fp32_widths(name, deconv, c):
+    """Real-valued fp32 data at row widths the kernel copies in 16-byte units
+    (C = 16: 64 bytes) and value by value (C = 12: 48 bytes in fp32, 24 in
+    bf16), over a series plan and over the deconv's reverse plan (K = 8,
+    table: the coarse sites, queries: the fine ones) with one event empty
+    (q_active = 0, all its tiles dead): bit-equal to the Pallas kernel."""
+    from sparseeventid_tpu.ops.rulebook import downsample_sites as jds
+
+    coords, feats = random_coo(17, n=512, grid=(12, 12, 12), c=c, density=0.25,
+                               n_live=[300, 0], integer=False)
+    sj, st = both(coords, feats, (12, 12, 12))
+    if deconv:
+        skj, _ = jds(sj, (2, 2, 2), 512, with_dropped=True)
+        _, plan = jwe.build_strided_window_plans(sj, skj, (2, 2, 2),
+                                                 interpret=True)
+        assert len(plan.dkeys) == 8
+        rng = np.random.default_rng(18)
+        table = rng.standard_normal((2, 512, c)).astype(np.float32)
+        table *= np.asarray(skj.row_mask())[..., None]
+        keys_j, feats_j = skj.keys(), jnp.asarray(table)
+        keys_t, feats_t = t(keys_j), torch.from_numpy(table)
+    else:
+        plan = jwe.build_submanifold_window_plan(sj, (3, 3, 3), interpret=True,
+                                                 window_r=160)
+        keys_j, feats_j, keys_t, feats_t = sj.keys(), sj.feats, st.keys(), st.feats
+    assert int(np.asarray(plan.q_active)[1]) == 0
+    want = jwc.window_gather(keys_j, feats_j, plan.qmeta, plan.start,
+                             plan.q_active, plan.dkeys, interpret=True,
+                             window_r=plan.window_r)
+    got = tk.window_gather(keys_t, feats_t, t(plan.qmeta), t(plan.start),
+                           t(plan.q_active), plan.dkeys, window_r=plan.window_r)
+    assert got.dtype == torch.float32
+    assert_equal(got, want)
+    assert float(got[0].abs().sum()) > 0
+    assert float(got[1].abs().sum()) == 0
+
+
 def test_window_gather_leaves_out_of_window_pairs():
     """With a narrow window the gathered set is the conv's in-window set:
     contracting it with W equals ``window_conv_apply``, and differs from the
