@@ -68,21 +68,52 @@ Phases, one JSON line each; any failure exits non-zero:
               against the plain conv's autograd, all exact, and two planted
               faults caught; then ConvolutionUpsample and the gather conv
               driven forward and backward at full width in bf16 (ops_path)
- 10. main2d / train2d  the dune2d multiplane model (3 planes of 1536 x 1024,
+ 10. campaign  the slice's path, a dune3d training campaign at full width
+              (B=8, 50k-voxel cap, depth 5, filters 32->192, bf16, 24
+              synthetic events from seed 0, prefetching loaders) through
+              sparseeventid_tpu_torch.__main__.main in a temporary
+              output_dir: (1) one dune3d batch's events through the native
+              assembler (csrc/hostio.cpp, built with g++) and its numpy
+              version: coordinates and padding equal, values within 1e-5,
+              ms of each and the thread count; (2) mode=train, 4 steps, a
+              checkpoint every 2: the index lists steps 2 and 4 (latest
+              step_4.pt), a validation batch ran at step 0, finite loss, 0
+              dropped, launches = 4 train steps + 1 forward, each step's io
+              and step ms (StepTimer); (3) a fresh state restored from step
+              4 is torch.equal to the trained one (parameters, statistics,
+              AdamW moments, schedule, step), one more step from each on the
+              same batch gives the same bits, save and restore ms; (4)
+              mode=train to 6 resumes at 4, takes 2 steps, saves step 6; (5)
+              mode=inference resumes step 6 and equals validate() given
+              step 6's weights bit for bit; (6) an encoder-only transfer
+              from step 4: the frozen encoder equals step 4's, every head
+              parameter and every encoder running statistic moved, and no
+              backward kernel launched; (7) only where the card's Python
+              imports h5py: a 24-event dune3d larcv file written by the
+              port equals the synthetic split it was written from, and
+              mode=inference (.h5 output) and mode=iotest run on it; where
+              `import h5py` raises ModuleNotFoundError it prints
+              {"phase": "campaign_larcv", "h5py": false} and goes on (any
+              other error fails the run)
+ 11. main2d / train2d  the dune2d multiplane model (3 planes of 1536 x 1024,
               B=8, bf16, depth 5) through the same validate and train entry
               points, with the same checks and launch counts; the kernel
               phase also runs at the dune2d shapes (K = 25, 9, 4)
- 11. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
+ 12. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
-prints no result and exits with 2.  Kernels build into build/torch_kernels/.
+prints no result and exits with 2.  Kernels build into build/torch_kernels/,
+the host IO engine into build/host/; the runs write under a temporary
+directory that is removed at the end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -153,7 +184,18 @@ OPS_PATH_LAUNCHES = {
     "overflow_dw_batched": 1, "overflow_dw": 0,
     "window_gather": 1, "gather_conv": 2,
 }
+# launches of one inference forward (and of a train step's forward half)
+LAUNCHES_PER_FORWARD = {
+    "window_plan": 17, "window_conv_apply": 54, "overflow_apply_batched": 53,
+    "overflow_apply": 1, "window_bwd_strided": 0, "window_dw": 0,
+    "overflow_dw_batched": 0, "overflow_dw": 0,
+}
+BACKWARD_KERNELS = ("window_bwd_strided", "window_dw", "overflow_dw_batched",
+                    "overflow_dw")
 TRAIN_STEPS = 4  # one warm-up, three timed
+CAMPAIGN_EVENTS = 24
+RUN_DIR = Path("output")  # the runs' output_dir: main() sets a fresh one
+CAMPAIGN_OVERRIDES = []  # more overrides of the campaign's runs (rehearsals)
 FP32_GRAD_EVENTS = 2  # the plain backend's fp32 backward keeps ~7 GB an event
 
 
@@ -1733,7 +1775,7 @@ def train_config(extra=(), recipe="dune3d"):
     return load_config(recipe, [
         "mode=train", f"run.minibatch_size={BATCH}", f"run.seed={SEED}",
         "framework.sparse_backend=window", "data.mode=serial_access",
-        *extra,
+        f"output_dir={RUN_DIR}", *extra,
     ])
 
 
@@ -1803,10 +1845,11 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
              if torch.equal(b, torch.zeros_like(b) if n.endswith("mean")
                             else torch.ones_like(b))]
     require(stats and not still, f"running statistics did not move: {still}")
-    timed = [m["time/step_s"] for m in history[1:]]
+    timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
     steps_per_s = len(timed) / sum(timed)
-    emit({"phase": phase, "recipe": recipe, "steps": TRAIN_STEPS, "step_s": [m["time/step_s"]
-                                                            for m in history],
+    emit({"phase": phase, "recipe": recipe, "steps": TRAIN_STEPS,
+          "io_s": [m["time/io_s"] for m in history],
+          "step_s": [m["time/step_s"] for m in history],
           "loss": [m["loss/loss"] for m in history],
           "lr": [m["opt/lr"] for m in history],
           "launches": launches, "launches_per_step": LAUNCHES_PER_TRAIN_STEP,
@@ -1964,6 +2007,7 @@ def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
         "mode=inference", "run.precision=bfloat16",
         f"run.minibatch_size={BATCH}", "framework.sparse_backend=window",
         f"run.seed={SEED}", f"mode.output_file={out_file}",
+        f"output_dir={RUN_DIR}",
     ])
     wrappers, plains = _kernel_counters()
     # warm-up on the first batch (allocator, cuBLAS handles), then the run
@@ -2205,6 +2249,318 @@ def phase_fp32_grad(dataset) -> None:
                 f"{report[fault]}")
 
 
+@contextlib.contextmanager
+def captured_train_runs():
+    """Keep the TrainRun of each train() that main() makes while the block
+    runs (main returns only the last step's metrics) -> the list of them."""
+    from sparseeventid_tpu_torch.train import trainer
+
+    runs, train = [], trainer.train
+
+    def keep(*args, **kwargs):
+        run = train(*args, **kwargs)
+        runs.append(run)
+        return run
+
+    trainer.train = keep
+    try:
+        yield runs
+    finally:
+        trainer.train = train
+        runs.clear()
+
+
+def campaign_assembly(dataset) -> None:
+    """Campaign step 1: the events of one dune3d batch as linear ids and
+    values through the native assembler and its numpy version."""
+    import numpy as np
+
+    from sparseeventid_tpu_torch.io import hostio
+
+    image = dataset.batch([0])["image"]
+    events = []
+    for ev in image:
+        live = ev[ev[:, 3] != -999.0]
+        c = live[:, :3].astype(np.uint64)
+        ids = (c[:, 0] * GRID[1] + c[:, 1]) * GRID[2] + c[:, 2]
+        events.append((ids, live[:, 3].copy()))
+    native, threads = hostio.assemble_native(events, MAX_VOXELS, GRID)
+    plain = hostio._assemble_numpy(events, MAX_VOXELS, GRID, True, False,
+                                   0.05, None, 0)
+    require(np.array_equal(native[..., :3], plain[..., :3]),
+            "native assembly: coordinates or padding differ from numpy")
+    require(np.array_equal(native[..., 3] == -999.0, plain[..., 3] == -999.0),
+            "native assembly: padding differs from numpy")
+    err = float(np.abs(native[..., 3] - plain[..., 3]).max())
+    require(err <= 1e-5, f"native assembly: values differ by {err} (> 1e-5)")
+
+    def per_batch_ms(fn, reps=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    native_ms = per_batch_ms(
+        lambda: hostio.assemble_native(events, MAX_VOXELS, GRID))
+    numpy_ms = per_batch_ms(
+        lambda: hostio._assemble_numpy(events, MAX_VOXELS, GRID, True, False,
+                                       0.05, None, 0))
+    emit({"phase": "campaign_assembly", "events": len(events),
+          "voxels": [len(i) for i, _ in events], "threads": threads,
+          "native_ms": native_ms, "numpy_ms": numpy_ms,
+          "max_abs_err": err})
+
+
+def phase_campaign(dataset) -> None:
+    """The slice's path: a dune3d training campaign at full width through
+    the command line (B=8, bf16, depth 5, 24 synthetic events, prefetching
+    loaders): train with a validation batch and checkpoints, a restore held
+    against the trained state, auto-resume, inference from the checkpoint,
+    encoder-only transfer; then the larcv file path where h5py imports."""
+    campaign_assembly(dataset)
+    out = RUN_DIR / "campaign"
+    base = ["--config-name", "dune3d", "run.precision=bfloat16",
+            f"run.minibatch_size={BATCH}", f"run.seed={SEED}",
+            "framework.sparse_backend=window", "data.mode=serial_access",
+            "data.train=synthetic", "data.val=synthetic",
+            f"data.synthetic_events={CAMPAIGN_EVENTS}", f"output_dir={out}"]
+    with captured_train_runs() as runs:
+        cfg = campaign_runs(base + CAMPAIGN_OVERRIDES, runs,
+                            out / "dune3d" / "debug" / "checkpoints")
+    campaign_larcv(base + CAMPAIGN_OVERRIDES, cfg)
+
+
+def campaign_runs(base, runs, ckpt_dir):
+    """Campaign steps 2-6 -> the train config."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.__main__ import main as cli
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.config.schema import OptimizerConfig
+    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
+    from sparseeventid_tpu_torch.train.evaluate import (
+        build_dataset,
+        class_weights_of,
+        feature_dtype,
+        prepare_batch,
+        validate,
+    )
+    from sparseeventid_tpu_torch.train.supervised import make_train_step
+    from sparseeventid_tpu_torch.train.trainer import build_training, step_generator
+    from sparseeventid_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+    )
+
+    dev = torch.device(DEVICE)
+    wrappers, _ = _kernel_counters()
+
+    def drive(args):
+        for f in wrappers:
+            f.launches = 0
+        metrics = cli(base + args)
+        torch.cuda.synchronize()
+        return metrics, {f.__name__: f.launches for f in wrappers}
+
+    # 2. train: 4 steps, a checkpoint every 2, a validation batch at step 0
+    _, launches = drive(["mode=train", "mode.iterations=4",
+                         "mode.checkpoint_iteration=2"])
+    run = runs[-1]
+    index = (ckpt_dir / "checkpoint").read_text().splitlines()
+    require(index == ["latest: step_4.pt", "step: step_2.pt", "step: step_4.pt"],
+            f"checkpoint index after 4 steps: {index}")
+    require(list(run.validation) == [0], f"validation at {list(run.validation)}")
+    for i, m in enumerate([*run.history, run.validation[0]]):
+        require(np.isfinite(m["loss/loss"]) and m["overflow/dropped"] == 0,
+                f"campaign train: loss or dropped pairs: {m}")
+    expected = {k: 4 * LAUNCHES_PER_TRAIN_STEP[k] + LAUNCHES_PER_FORWARD[k]
+                for k in LAUNCHES_PER_TRAIN_STEP}
+    require(launches == expected,
+            f"campaign train launches {launches}, expected {expected}")
+    emit({"phase": "campaign_train", "steps": len(run.history),
+          "io_ms": [m["time/io_s"] * 1e3 for m in run.history],
+          "step_ms": [m["time/step_s"] * 1e3 for m in run.history],
+          "loss": [m["loss/loss"] for m in run.history],
+          "val_loss": run.validation[0]["loss/loss"], "launches": launches,
+          "index": index, "checkpoint_bytes": (ckpt_dir / "step_4.pt").stat().st_size})
+
+    # 3. restore step 4 into a fresh state: the same bits, and one more step
+    # from each on the same batch gives the same parameters
+    cfg = load_config("dune3d", base[2:] + ["mode=train"])
+    fresh, _, _ = build_training(cfg, CAMPAIGN_EVENTS // BATCH, None, dev)
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir).restore(fresh, dev, step=4)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    trained = run.state
+    require(fresh.step == trained.step == 4, f"restored step {fresh.step}")
+    want = trained.model.state_dict()
+    differ = [k for k, v in fresh.model.state_dict().items()
+              if not torch.equal(v, want[k])]
+    opt_a, opt_b = fresh.optimizer.state_dict(), trained.optimizer.state_dict()
+    require(opt_a["param_groups"] == opt_b["param_groups"],
+            "restored AdamW parameter groups differ")
+    for i, st in opt_b["state"].items():
+        for k, v in st.items():
+            if not torch.equal(opt_a["state"][i][k].cpu(), v.cpu()):
+                differ.append(f"optimizer {i} {k}")
+    require(fresh.scheduler.state_dict() == trained.scheduler.state_dict(),
+            "restored schedule state differs")
+    require(not differ, f"restored state differs: {differ[:10]}")
+    scheme = (getattr(cfg.mode, "optimizer", None)
+              or OptimizerConfig()).loss_balance_scheme
+    weights = class_weights_of(scheme, dev)
+    batch = build_dataset(cfg, "train").batch(list(range(BATCH)))
+    for state in (fresh, trained):
+        st, labels = prepare_batch(batch, GRID, state.model.encoder.capacities[0],
+                                   feature_dtype(cfg), dev)
+        make_train_step(state, scheme, None, weights)(
+            st, labels, step_generator(SEED, 4, dev))
+    torch.cuda.synchronize()
+    after = dict(trained.model.named_parameters())
+    moved_apart = [n for n, p in fresh.model.named_parameters()
+                   if not torch.equal(p, after[n])]
+    require(not moved_apart,
+            f"one step after the restore differs: {moved_apart[:10]}")
+    probe = CheckpointManager(RUN_DIR / "campaign_probe")
+    t0 = time.perf_counter()
+    saved = probe.save(fresh)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "campaign_restore", "tensors": len(want),
+          "optimizer_states": len(opt_b["state"]), "restore_ms": restore_ms,
+          "save_ms": save_ms, "checkpoint_bytes": saved.stat().st_size,
+          "step_after_restore_equal": True})
+    del fresh, trained, run
+
+    # 4. auto-resume: from step 4 to 6
+    _, _ = drive(["mode=train", "mode.iterations=6"])
+    resumed = runs[-1]
+    require(resumed.first_step == 4 and len(resumed.history) == 2
+            and resumed.state.step == 6,
+            f"resume: first step {resumed.first_step}, "
+            f"{len(resumed.history)} steps, ends at {resumed.state.step}")
+    index = (ckpt_dir / "checkpoint").read_text().splitlines()
+    require(index[0] == "latest: step_6.pt" and (ckpt_dir / "step_6.pt").exists(),
+            f"checkpoint index after resume: {index}")
+    emit({"phase": "campaign_resume", "first_step": resumed.first_step,
+          "steps": len(resumed.history), "index": index,
+          "io_ms": [m["time/io_s"] * 1e3 for m in resumed.history],
+          "step_ms": [m["time/step_s"] * 1e3 for m in resumed.history]})
+    del resumed
+
+    # 5. inference auto-resumes step 6: the same metrics as validate() given
+    # step 6's weights, bit for bit
+    cli_metrics, launches = drive(["mode=inference"])
+    sd6 = load_checkpoint(ckpt_dir / "step_6.pt", dev)["model"]
+    in_process = validate(load_config("dune3d", base[2:] + ["mode=inference"]),
+                          params=sd6, device=DEVICE)
+    require(cli_metrics == in_process,
+            f"inference from the checkpoint {cli_metrics} != validate {in_process}")
+    n_batches = CAMPAIGN_EVENTS // BATCH
+    require(launches == {k: n_batches * v for k, v in LAUNCHES_PER_FORWARD.items()},
+            f"campaign inference launches {launches}")
+    emit({"phase": "campaign_inference", "metrics": cli_metrics,
+          "launches": launches})
+
+    # 6. encoder-only transfer from step 4, encoder frozen
+    step4 = load_checkpoint(ckpt_dir / "step_4.pt", dev)["model"]
+    _, launches = drive(["mode=train", "mode.iterations=2", "run.id=transfer",
+                         f"mode.weights_location={ckpt_dir / 'step_4.pt'}",
+                         "mode.restore_encoder_only=true"])
+    transfer = runs[-1]
+    init = init_parameters(build_sparse_classifier(cfg), SEED).to(dev)
+    start = init.state_dict()
+    final = transfer.state.model.state_dict()
+    params = dict(transfer.state.model.named_parameters())
+    enc = [n for n in params if n.startswith("encoder.")]
+    head = [n for n in params if not n.startswith("encoder.")]
+    require(all(torch.equal(final[n], step4[n]) for n in enc),
+            "transfer moved the frozen encoder")
+    require(all(not params[n].requires_grad for n in enc),
+            "transfer left an encoder parameter trainable")
+    still = [n for n in head if torch.equal(final[n], start[n])]
+    require(not still, f"head parameters that did not move: {still}")
+    stats = [n for n, _ in transfer.state.model.named_buffers()
+             if n.startswith("encoder.")]
+    stuck = [n for n in stats if torch.equal(final[n], start[n])]
+    require(stats and not stuck,
+            f"encoder running statistics that did not move: {stuck[:10]}")
+    expected = {k: 3 * LAUNCHES_PER_FORWARD[k] for k in LAUNCHES_PER_FORWARD}
+    require(launches == expected,
+            f"transfer launches {launches}, expected {expected}: a frozen "
+            "encoder launches no backward kernel")
+    require(all(np.isfinite(m["loss/loss"]) for m in transfer.history),
+            "transfer loss not finite")
+    emit({"phase": "campaign_transfer", "frozen": len(enc), "trained": len(head),
+          "encoder_stats_moved": len(stats), "launches": launches,
+          "backward_launches": {k: launches[k] for k in BACKWARD_KERNELS},
+          "loss": [m["loss/loss"] for m in transfer.history]})
+    return cfg
+
+
+def campaign_larcv(base, cfg) -> None:
+    """Campaign step 7: a dune3d larcv file written by the port, read back
+    against the synthetic split it was written from, then inference and
+    iotest on it.  Needs h5py: without it, says so and returns."""
+    import zlib
+
+    import numpy as np
+
+    try:
+        import h5py
+    except ModuleNotFoundError:
+        emit({"phase": "campaign_larcv", "h5py": False})
+        return
+    from sparseeventid_tpu_torch.__main__ import main as cli
+    from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
+    from sparseeventid_tpu_torch.io.larcv import LarcvDataset, write_synthetic_larcv_file
+    from sparseeventid_tpu_torch.train.evaluate import build_dataset
+
+    path = RUN_DIR / "campaign_val.h5"
+    t0 = time.perf_counter()
+    write_synthetic_larcv_file(
+        path, CAMPAIGN_EVENTS, image_size=GRID, max_voxels=cfg.data.max_voxels,
+        seed=(zlib.crc32(b"val") + SEED) % 2**31)
+    write_s = time.perf_counter() - t0
+    larcv = LarcvDataset(path, "dunevoxels", max_voxels=cfg.data.max_voxels,
+                         image_size=GRID)
+    route = larcv.read_route
+    synthetic = build_dataset(cfg, "val")
+    err = 0.0
+    for first in range(0, CAMPAIGN_EVENTS, BATCH):
+        idx = list(range(first, first + BATCH))
+        a, b = larcv.batch(idx), synthetic.batch(idx)
+        require(np.array_equal(a["image"][..., :3], b["image"][..., :3]),
+                f"larcv batch {first}: coordinates differ from the synthetic split")
+        for k in OUTPUT_SHAPE:
+            require(np.array_equal(a[k], b[k]), f"larcv batch {first}: {k} differs")
+        err = max(err, float(np.abs(a["image"][..., 3] - b["image"][..., 3]).max()))
+    require(err <= 1e-5, f"larcv values differ by {err} from the synthetic split")
+    t0 = time.perf_counter()
+    for first in range(0, CAMPAIGN_EVENTS, BATCH):
+        larcv.batch(list(range(first, first + BATCH)))
+    batch_ms = (time.perf_counter() - t0) / (CAMPAIGN_EVENTS // BATCH) * 1e3
+    larcv.close()
+    out_file = RUN_DIR / "campaign_softmax.h5"
+    metrics = cli(base + ["mode=inference", f"data.val={path}",
+                          f"mode.output_file={out_file}"])
+    require(np.isfinite(metrics["loss/loss"]) and metrics["overflow/dropped"] == 0,
+            f"larcv inference: {metrics}")
+    with h5py.File(out_file, "r") as f:
+        for k, n in OUTPUT_SHAPE.items():
+            scores = f[f"Data/softmax_{k}_group/scores"][:]
+            require(scores.shape == (CAMPAIGN_EVENTS, n)
+                    and np.all(np.isfinite(scores)), f"softmax {k}: {scores.shape}")
+    io = cli(base + ["mode=iotest", f"data.train={path}", f"data.val={path}",
+                     "mode.iterations=10"])
+    emit({"phase": "campaign_larcv", "h5py": True, "route": route,
+          "write_s": write_s, "batch_ms": batch_ms, "max_abs_err": err,
+          "inference": metrics, "iotest": io})
+
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] != "--parent" or len(argv) != 2):
@@ -2225,6 +2581,9 @@ def main(argv) -> int:
     sys.path.insert(0, str(HERE))
     out_dir = HERE / "output" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    global RUN_DIR
+    runs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+    RUN_DIR = Path(runs.name)
     try:
         name, _ = phase_device()
         phase_build()
@@ -2243,6 +2602,7 @@ def main(argv) -> int:
         for kname, per_shape in phase_gather_kernels(dataset).items():
             rows.setdefault(kname, []).extend(per_shape)
         ops_launches = phase_engine_ops(dataset)
+        phase_campaign(dataset)
         del dataset
         dataset_2d = make_dataset_2d()
         rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
@@ -2296,6 +2656,8 @@ def main(argv) -> int:
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        runs.cleanup()
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

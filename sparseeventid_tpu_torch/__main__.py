@@ -1,9 +1,10 @@
 """Command line: ``python -m sparseeventid_tpu_torch --config-name <recipe>
-mode=train|inference [overrides]``.
+mode=train|inference|iotest [overrides]``.
 
-Both modes run on the card unless ``run.compute_mode=CPU`` is given.
-Inference prints the mean metrics as one JSON line; train prints the metrics
-of its last step.
+Train and inference run on the card unless ``run.compute_mode=CPU`` is
+given; iotest reads batches on the host only.  Each prints one JSON line:
+inference the mean metrics, train the metrics of its last step, iotest the
+mean fetch ms and images/s of each split.
 """
 
 from __future__ import annotations
@@ -33,15 +34,20 @@ def main(argv=None) -> dict:
     if cfg.mode.name == ModeKind.train:
         from .train.trainer import train
 
-        metrics = train(cfg).history[-1]
+        history = train(cfg).history
+        metrics = history[-1] if history else {}
     elif cfg.mode.name == ModeKind.inference:
         from .train.evaluate import validate
 
         metrics = validate(cfg)
+    elif cfg.mode.name == ModeKind.iotest:
+        from .train.trainer import iotest
+
+        metrics = iotest(cfg)
     else:
         raise NotImplementedError(
             f"mode={cfg.mode.name.name} is not ported yet (ROADMAP: the full "
-            "trainer); use mode=train or mode=inference"
+            "trainer); use mode=train, inference or iotest"
         )
     print(json.dumps(metrics, sort_keys=True))
     return metrics

@@ -1,3 +1,4 @@
+from .dataset import BatchLoader  # noqa: F401
 from .synthetic import SyntheticDataset, SyntheticEventConfig, generate_event  # noqa: F401
 from .transforms import (  # noqa: F401
     larcv_batch_to_sparse_2d,

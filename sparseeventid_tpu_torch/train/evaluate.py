@@ -1,7 +1,15 @@
 """Inference mode: run the validation split once, report the mean loss and
 per-head accuracy, and write the per-event softmax to ``mode.output_file``
-(.npz) when it is set (JAX counterpart: ``Trainer.validate``, supervised
-task only).
+when it is set: larcv style (``Data/softmax_<head>_group/scores``) for a
+``.h5`` name, else ``.npz`` (JAX counterpart: ``Trainer.validate``,
+supervised task only).  The weights are restored as a train run restores
+them (``utils.checkpoint.restore_run``): an encoder-only transfer or a full
+restore from ``mode.weights_location``, else the newest checkpoint of the
+run directory.
+
+A split's data is its larcv file (``data.train`` / ``data.val`` /
+``data.test``), or, for the word ``synthetic`` or an empty name under the
+synthetic detector, synthetic events on the detector's grid.
 
 Entry points run on the card.  They use the CPU only when asked, by
 ``device="cpu"`` or ``run.compute_mode=CPU``; otherwise a machine without a
@@ -12,6 +20,7 @@ from __future__ import annotations
 
 import logging
 import zlib
+from pathlib import Path
 from typing import Dict, Mapping
 
 import numpy as np
@@ -34,11 +43,13 @@ from ..io import (
     larcv_batch_to_sparse_3d,
 )
 from ..models import build_sparse_classifier, init_parameters
+from ..utils.checkpoint import CheckpointManager, restore_run
+from ..utils.logger import process_log
 from .supervised import eval_metrics
 
 logger = logging.getLogger(__name__)
 
-_LARCV_ITEM = "ROADMAP: larcv IO and checkpoint restore"
+SYNTHETIC = "synthetic"  # a split name that asks for synthetic events
 
 
 def resolve_device(cfg: SparseEventIDConfig | None = None,
@@ -65,14 +76,32 @@ def feature_dtype(cfg: SparseEventIDConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.run.precision in low else torch.float32
 
 
+def run_dir(cfg: SparseEventIDConfig) -> Path:
+    """``<output_dir>/<detector>/<run.id>``: process.log, tb/, checkpoints/."""
+    return Path(cfg.output_dir) / cfg.data.detector.name / str(cfg.run.id)
+
+
 def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
-    """The synthetic dataset of a split, seeded as the JAX trainer seeds it.
-    2D multiplane data: 3D tracks on (H, H, W), projected per plane."""
-    if cfg.data.detector != Detector.synthetic or getattr(cfg.data, split, ""):
-        raise NotImplementedError(
-            f"larcv data files are not read by this package yet ({_LARCV_ITEM})"
-        )
+    """The dataset of a split: its larcv file, read on the detector's grid
+    unless the file carries its own; or synthetic events seeded as the JAX
+    trainer seeds them (2D multiplane: 3D tracks on (H, H, W), projected
+    per plane).  A real detector with no file named raises."""
+    path = getattr(cfg.data, split)
     shape = image_size(cfg)
+    if path and path != SYNTHETIC:
+        from ..io.larcv import LarcvDataset
+
+        return LarcvDataset(
+            path, image_key=cfg.data.image_key, dimension=cfg.data.dimension,
+            max_voxels=cfg.data.max_voxels, normalize=cfg.data.normalize,
+            image_size=shape if cfg.data.dimension == 3 else shape[1:],
+        )
+    if not path and cfg.data.detector != Detector.synthetic:
+        raise ValueError(
+            f"data.{split}: no larcv file given for detector "
+            f"{cfg.data.detector.name}; name one, or '{SYNTHETIC}' for "
+            "synthetic events on its grid"
+        )
     if cfg.data.dimension == 2:
         gen_size, planes = (shape[1],) + tuple(shape[1:]), shape[0]
     else:
@@ -87,6 +116,13 @@ def build_dataset(cfg: SparseEventIDConfig, split: str = "val"):
         ),
         seed=(zlib.crc32(split.encode()) + cfg.run.seed) % 2**31,
     )
+
+
+def close_datasets(datasets) -> None:
+    """Close what the datasets hold open (a larcv reader's file)."""
+    for ds in datasets:
+        if hasattr(ds, "close"):
+            ds.close()
 
 
 def prepare_batch(batch, grid, capacity: int, dtype: torch.dtype,
@@ -111,6 +147,22 @@ def class_weights_of(scheme, device):
     }
 
 
+def write_softmax(path: str | Path, outputs: Dict[str, np.ndarray]) -> None:
+    """Per-event softmax by head: larcv style for ``.h5`` (the JAX layout,
+    ``Data/softmax_<head>_group/scores``; the legacy ana_step,
+    torch_inference.py:719-776), else one ``.npz``."""
+    if str(path).endswith(".h5"):
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            g = f.require_group("Data")
+            for k, arr in outputs.items():
+                g.create_group(f"softmax_{k}_group").create_dataset(
+                    "scores", data=arr)
+    else:
+        np.savez(path, **outputs)
+
+
 def validate(
     cfg: SparseEventIDConfig,
     dataset=None,
@@ -121,27 +173,39 @@ def validate(
     is the total over the run).
 
     ``dataset`` (``__len__``, ``batch(indices)``, ``batch_grid()``) defaults
-    to the config's synthetic split; ``params`` is a ``state_dict`` (e.g. from ``convert.params_from_jax``), default a
-    seeded random initialisation."""
+    to the config's val split (test without one); ``params`` is a
+    ``state_dict`` to evaluate (e.g. from ``convert.params_from_jax``),
+    default a seeded random initialisation and then the run's restore."""
     if cfg.name != "supervised_eventID":
         raise NotImplementedError(
             f"task {cfg.name!r} is not ported yet (ROADMAP: the other models "
             "and tasks)"
         )
-    if cfg.mode.weights_location:
-        raise NotImplementedError(
-            f"mode.weights_location: checkpoints are not restored yet "
-            f"({_LARCV_ITEM}); pass params= instead"
-        )
     dev = resolve_device(cfg, device)
-    if dataset is None:
-        dataset = build_dataset(cfg, "val" if "val" in cfg.data.active else "test")
+    out_dir = run_dir(cfg)
+    with process_log(out_dir / "process.log"):
+        owned = []
+        if dataset is None:
+            dataset = build_dataset(
+                cfg, "val" if "val" in cfg.data.active else "test")
+            owned.append(dataset)
+        try:
+            return _validate(cfg, dataset, params, dev, out_dir)
+        finally:
+            close_datasets(owned)
+
+
+def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     model = build_sparse_classifier(cfg)
     if params is None:
         init_parameters(model, cfg.run.seed)
+        model.to(dev)
+        restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),
+                    model, dev)
     else:
         model.load_state_dict(params)
-    model.to(dev).eval()
+        model.to(dev)
+    model.eval()
     dtype = feature_dtype(cfg)
     grid = dataset.batch_grid()
     cap0 = model.encoder.capacities[0]
@@ -170,10 +234,7 @@ def validate(
     mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
     logger.info("validation over %d batches: %s", n_batches, mean)
     if output_file:
-        if str(output_file).endswith(".h5"):
-            raise NotImplementedError(
-                f"larcv-style .h5 output is not written yet ({_LARCV_ITEM})"
-            )
-        np.savez(output_file, **{k: np.concatenate(v) for k, v in outputs.items()})
+        write_softmax(output_file,
+                      {k: np.concatenate(v) for k, v in outputs.items()})
         logger.info("wrote softmax outputs to %s", output_file)
     return mean

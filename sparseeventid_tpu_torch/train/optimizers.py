@@ -6,6 +6,11 @@ by the per-step schedule through a ``LambdaLR``.
 step: p <- p - lr_t * (m_hat / (sqrt(v_hat) + eps) + wd * p), with lr_t the
 schedule at the number of updates made so far.  The scheduler is stepped
 after each optimizer step.
+
+A transfer run's frozen encoder (the JAX ``optax.multi_transform`` with
+``set_to_zero``) is the caller's: ``trainer.build_training`` passes only the
+parameters that need a gradient, so AdamW neither updates nor decays the
+encoder's.
 """
 
 from __future__ import annotations

@@ -1,12 +1,19 @@
-"""Train mode: the smallest loop that is the counterpart of the JAX
-``Trainer.train`` for the supervised task on synthetic data.  It builds the
-model, optimizer and schedule from the config, takes ``mode.iterations``
-steps (0: ``run.length`` epochs of the train split), and logs the metrics
-of each step.
+"""Train and iotest modes: the counterpart of the JAX ``Trainer`` for the
+supervised task (``train``, ``iotest``).
 
-Not here yet, and refused by name of the roadmap item: checkpoints and
-resume, larcv files, the validation interleave, prefetch, the other tasks
-and data-parallel training.
+A train run reads its splits through prefetching ``BatchLoader``s, builds
+the model, optimizer and schedule from the config, restores (an
+encoder-only transfer, a full restore from ``mode.weights_location``, or
+the newest checkpoint of its run directory), and takes steps from the
+restored step to ``mode.iterations`` (0: ``run.length`` epochs of the train
+split).  Every ``VAL_CHECK_INTERVAL`` steps it evaluates one validation
+batch first; it saves a checkpoint every ``mode.checkpoint_iteration``
+steps and at the end, keeping 5.  As in the JAX package, a resumed run's
+data stream starts again at its beginning.  Logs go to the run's
+``process.log`` and, with tensorboardX, to ``tb/``.
+
+Not here yet, and refused by name of the roadmap item: the other tasks and
+data-parallel training.
 """
 
 from __future__ import annotations
@@ -14,66 +21,71 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, Iterator, List, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
 
-from ..config.schema import AccessMode, OptimizerConfig, SparseEventIDConfig
+from ..config.schema import OptimizerConfig, SparseEventIDConfig
+from ..io.dataset import BatchLoader
 from ..models import build_sparse_classifier, init_parameters
+from ..utils.checkpoint import (
+    CheckpointManager,
+    encoder_freeze_names,
+    restore_run,
+    transfers_encoder,
+)
+from ..utils.logger import process_log
+from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
 from .evaluate import (
-    class_weights_of,
     build_dataset,
+    class_weights_of,
+    close_datasets,
     feature_dtype,
     prepare_batch,
     resolve_device,
+    run_dir,
 )
 from .optimizers import build_optimizer
 from .schedules import build_lr_schedule
 from .state import TrainState, param_count
-from .supervised import make_train_step
+from .supervised import make_eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
 
-
-def batch_indices(n: int, batch_size: int, mode: AccessMode,
-                  seed: int) -> Iterator[np.ndarray]:
-    """The endless sequence of event-index batches of a split: serial, from
-    a random start (random_blocks), or a fresh permutation per epoch
-    (random_events; a batch may straddle two epochs)."""
-    rng = np.random.default_rng(seed if seed >= 0 else 0)
-    cursor, perm, pos = 0, None, 0
-    while True:
-        if mode == AccessMode.serial_access:
-            yield (cursor + np.arange(batch_size)) % n
-            cursor = (cursor + batch_size) % n
-        elif mode == AccessMode.random_blocks:
-            yield (int(rng.integers(0, n)) + np.arange(batch_size)) % n
-        else:
-            out = []
-            while len(out) < batch_size:
-                if perm is None or pos >= n:
-                    perm, pos = rng.permutation(n), 0
-                take = perm[pos:pos + batch_size - len(out)]
-                out.extend(take.tolist())
-                pos += len(take)
-            yield np.asarray(out)
+VAL_CHECK_INTERVAL = 10  # create_trainer.py:135
 
 
 @dataclasses.dataclass
 class TrainRun:
-    """What a run of train mode leaves: the metrics of every step (plain
-    floats, ``time/step_s`` the synchronised wall time of the step) and the
-    final state."""
+    """What a run of train mode leaves: the metrics of every step it took
+    (plain floats; ``time/io_s`` and ``time/step_s`` the ``StepTimer``
+    split), the validation metrics by step, the step it started from and
+    the final state."""
 
     history: List[Dict[str, float]]
     state: TrainState
+    first_step: int = 0
+    validation: Dict[int, Dict[str, float]] = dataclasses.field(default_factory=dict)
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The dropout generator of one step, a function of (run.seed + 1, step)
+    alone (the JAX step's fold_in(PRNGKey(seed + 1), step)): a resumed run
+    draws the masks an uninterrupted one would."""
+    entropy = np.random.SeedSequence([(seed + 1) % 2**63, step])
+    return torch.Generator(device=device).manual_seed(
+        int(entropy.generate_state(1, np.uint64)[0]))
 
 
 def build_training(cfg: SparseEventIDConfig, epoch_length: int,
                    params: Mapping[str, torch.Tensor] | None,
                    device: torch.device):
-    """-> (state, train_step, n_steps) of the supervised task."""
+    """-> (state, train_step, n_steps) of the supervised task.  In a
+    transfer run the encoder's parameters are frozen: they need no gradient
+    and AdamW holds none of them, so neither its update nor its weight
+    decay moves them (the JAX ``optax.multi_transform`` with
+    ``set_to_zero``); its batch norms still update their statistics."""
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
     total_epochs = max(cfg.run.length, 1)
     lr_schedule = build_lr_schedule(opt_cfg.lr_schedule, epoch_length, total_epochs)
@@ -83,7 +95,13 @@ def build_training(cfg: SparseEventIDConfig, epoch_length: int,
     else:
         model.load_state_dict(params)
     model.to(device)
-    optimizer, scheduler = build_optimizer(opt_cfg, lr_schedule, model.parameters())
+    if transfers_encoder(cfg.mode):
+        frozen = encoder_freeze_names(model)
+        for name, p in model.named_parameters():
+            if name in frozen:
+                p.requires_grad_(False)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    optimizer, scheduler = build_optimizer(opt_cfg, lr_schedule, trainable)
     state = TrainState(model, optimizer, scheduler)
     scheme = opt_cfg.loss_balance_scheme
     step = make_train_step(
@@ -94,6 +112,13 @@ def build_training(cfg: SparseEventIDConfig, epoch_length: int,
     return state, step, n_steps
 
 
+def make_loader(cfg: SparseEventIDConfig, dataset) -> BatchLoader:
+    return BatchLoader(
+        dataset, cfg.run.minibatch_size, access_mode=cfg.data.mode,
+        seed=cfg.data.seed if cfg.data.seed >= 0 else 0,
+    )
+
+
 def train(
     cfg: SparseEventIDConfig,
     dataset=None,
@@ -101,17 +126,14 @@ def train(
     device: torch.device | str | None = None,
 ) -> TrainRun:
     """Run train mode.  ``dataset`` (``__len__``, ``batch(indices)``,
-    ``batch_grid()``) defaults to the config's synthetic train split; ``params`` is a ``state_dict`` to start from, default a seeded
-    random initialisation."""
+    ``batch_grid()``) replaces the config's splits: the run trains on it and
+    validates on nothing.  ``params`` is a ``state_dict`` to start from;
+    without it the run starts from a seeded random initialisation and then
+    restores."""
     if cfg.name != "supervised_eventID":
         raise NotImplementedError(
             f"task {cfg.name!r} is not ported yet (ROADMAP: the other models "
             "and tasks)"
-        )
-    if cfg.mode.weights_location:
-        raise NotImplementedError(
-            "mode.weights_location: checkpoints are not restored yet "
-            "(ROADMAP: larcv IO and checkpoints); pass params= instead"
         )
     if cfg.run.distributed:
         raise NotImplementedError(
@@ -119,27 +141,65 @@ def train(
             "(ROADMAP: DDP over the four cards)"
         )
     dev = resolve_device(cfg, device)
-    if dataset is None:
-        dataset = build_dataset(cfg, "train")
-    bs = cfg.run.minibatch_size
-    epoch_length = max(len(dataset) // bs, 1)
-    state, step, n_steps = build_training(cfg, epoch_length, params, dev)
+    out_dir = run_dir(cfg)
+    with process_log(out_dir / "process.log"):
+        owned = []
+        if dataset is None:
+            splits = ["train"] + (["val"] if "val" in cfg.data.active else [])
+            owned = [build_dataset(cfg, s) for s in splits]
+            datasets = dict(zip(splits, owned))
+        else:
+            datasets = {"train": dataset}
+        loaders = {s: make_loader(cfg, ds) for s, ds in datasets.items()}
+        try:
+            return _train(cfg, datasets, loaders, params, dev, out_dir)
+        finally:
+            for loader in loaders.values():
+                loader.stop()
+            close_datasets(owned)
+
+
+def _train(cfg, datasets, loaders, params, dev, out_dir) -> TrainRun:
+    loader, val_loader = loaders["train"], loaders.get("val")
+    state, step, n_steps = build_training(cfg, len(loader), params, dev)
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
+    ckpt = CheckpointManager(out_dir / "checkpoints")
+    if params is None:
+        restored = restore_run(cfg.mode, ckpt, state.model, dev,
+                               state.optimizer, state.scheduler)
+        if restored is not None:
+            state.step = restored
+    opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
+    eval_step = make_eval_step(state.model, opt_cfg.loss_balance_scheme,
+                               class_weights_of(opt_cfg.loss_balance_scheme, dev))
     dtype = feature_dtype(cfg)
-    grid = dataset.batch_grid()
     cap0 = state.model.encoder.capacities[0]
-    generator = torch.Generator(device=dev).manual_seed(cfg.run.seed + 1)
-    batches = batch_indices(len(dataset), bs, cfg.data.mode, cfg.data.seed)
+    bs = cfg.run.minibatch_size
     log_every = getattr(cfg.mode, "logging_iteration", 1) or 1
-    history = []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        batch = dataset.batch(next(batches).tolist())
-        st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
-        metrics = {k: float(v) for k, v in step(st, labels, generator).items()}
+    ckpt_every = getattr(cfg.mode, "checkpoint_iteration", 50) or 50
+    writer = SummaryWriter(out_dir / "tb")
+    run = TrainRun([], state, first_step=state.step)
+    saved = None
+    timer = StepTimer()
+    for i in range(state.step, n_steps):
+        if val_loader is not None and i % VAL_CHECK_INTERVAL == 0:
+            vst, vlabels = prepare_batch(next(val_loader),
+                                         datasets["val"].batch_grid(), cap0,
+                                         dtype, dev)
+            vm = {k: float(v) for k, v in eval_step(vst, vlabels).items()}
+            run.validation[i] = vm
+            writer.write(vm, i, prefix="val/")
+            logger.info(format_log_message(vm, bs, i, mode="val"))
+        st, labels = prepare_batch(next(loader), datasets["train"].batch_grid(),
+                                   cap0, dtype, dev)
+        timer.mark_io()
+        metrics = step(st, labels, step_generator(cfg.run.seed, i, dev))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        metrics["time/step_s"] = time.perf_counter() - t0
+        timer.mark_step()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics["time/io_s"] = timer.io_time
+        metrics["time/step_s"] = timer.step_time
         if metrics["overflow/dropped"] > 0:
             logger.warning(
                 "step %d: %d conv pairs/sites dropped by static capacity; "
@@ -147,6 +207,44 @@ def train(
                 i, int(metrics["overflow/dropped"]),
             )
         if i % log_every == 0:
-            logger.info("train step %d: %s", i, metrics)
-        history.append(metrics)
-    return TrainRun(history, state)
+            writer.write(metrics, i, prefix="train/")
+            logger.info(format_log_message(metrics, bs, i, timer=timer))
+        run.history.append(metrics)
+        if (i + 1) % ckpt_every == 0:
+            ckpt.save(state)
+            saved = state.step
+    if saved != state.step:
+        ckpt.save(state)
+    writer.close()
+    return run
+
+
+def iotest(cfg: SparseEventIDConfig) -> Dict[str, Dict[str, float]]:
+    """IO benchmark (bin/exec.py:226-267): for each active split, one
+    warm-up fetch from its prefetching loader, then ``mode.iterations``
+    timed fetches -> the mean ms of a fetch (the first timed one left out)
+    and images/s.  Host work only: no device is touched."""
+    bs = cfg.run.minibatch_size
+    iterations = getattr(cfg.mode, "iterations", 25) or 25
+    results = {}
+    with process_log(run_dir(cfg) / "process.log"):
+        for split in cfg.data.active or ("train",):
+            dataset = build_dataset(cfg, split)
+            loader = make_loader(cfg, dataset)
+            try:
+                next(loader)
+                times = []
+                for i in range(iterations):
+                    t0 = time.perf_counter()
+                    next(loader)
+                    times.append(time.perf_counter() - t0)
+                    logger.info("%s fetch %d: %.2f ms (%.1f img/s)", split, i,
+                                times[-1] * 1e3, bs / times[-1])
+            finally:
+                loader.stop()
+                close_datasets([dataset])
+            mean = float(np.mean(times[1:] if len(times) > 1 else times))
+            results[split] = {"mean_ms": mean * 1e3, "img_per_s": bs / mean}
+            logger.info("%s: mean fetch %.2f ms, %.1f img/s", split,
+                        mean * 1e3, bs / mean)
+    return results

@@ -15,7 +15,7 @@ def test_cli_inference_on_cpu(tmp_path, capsys):
         "--config-name", "synthetic", "mode=inference",
         "run.compute_mode=CPU", "framework.sparse_backend=window",
         "data.synthetic_events=8", "run.minibatch_size=4",
-        f"mode.output_file={out}",
+        f"mode.output_file={out}", f"output_dir={tmp_path}",
     ])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == metrics

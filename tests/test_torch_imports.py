@@ -1,4 +1,5 @@
-"""The port stands alone: no module of it, nor chip_smoke.py, imports JAX,
+"""The port stands alone: no module of it, nor its scripts chip_smoke.py and
+prefetch_ab.py, imports JAX,
 flax, optax or the JAX package; and its entry points refuse to fall back to
 the CPU unless asked."""
 
@@ -11,7 +12,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sparseeventid_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "prefetch_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu")
 
 
@@ -56,7 +57,7 @@ def test_validate_needs_cuda_unless_asked(monkeypatch):
     assert resolve_device(cfg, device="cpu").type == "cpu"
 
 
-def test_cli_needs_cuda_unless_asked(monkeypatch):
+def test_cli_needs_cuda_unless_asked(monkeypatch, tmp_path):
     from sparseeventid_tpu_torch.__main__ import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -66,35 +67,42 @@ def test_cli_needs_cuda_unless_asked(monkeypatch):
         main(["--config-name", "synthetic", "mode=train"])
     metrics = main(["--config-name", "synthetic", "mode=train",
                     "run.compute_mode=CPU", "mode.iterations=2",
-                    "framework.sparse_backend=window"])
+                    "framework.sparse_backend=window",
+                    f"output_dir={tmp_path}"])
     assert metrics["overflow/dropped"] == 0 and metrics["loss/loss"] > 0
     assert metrics["opt/lr"] > 1e-5  # the second step of the warm-up
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--config-name", "synthetic", "mode=iotest"])
+        main(["--config-name", "synthetic", "mode=visualize"])
 
 
-def test_unported_inputs_raise_naming_the_roadmap():
+def test_unported_inputs_raise_naming_the_roadmap(tmp_path):
     from sparseeventid_tpu_torch.config import load_config
     from sparseeventid_tpu_torch.train.evaluate import validate
     from sparseeventid_tpu_torch.train.trainer import train
 
-    for ov in (["mode.weights_location=ckpt"], ["run.distributed=true"],
-               ["data=dune3d"], ["data=dune2d"],
+    out = f"output_dir={tmp_path}"
+    for ov in (["run.distributed=true"],
                ["encoder.per_label_final_series=true"],
                ["encoder.normalization=group"],
                ["encoder.normalization=layer"]):
-        cfg = load_config("synthetic", ["mode=train", "run.compute_mode=CPU"] + ov)
+        cfg = load_config("synthetic", ["mode=train", "run.compute_mode=CPU", out] + ov)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train(cfg)
-
-    cfg = load_config("synthetic", ["mode=inference", "run.compute_mode=CPU",
-                                    "mode.weights_location=ckpt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        validate(cfg)
+    # a real detector's data must be named: a larcv file, or "synthetic"
+    for ov in (["data=dune3d"], ["data=dune2d"]):
+        cfg = load_config("synthetic", ["mode=train", "run.compute_mode=CPU", out] + ov)
+        with pytest.raises(ValueError, match="data.train"):
+            train(cfg)
     for recipe in ("dune3d", "dune2d"):
-        cfg = load_config(recipe, ["mode=inference", "run.compute_mode=CPU"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg = load_config(recipe, ["mode=inference", "run.compute_mode=CPU", out])
+        with pytest.raises(ValueError, match="data.val"):
             validate(cfg)
+    # checkpoints are restored now: a missing one is a missing file
+    for mode in ("mode=train", "mode=inference"):
+        cfg = load_config("synthetic", [mode, "run.compute_mode=CPU", out,
+                                        f"mode.weights_location={tmp_path}/none.pt"])
+        with pytest.raises(FileNotFoundError):
+            (train if mode == "mode=train" else validate)(cfg)
 
 
 def test_new_entry_points_need_cuda_unless_asked(monkeypatch):

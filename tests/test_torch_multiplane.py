@@ -356,11 +356,11 @@ def test_one_multiplane_train_step_follows_jax(backend, data):
 
 # ---- the command line
 
-def test_cli_runs_the_synthetic_2d_config_on_the_cpu():
+def test_cli_runs_the_synthetic_2d_config_on_the_cpu(tmp_path):
     common = ["--config-name", "synthetic", "data.dimension=2", "data.images=3",
               "run.compute_mode=CPU", "data.synthetic_events=8",
               "encoder.depth=2", "encoder.blocks_per_layer=1",
-              "encoder.n_initial_filters=4"]
+              "encoder.n_initial_filters=4", f"output_dir={tmp_path}"]
     m = cli(common + ["mode=train", "mode.iterations=2",
                       "framework.sparse_backend=window"])
     assert m["overflow/dropped"] == 0 and np.isfinite(m["loss/loss"])

@@ -40,7 +40,6 @@ from sparseeventid_tpu_torch.train import (
     make_train_step,
     param_count,
 )
-from sparseeventid_tpu_torch.train.trainer import batch_indices
 
 
 # ---- (c) masked batch norm in train mode
@@ -190,19 +189,6 @@ def test_dropout_draws_from_its_generator():
     assert set(a.unique().tolist()) == {0.0, 2.0}
     assert 0.35 < float((a == 0).float().mean()) < 0.65
     assert dropout(x, 0.5, False) is x and dropout(x, 0.0, True) is x
-
-
-@pytest.mark.parametrize("mode", ["serial_access", "random_events", "random_blocks"])
-def test_batch_indices_cover_the_split(mode):
-    it = batch_indices(10, 4, tschema.AccessMode[mode], seed=0)
-    batches = [next(it) for _ in range(5)]
-    assert all(b.shape == (4,) and b.min() >= 0 and b.max() < 10 for b in batches)
-    flat = np.concatenate(batches)
-    if mode == "serial_access":
-        assert flat.tolist() == [i % 10 for i in range(20)]
-    if mode == "random_events":  # every event once per epoch
-        assert sorted(flat[:10].tolist()) == list(range(10))
-        assert sorted(flat[10:].tolist()) == list(range(10))
 
 
 # ---- (e) the whole train step: a depth-2 model from the same state
