@@ -35,23 +35,39 @@ Phases, one JSON line each; any failure exits non-zero:
               downsample plans, the latter also with a reverse window
               narrow enough to fill the reverse list), and two planted
               faults of the backward's overflow complement are caught
-  5. main     full-width dune3d inference (B=8, 50k-voxel cap, depth 5,
-              filters 32->192, bf16) through train.evaluate.validate:
-              finite loss and softmax, no dropped pairs, every forward
-              kernel launched and no plain version called; a profiled batch
-  6. train    the supervised train step at the same width through
-              train.trainer.train (bf16, dropout on): one warm-up and three
-              timed steps; finite loss, no dropped pairs, a finite gradient
-              on every parameter and a non-zero one on every conv weight,
-              running statistics moved, the launch counts of every kernel
-              as expected; a profiled step; two backward passes of one
-              batch from the same weights, whose conv weight gradients
-              must be the same bits (train_repeat)
-  7. fp32     one batch at fp32, window kernels against the plain rulebook
-              backend on the card: forward features and logits, then every
-              parameter gradient of one train step; each check must also
-              catch two planted faults of the overflow sidecars
-  8. gather   window_gather (the deconv's shape and the level-0 series
+  5. host_plans  the host plan builder (csrc/hostio.cpp, g++) on batch 0
+              at full width: build ms on 1 and 8 threads and the host's
+              core count, the pool's peak concurrency, plan cache miss and
+              hit ms, the dict's MB and its copy to the card, every plan's
+              largest real-pair count an event against its list width (0
+              dropped, every list dst-ordered), the (tile, offset) starts
+              that differ from the window_plan kernel's on the same site
+              set; every conv of the encoder (initial, series, strided with
+              its reverse plan) on host plans against device plans: output,
+              dX and dW exactly equal on integer-valued fp32 data
+  6. main     full-width dune3d inference (B=8, 50k-voxel cap, depth 5,
+              filters 32->192, bf16) through train.evaluate.validate on
+              host-built plans: finite loss and softmax, no dropped pairs,
+              the launch counts of one forward (no window_plan) and no plain
+              version called; a profiled batch.  main_device: the same with
+              SEID_HOST_PLANS=0 (plans built on the card, 17 window_plan
+              launches a forward)
+  7. train    the supervised train step at the same width through
+              train.trainer.train on host plans built in the loader's
+              thread (bf16, dropout on): one warm-up and three timed steps;
+              finite loss, no dropped pairs, a finite gradient on every
+              parameter and a non-zero one on every conv weight, running
+              statistics moved, the launch counts of every kernel as
+              expected; a profiled step; two backward passes of one batch
+              from the same weights, whose conv weight gradients must be
+              the same bits (train_repeat).  train_device: the steps and
+              the profiled step with SEID_HOST_PLANS=0
+  8. fp32     one batch at fp32, window kernels on host plans against the
+              plain rulebook backend on the card: forward features and
+              logits, then every parameter gradient of one train step; each
+              check must also catch two planted faults of the overflow
+              sidecars
+  9. gather   window_gather (the deconv's shape and the level-0 series
               shape) bit-equal to its plain version on real-valued bf16
               and fp32 data (and at C = 12, its per-value route);
               gather_conv over the real rulebooks of levels 0, 2, 4 and 5
@@ -62,15 +78,16 @@ Phases, one JSON line each; any failure exits non-zero:
               same bits on two runs; the deconv's two-step dW timed beside
               window_dw at the same shape, and window_dw's own row there
               (bit-equal on integer bf16 and fp32 data)
-  9. engine_ops  integer-valued fp32: the window deconv (forward, dX, dW)
+  10. engine_ops  integer-valued fp32: the window deconv (forward, dX, dW)
               against the plain backend's autograd, PoolingDownsample's
               window branch against its plain branch, the gather conv
               against the plain conv's autograd, all exact, and two planted
               faults caught; then ConvolutionUpsample and the gather conv
               driven forward and backward at full width in bf16 (ops_path)
- 10. campaign  the slice's path, a dune3d training campaign at full width
+ 11. campaign  the slice's path, a dune3d training campaign at full width
               (B=8, 50k-voxel cap, depth 5, filters 32->192, bf16, 24
-              synthetic events from seed 0, prefetching loaders) through
+              synthetic events from seed 0, prefetching loaders that build
+              the host plans, no window_plan launch) through
               sparseeventid_tpu_torch.__main__.main in a temporary
               output_dir: (1) one dune3d batch's events through the native
               assembler (csrc/hostio.cpp, built with g++) and its numpy
@@ -95,11 +112,13 @@ Phases, one JSON line each; any failure exits non-zero:
               `import h5py` raises ModuleNotFoundError it prints
               {"phase": "campaign_larcv", "h5py": false} and goes on (any
               other error fails the run)
- 11. main2d / train2d  the dune2d multiplane model (3 planes of 1536 x 1024,
+ 12. main2d / train2d  the dune2d multiplane model (3 planes of 1536 x 1024,
               B=8, bf16, depth 5) through the same validate and train entry
-              points, with the same checks and launch counts; the kernel
-              phase also runs at the dune2d shapes (K = 25, 9, 4)
- 12. the {"kernels": [...]} line, then {"ok": true, "device": {...}} last.
+              points, with the same checks and launch counts, each also on
+              device plans (main2d_device, train2d_device); the kernel and
+              host_plans phases also run at the dune2d shapes (K = 25, 9, 4)
+ 13. the {"kernels": [...]} line (window_plan's launches from main_device),
+     then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -192,6 +212,11 @@ LAUNCHES_PER_FORWARD = {
 }
 BACKWARD_KERNELS = ("window_bwd_strided", "window_dw", "overflow_dw_batched",
                     "overflow_dw")
+# on host-built plans (the main path) no plan kernel runs: the lists and
+# starts come from the loader's thread; every other count is the same
+HOST_PLANS_ENV = "SEID_HOST_PLANS"
+LAUNCHES_PER_FORWARD_HOST = {**LAUNCHES_PER_FORWARD, "window_plan": 0}
+LAUNCHES_PER_TRAIN_STEP_HOST = {**LAUNCHES_PER_TRAIN_STEP, "window_plan": 0}
 TRAIN_STEPS = 4  # one warm-up, three timed
 CAMPAIGN_EVENTS = 24
 RUN_DIR = Path("output")  # the runs' output_dir: main() sets a fresh one
@@ -1779,6 +1804,30 @@ def train_config(extra=(), recipe="dune3d"):
     ])
 
 
+@contextlib.contextmanager
+def plan_source(host: bool):
+    """Plans built on the host (the default) or, with ``host`` False, on the
+    device (SEID_HOST_PLANS=0) while the block runs."""
+    before = os.environ.pop(HOST_PLANS_ENV, None)
+    if not host:
+        os.environ[HOST_PLANS_ENV] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop(HOST_PLANS_ENV, None)
+        if before is not None:
+            os.environ[HOST_PLANS_ENV] = before
+
+
+def host_plans(model, image, grid, st):
+    """The encoder's plans of one padded batch, built on the host and copied
+    to ``st``'s device."""
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
+
+    planner = HostPlanner(model.encoder, grid)
+    return planner.plans(st, planner.to_device(planner.build(image), st.device))
+
+
 def _kernel_counters():
     from sparseeventid_tpu_torch.ops.window import kernels as K
     from sparseeventid_tpu_torch.ops.window import sidecar as S
@@ -1792,15 +1841,20 @@ def _kernel_counters():
     return wrappers, plains
 
 
-def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
-    """The train step at full width through the trainer's loop -> the
-    launch counts of the run."""
+def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train",
+                host=True):
+    """The train step at full width through the trainer's loop, on host
+    plans (``host``) or on device plans (SEID_HOST_PLANS=0) -> the launch
+    counts of the run.  The host-plan run also takes two backward passes of
+    one batch (train_repeat)."""
     import numpy as np
     import torch
 
     from sparseeventid_tpu_torch.train.trainer import train
 
-    cfg = train_config(["run.precision=bfloat16",
+    # a run directory of its own: a train run resumes from the checkpoints
+    # of an earlier one in its directory
+    cfg = train_config(["run.precision=bfloat16", f"run.id={phase}",
                         f"mode.iterations={TRAIN_STEPS}"], recipe)
     require(cfg.head.dropout > 0, "the train phase runs with dropout on")
     wrappers, plains = _kernel_counters()
@@ -1809,16 +1863,18 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
     for f in plains:
         f.calls = 0
     torch.cuda.reset_peak_memory_stats()
-    run = train(cfg, dataset=dataset, device=DEVICE)
+    with plan_source(host):
+        run = train(cfg, dataset=dataset, device=DEVICE)
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in wrappers}
     plain_calls = {f.__name__: f.calls for f in plains}
     history, state = run.history, run.state
+    per_step = LAUNCHES_PER_TRAIN_STEP_HOST if host else LAUNCHES_PER_TRAIN_STEP
     require(len(history) == TRAIN_STEPS == state.step, "steps taken")
     for i, m in enumerate(history):
         require(np.isfinite(m["loss/loss"]), f"step {i}: loss not finite: {m}")
         require(m["overflow/dropped"] == 0, f"step {i}: dropped pairs: {m}")
-    expected = {k: v * TRAIN_STEPS for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     require(launches == expected,
             f"launch counts {launches} differ from the expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1848,11 +1904,12 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
     timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
     steps_per_s = len(timed) / sum(timed)
     emit({"phase": phase, "recipe": recipe, "steps": TRAIN_STEPS,
+          "plans": "host" if host else "device",
           "io_s": [m["time/io_s"] for m in history],
           "step_s": [m["time/step_s"] for m in history],
           "loss": [m["loss/loss"] for m in history],
           "lr": [m["opt/lr"] for m in history],
-          "launches": launches, "launches_per_step": LAUNCHES_PER_TRAIN_STEP,
+          "launches": launches, "launches_per_step": per_step,
           "plain_calls": plain_calls, "conv_weights": conv_weights,
           "running_stats": len(stats),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
@@ -1860,15 +1917,17 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train"):
                       f"{phase}_events_per_s": steps_per_s * BATCH,
                       "timed_steps": len(timed), "batch": BATCH,
                       "precision": "bfloat16"}), flush=True)
-    profile_train_step(dataset, recipe, grid, phase)
-    gradients_repeat(dataset, recipe, grid, phase)
+    profile_train_step(dataset, recipe, grid, phase, host)
+    if host:
+        gradients_repeat(dataset, recipe, grid, phase)
     return launches
 
 
 def gradients_repeat(dataset, recipe="dune3d", grid=GRID, phase="train"):
-    """Two backward passes of one bf16 batch from the same weights (and the
-    same dropout draws): every conv weight's gradient must be the same bits
-    on both.  Prints how many parameter gradients differ in any bit."""
+    """Two backward passes of one bf16 batch on host plans from the same
+    weights (and the same dropout draws): every conv weight's gradient must
+    be the same bits on both.  Prints how many parameter gradients differ in
+    any bit."""
     import torch
 
     from sparseeventid_tpu_torch.config.schema import OptimizerConfig
@@ -1887,15 +1946,16 @@ def gradients_repeat(dataset, recipe="dune3d", grid=GRID, phase="train"):
     scheme = (getattr(cfg.mode, "optimizer", None)
               or OptimizerConfig()).loss_balance_scheme
     weights = class_weights_of(scheme, dev)
-    st, labels = prepare_batch(dataset.batch([0]), grid,
-                               model.encoder.capacities[0], feature_dtype(cfg),
-                               dev)
+    batch = dataset.batch([0])
+    st, labels = prepare_batch(batch, grid, model.encoder.capacities[0],
+                               feature_dtype(cfg), dev)
+    plans = host_plans(model, batch["image"], grid, st)
 
     def gradients():
         model.zero_grad(set_to_none=True)
         model.train()
         gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-        logits, _ = model(st, gen)
+        logits, _ = model(st, gen, plans)
         loss, _ = multi_head_loss(logits, labels, scheme, weights)
         loss.backward()
         torch.cuda.synchronize()
@@ -1953,36 +2013,51 @@ def _device_profile(fn):
 
 
 def profile_train_step(dataset, recipe="dune3d", grid=GRID,
-                       phase="train") -> None:
+                       phase="train", host=True) -> None:
     """Device time by kernel over one bf16 train step (input preparation
-    included, as in the loop), and the share of the wall time the device
-    was busy.  The step before it warms the new model up."""
+    and the copy of the host plans included, as in the loop; the plans are
+    built before, as the loader's thread builds them), and the share of the
+    wall time the device was busy.  The step before it warms the new model
+    up."""
     import torch
 
+    from sparseeventid_tpu_torch.models import build_sparse_classifier
     from sparseeventid_tpu_torch.train.evaluate import feature_dtype, prepare_batch
-    from sparseeventid_tpu_torch.train.trainer import build_training
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
+    from sparseeventid_tpu_torch.train.trainer import build_training, host_plans_of
 
     cfg = train_config(["run.precision=bfloat16"], recipe)
     dev = torch.device(DEVICE)
-    state, step, _ = build_training(cfg, N_BATCHES, None, dev)
+    planner = (HostPlanner(build_sparse_classifier(cfg).encoder, grid)
+               if host else None)
+    state, step, _ = build_training(cfg, N_BATCHES, None, dev, planner)
     generator = torch.Generator(device=dev).manual_seed(SEED + 1)
     cap0 = state.model.encoder.capacities[0]
+    batches = {}
+    for first in (0, BATCH):
+        batches[first] = dataset.batch([first])
+        if host:
+            batches[first] = planner.transform("train")(batches[first])
 
     def one_step(first):
-        st, labels = prepare_batch(dataset.batch([first]), grid, cap0,
+        st, labels = prepare_batch(batches[first], grid, cap0,
                                    feature_dtype(cfg), dev)
-        return float(step(st, labels, generator)["loss/loss"])
+        plans = host_plans_of(planner, batches[first], dev)
+        return float(step(st, labels, generator, plans)["loss/loss"])
 
     one_step(0)
     wall_ms, busy_ms, top, port = _device_profile(lambda: one_step(BATCH))
-    emit({"phase": f"profile_{phase}", "wall_ms": wall_ms,
+    emit({"phase": f"profile_{phase}", "plans": "host" if host else "device",
+          "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
           "top_kernels": top, "port_kernels": port})
 
 
 def profile_one_batch(cfg, dataset, grid=GRID, phase="profile") -> None:
-    """Device time by kernel over one bf16 batch through validate(), and
-    the share of the wall time the device was busy."""
+    """Device time by kernel over one bf16 batch through validate() (on the
+    plans of the caller's plan_source: validate builds host plans in its own
+    thread, inside the profiled time), and the share of the wall time the
+    device was busy."""
     from sparseeventid_tpu_torch.train.evaluate import validate
 
     one = CachedDataset(grid, {0: dataset.batch([0])}, BATCH)
@@ -1993,8 +2068,197 @@ def profile_one_batch(cfg, dataset, grid=GRID, phase="profile") -> None:
           "port_kernels": port})
 
 
+HOST_BUILD_REPS = 3  # timed builds of each thread count
+
+
+def phase_host_plans(dataset, recipe="dune3d", grid=GRID, phase="host_plans"):
+    """The host plan builder on batch 0 at full width: build ms on 1 and 8
+    threads and the host's core count, the pool's peak concurrency, plan
+    cache miss and hit ms, the dict's MB and its copy to the card; for every
+    plan its largest real-pair count an event against its width (0 dropped,
+    the list dst-ordered), and how many (tile, offset) starts differ from
+    the window_plan kernel's on the same site set; then every conv of the
+    encoder (initial, series, strided forward and reverse) on host plans
+    against device plans, output, dX and dW exactly equal on
+    integer-valued fp32 data."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.io import hostio
+    from sparseeventid_tpu_torch.io.plan_cache import PlanCache
+    from sparseeventid_tpu_torch.models import build_sparse_classifier
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops.window import engine as WE
+    from sparseeventid_tpu_torch.ops.window.kernels import (
+        _ov_bound,
+        overflow_dst_ordered,
+    )
+    from sparseeventid_tpu_torch.train.evaluate import prepare_batch
+    from sparseeventid_tpu_torch.train.plans import (
+        HostPlanner,
+        grown_widths,
+        plan_coords,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    encoder = build_sparse_classifier(
+        train_config(["run.precision=float32"], recipe)).encoder
+    planner = HostPlanner(encoder, grid)
+    batch = dataset.batch([0])
+    coords = plan_coords(batch["image"], grid)
+
+    def build_ms(threads):
+        os.environ["SEID_PLAN_THREADS"] = str(threads)
+        try:
+            host = hostio.build_window_plans(coords, **planner.geometry)
+            hostio.plan_pool_peak_concurrency()
+            t0 = time.perf_counter()
+            for _ in range(HOST_BUILD_REPS):
+                hostio.build_window_plans(coords, **planner.geometry)
+            ms = (time.perf_counter() - t0) / HOST_BUILD_REPS * 1e3
+            return ms, hostio.plan_pool_peak_concurrency(), host
+        finally:
+            os.environ.pop("SEID_PLAN_THREADS", None)
+
+    ms_1, peak_1, serial = build_ms(1)
+    ms_8, peak_8, host = build_ms(8)
+    require(all(np.array_equal(serial[k], host[k]) for k in host),
+            f"{recipe}: 8 plan threads differ from 1")
+    require(peak_1 == 1 and peak_8 > 1,
+            f"{recipe}: plan pool peak concurrency {peak_1} / {peak_8}")
+    cache = PlanCache(planner._build, max_bytes=1 << 34)
+    t0 = time.perf_counter()
+    cache.plans_for("train", coords, batch["index"])
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cached = cache.plans_for("train", coords, batch["index"])
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    require(cache.hits == BATCH and all(np.array_equal(cached[k], host[k])
+                                        for k in host),
+            f"{recipe}: the cached plans differ from a build")
+    planner.to_device(host, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_BUILD_REPS):
+        host_t = planner.to_device(host, dev)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) / HOST_BUILD_REPS * 1e3
+    st0, _ = prepare_batch(batch, grid, encoder.capacities[0], torch.float32, dev)
+    plans = planner.plans(st0, host_t)
+    require(int(plans.site_dropped) == 0, f"{recipe}: host sites dropped")
+
+    lists = {}
+    for key in host:
+        if not key.endswith("/ov_valid"):
+            continue
+        prefix = key[:-len("/ov_valid")]
+        pairs = host[key].sum(axis=1)
+        dropped = int(host[f"{prefix}/ov_dropped"].sum())
+        ordered = overflow_dst_ordered(host_t[f"{prefix}/ov_dst"],
+                                       _ov_bound(host_t[key]))
+        lists[prefix] = {"max_pairs": int(pairs.max()), "pairs": int(pairs.sum()),
+                         "width": int(host[key].shape[1]), "dropped": dropped,
+                         "dst_ordered": ordered}
+        require(dropped == 0, f"{recipe} {prefix}: host list dropped {dropped}")
+        require(ordered, f"{recipe} {prefix}: host list not dst-ordered")
+    # the other batches at the JAX widths: the largest list of any, and
+    # whether the planner would widen one (it never drops a pair)
+    widened = []
+    for first in range(BATCH, len(dataset), BATCH):
+        other = hostio.build_window_plans(
+            plan_coords(dataset.batch([first])["image"], grid),
+            **planner.geometry)
+        widened.append(grown_widths(other, planner.geometry) is not None)
+        for prefix, row in lists.items():
+            row["max_pairs_all_batches"] = max(
+                row.get("max_pairs_all_batches", row["max_pairs"]),
+                int((other[f"{prefix}/ov_valid"].sum(axis=1)
+                     + other[f"{prefix}/ov_dropped"]).max()))
+
+    # every conv on host and on device plans, integer-valued fp32 data
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ik, sks, stride = encoder.plan_kernels()
+    tuning, caps = encoder.tuning, encoder.capacities
+    width = 32
+
+    def ints(shape, st):
+        return _int_like(shape, gen, dev, torch.float32) * st.row_mask()[..., None]
+
+    def grads(conv, st, x0, w0, gy):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        out = conv(st.with_feats(x), w).feats
+        out.backward(gy)
+        return out.detach(), x.grad, w.grad
+
+    convs, starts = {}, {}
+
+    def check(name, st, host_conv, dev_conv, host_plan, dev_plans, c_in, k,
+              out_st):
+        x0, w0 = ints((st.batch_size, st.capacity, c_in), st), _int_like(
+            (k, c_in, width), gen, dev, torch.float32)
+        gy = ints((out_st.batch_size, out_st.capacity, width), out_st)
+        a = grads(host_conv, st, x0, w0, gy)
+        b = grads(dev_conv, st, x0, w0, gy)
+        same = [torch.equal(u, v) for u, v in zip(a, b)]
+        convs[name] = dict(zip(("out", "dx", "dw"), same))
+        require(all(same), f"{recipe} {name}: host and device plans give "
+                f"other out, dx, dw: {same}")
+        require(float(a[2].abs().sum()) > 0, f"{recipe} {name}: dw all 0")
+        for hp, dp, label in zip(host_plan, dev_plans, ("", " reverse")):
+            starts[name + label] = {
+                "differ": int((hp.start != dp.start).sum()),
+                "entries": int(hp.start.numel())}
+
+    plan = E.build_series_plan(st0, ik, backend=E.WINDOW,
+                               q_bound_frac=encoder._qb_frac(0),
+                               window_r=tuning.window_r_initial)
+    check("initial", st0,
+          lambda s, w: WE.window_submanifold_conv(s, plans.initial, w),
+          lambda s, w: WE.window_submanifold_conv(s, plan, w),
+          (plans.initial,), (plan,), 1, len(plan.offsets), st0)
+    st = st0
+    for l in range(len(caps)):
+        plan = E.build_series_plan(st, sks[l], backend=E.WINDOW,
+                                   q_bound_frac=encoder._qb_frac(l),
+                                   window_r=tuning.for_level(l))
+        hp = plans.series[l]
+        check(f"L{l} series", st,
+              lambda s, w: WE.window_submanifold_conv(s, hp, w),
+              lambda s, w: WE.window_submanifold_conv(s, plan, w),
+              (hp,), (plan,), width, len(plan.offsets), st)
+        if l == len(caps) - 1:
+            break
+        skel, (fwd, rev), dropped = E.build_downsample_plan(
+            st, stride, caps[l + 1], backend=E.WINDOW,
+            q_bound_frac_in=encoder._qb_frac(l),
+            q_bound_frac_out=encoder._qb_frac(l + 1), tuning=tuning)
+        hskel, (hfwd, hrev) = plans.skeletons[l], plans.down[l]
+        require(int(dropped.sum()) == 0
+                and torch.equal(hskel.coords, skel.coords)
+                and torch.equal(hskel.n_active, skel.n_active),
+                f"{recipe} L{l}: the host skeleton differs from downsample_sites")
+        check(f"L{l} down", st,
+              lambda s, w: WE.window_strided_conv(s, hskel, hfwd, hrev, w),
+              lambda s, w: WE.window_strided_conv(s, skel, fwd, rev, w),
+              (hfwd, hrev), (fwd, rev), width, len(fwd.offsets), skel)
+        st = skel
+    torch.cuda.synchronize()
+    emit({"phase": phase, "recipe": recipe, "host_cpus": os.cpu_count(),
+          "build_ms_1_thread": ms_1, "build_ms_8_threads": ms_8,
+          "peak_concurrency": peak_8, "cache_miss_ms": miss_ms,
+          "cache_hit_ms": hit_ms,
+          "dict_mb": sum(v.nbytes for v in host.values()) / 2**20,
+          "copy_ms": copy_ms, "widened_batches": widened, "lists": lists,
+          "starts": starts, "convs": convs})
+
+
 def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
-               phase="main"):
+               phase="main", host=True):
+    """Inference at full width through validate(), on host plans
+    (``host``) or on device plans (SEID_HOST_PLANS=0) -> the launch counts
+    of the run; then a profiled batch."""
     import numpy as np
     import torch
 
@@ -2007,29 +2271,34 @@ def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
         "mode=inference", "run.precision=bfloat16",
         f"run.minibatch_size={BATCH}", "framework.sparse_backend=window",
         f"run.seed={SEED}", f"mode.output_file={out_file}",
-        f"output_dir={RUN_DIR}",
+        f"output_dir={RUN_DIR}", f"run.id={phase}",
     ])
     wrappers, plains = _kernel_counters()
     # warm-up on the first batch (allocator, cuBLAS handles), then the run
     warm = CachedDataset(grid, {0: dataset.batch([0])}, BATCH)
-    validate(cfg, dataset=warm, device=DEVICE)
-    for f in wrappers:
-        f.launches = 0
-    for f in plains:
-        f.calls = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    metrics = validate(cfg, dataset=dataset, device=DEVICE)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with plan_source(host):
+        validate(cfg, dataset=warm, device=DEVICE)
+        for f in wrappers:
+            f.launches = 0
+        for f in plains:
+            f.calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = validate(cfg, dataset=dataset, device=DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in wrappers}
     plain_calls = {f.__name__: f.calls for f in plains}
     require(np.isfinite(metrics["loss/loss"]), f"loss not finite: {metrics}")
     require(metrics["overflow/dropped"] == 0, f"dropped pairs: {metrics}")
-    # inference launches every forward kernel and no backward one
-    require(all((v > 0) == (k in FORWARD_KERNELS) for k, v in launches.items()),
-            f"launch counts of the inference path: {launches}")
+    # inference launches every forward kernel and no backward one; on host
+    # plans no plan kernel
+    per_forward = LAUNCHES_PER_FORWARD_HOST if host else LAUNCHES_PER_FORWARD
+    expected = {k: v * N_BATCHES for k, v in per_forward.items()}
+    require({k: launches[k] for k in expected} == expected
+            and all(v == 0 for k, v in launches.items() if k not in expected),
+            f"launch counts of the inference path {launches}, expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
             f"plain version called on the main path: {plain_calls}")
     soft = np.load(out_file)
@@ -2040,15 +2309,17 @@ def phase_main(dataset, out_dir: Path, recipe="dune3d", grid=GRID,
     print(json.dumps({f"{phase}_events_per_s": events / seconds,
                       "events": events, "batch": BATCH,
                       "precision": "bfloat16"}), flush=True)
-    emit({"phase": phase, "recipe": recipe, "events": events, "seconds": seconds,
+    emit({"phase": phase, "recipe": recipe, "plans": "host" if host else "device",
+          "events": events, "seconds": seconds,
           "events_per_s": events / seconds, "metrics": metrics,
           "launches": launches, "launches_per_forward":
           {k: v / N_BATCHES for k, v in launches.items() if v},
           "plain_calls": plain_calls,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
-    profile_one_batch(cfg, dataset, grid,
-                      "profile" if phase == "main" else f"profile_{phase}")
+    with plan_source(host):
+        profile_one_batch(cfg, dataset, grid,
+                          "profile" if phase == "main" else f"profile_{phase}")
     return launches
 
 
@@ -2091,8 +2362,11 @@ def phase_fp32(dataset) -> None:
         hook = model.encoder.final_series.register_forward_hook(
             lambda mod, inp, out: got.__setitem__("feats", out.feats.cpu())
         )
+        # the window model on host plans, as the main path runs it
+        plans = (host_plans(model, image, GRID, st)
+                 if model.encoder.backend == "window" else None)
         with torch.no_grad():
-            lg, dropped = model(st)
+            lg, dropped = model(st, plans=plans)
         hook.remove()
         require(int(dropped) == 0, f"{what}: dropped {int(dropped)}")
         return got["feats"], torch.cat([lg[k] for k in OUTPUT_SHAPE], dim=1).cpu()
@@ -2114,7 +2388,7 @@ def phase_fp32(dataset) -> None:
         return row
 
     window = model_of("window")
-    report = {"phase": "fp32_compare", "rtol": FP32_RTOL,
+    report = {"phase": "fp32_compare", "plans": "host", "rtol": FP32_RTOL,
               "sound": compare(*forward(window, "window"))}
     for what, row in report["sound"].items():
         require(row["within"], f"fp32 {what} differ: {row}")
@@ -2177,7 +2451,10 @@ def phase_fp32_grad(dataset) -> None:
         model.zero_grad(set_to_none=True)
         st, labels = prepare_batch(batch, GRID, model.encoder.capacities[0],
                                    torch.float32, dev)
-        logits, dropped = model(st)
+        # the window model on host plans, as the main path runs it
+        plans = (host_plans(model, batch["image"], GRID, st)
+                 if model.encoder.backend == "window" else None)
+        logits, dropped = model(st, plans=plans)
         scheme = cfg.mode.optimizer.loss_balance_scheme
         loss, _ = multi_head_loss(logits, labels, scheme)
         in_backward["on"] = True
@@ -2216,7 +2493,8 @@ def phase_fp32_grad(dataset) -> None:
                 "within": worst <= FP32_GRAD_LIMIT}
 
     cfg_w, model_w = model_of("window")
-    report = {"phase": "fp32_grad_compare", "events": FP32_GRAD_EVENTS,
+    report = {"phase": "fp32_grad_compare", "plans": "host",
+              "events": FP32_GRAD_EVENTS,
               "limit": FP32_GRAD_LIMIT, "tensors": len(compared),
               "tensors_left_out": len(ref) - len(compared), "ref_loss": ref_loss,
               "sound": compare(*gradients(cfg_w, model_w, "window"))}
@@ -2375,8 +2653,8 @@ def campaign_runs(base, runs, ckpt_dir):
     for i, m in enumerate([*run.history, run.validation[0]]):
         require(np.isfinite(m["loss/loss"]) and m["overflow/dropped"] == 0,
                 f"campaign train: loss or dropped pairs: {m}")
-    expected = {k: 4 * LAUNCHES_PER_TRAIN_STEP[k] + LAUNCHES_PER_FORWARD[k]
-                for k in LAUNCHES_PER_TRAIN_STEP}
+    expected = {k: 4 * LAUNCHES_PER_TRAIN_STEP_HOST[k] + LAUNCHES_PER_FORWARD_HOST[k]
+                for k in LAUNCHES_PER_TRAIN_STEP_HOST}
     require(launches == expected,
             f"campaign train launches {launches}, expected {expected}")
     emit({"phase": "campaign_train", "steps": len(run.history),
@@ -2459,7 +2737,8 @@ def campaign_runs(base, runs, ckpt_dir):
     require(cli_metrics == in_process,
             f"inference from the checkpoint {cli_metrics} != validate {in_process}")
     n_batches = CAMPAIGN_EVENTS // BATCH
-    require(launches == {k: n_batches * v for k, v in LAUNCHES_PER_FORWARD.items()},
+    require(launches == {k: n_batches * v
+                         for k, v in LAUNCHES_PER_FORWARD_HOST.items()},
             f"campaign inference launches {launches}")
     emit({"phase": "campaign_inference", "metrics": cli_metrics,
           "launches": launches})
@@ -2487,7 +2766,7 @@ def campaign_runs(base, runs, ckpt_dir):
     stuck = [n for n in stats if torch.equal(final[n], start[n])]
     require(stats and not stuck,
             f"encoder running statistics that did not move: {stuck[:10]}")
-    expected = {k: 3 * LAUNCHES_PER_FORWARD[k] for k in LAUNCHES_PER_FORWARD}
+    expected = {k: 3 * v for k, v in LAUNCHES_PER_FORWARD_HOST.items()}
     require(launches == expected,
             f"transfer launches {launches}, expected {expected}: a frozen "
             "encoder launches no backward kernel")
@@ -2595,8 +2874,13 @@ def main(argv) -> int:
                               phase_dense_tile()):
             rows[kname].append(row)
         phase_grad_check(dataset)
+        phase_host_plans(dataset)
         launches = phase_main(dataset, out_dir)
+        device_launches = phase_main(dataset, out_dir, phase="main_device",
+                                     host=False)
         train_launches = phase_train(dataset)
+        device_train_launches = phase_train(dataset, phase="train_device",
+                                            host=False)
         phase_fp32(dataset)
         phase_fp32_grad(dataset)
         for kname, per_shape in phase_gather_kernels(dataset).items():
@@ -2606,10 +2890,14 @@ def main(argv) -> int:
         del dataset
         dataset_2d = make_dataset_2d()
         rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
+        phase_host_plans(dataset_2d, "dune2d", GRID_2D, "host_plans_2d")
         launches_2d = phase_main(dataset_2d, out_dir, "dune2d", GRID_2D,
                                  "main2d")
+        phase_main(dataset_2d, out_dir, "dune2d", GRID_2D, "main2d_device",
+                   host=False)
         train_launches_2d = phase_train(dataset_2d, "dune2d", GRID_2D,
                                         "train2d")
+        phase_train(dataset_2d, "dune2d", GRID_2D, "train2d_device", host=False)
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")
@@ -2638,11 +2926,18 @@ def main(argv) -> int:
                 replaces=REPLACES[kname],
                 # the count of the path that is the kernel's own: the
                 # inference run for the forward kernels, the train run for
-                # the backward ones
-                launches=(launches[kname] if kname in FORWARD_KERNELS
+                # the backward ones; window_plan's is the device-plan
+                # inference run, since host plans launch it no time
+                launches=(device_launches[kname] if kname == "window_plan"
+                          else launches[kname] if kname in FORWARD_KERNELS
                           else train_launches[kname]),
-                path=("main, train, main2d, train2d"
+                path=("main_device, train_device (SEID_HOST_PLANS=0)"
+                      if kname == "window_plan" else
+                      "main, train, main2d, train2d"
                       if kname in FORWARD_KERNELS else "train, train2d"),
+                launches_main=launches[kname],
+                launches_main_device=device_launches[kname],
+                launches_train_device=device_train_launches[kname],
                 launches_train=train_launches[kname],
                 launches_main2d=launches_2d[kname],
                 launches_train2d=train_launches_2d[kname],

@@ -28,8 +28,9 @@ HERE = Path(__file__).resolve().parent
 class SyncLoader:
     """The loader's interface without a thread: serial batches on demand."""
 
-    def __init__(self, cfg, dataset):
+    def __init__(self, cfg, dataset, transform=None):
         self.dataset, self.bs, self.cursor = dataset, cfg.run.minibatch_size, 0
+        self.transform = transform
 
     def __len__(self):
         return max(len(self.dataset) // self.bs, 1)
@@ -38,7 +39,8 @@ class SyncLoader:
         n = len(self.dataset)
         idx = [(self.cursor + k) % n for k in range(self.bs)]
         self.cursor = (self.cursor + self.bs) % n
-        return self.dataset.batch(idx)
+        batch = self.dataset.batch(idx)
+        return self.transform(batch) if self.transform is not None else batch
 
     def stop(self):
         pass

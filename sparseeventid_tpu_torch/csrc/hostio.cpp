@@ -1,13 +1,14 @@
-// Host IO engine: threaded event -> padded COO batch assembly and the
-// native HDF5 voxel-slab reader.
+// Host IO engine: threaded event -> padded COO batch assembly, the native
+// HDF5 voxel-slab reader and the threaded window-plan builder.
 //
 // Copied from sparseeventid_tpu/io/_hostio.cpp (fill_event, the threaded
-// assemble_sparse_batch, the dlopen HDF5 reader) behind a plain C
-// interface that io/hostio.py loads with ctypes.  The host plan builder of
-// that file is not here.  Python owns every buffer: the caller allocates
-// the outputs and passes their pointers, nothing is allocated across the
-// boundary.  ctypes releases the interpreter lock for the call, so a
-// prefetch thread assembling or reading overlaps the main thread.
+// assemble_sparse_batch, the dlopen HDF5 reader, build_window_plans with
+// its per-event pool; the builder itself is hostio_core.h) behind a plain
+// C interface that io/hostio.py loads with ctypes.  Python owns every
+// buffer: the caller allocates the outputs and passes their pointers,
+// nothing is allocated across the boundary.  ctypes releases the
+// interpreter lock for the call, so a prefetch thread assembling, reading
+// or building plans overlaps the main thread.
 //
 // Build (io/hostio.py does it at first use):
 //   g++ -O3 -std=c++17 -pthread -shared -fPIC -o hostio.so hostio.cpp -ldl
@@ -16,14 +17,66 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
+#include <cstring>
 #include <mutex>
 #include <random>
 #include <thread>
 #include <vector>
 
+#include "hostio_core.h"
+
 namespace {
+
+// Peak number of workers inside the per-event plan builder at once since
+// the last read (seid_plan_pool_peak_concurrency): 1 under
+// SEID_PLAN_THREADS=1; above 1 shows the pool runs the real builder
+// concurrently, with no lock serializing it.
+std::atomic<int64_t> g_plan_inflight(0);
+std::atomic<int64_t> g_plan_peak(0);
+
+// Workers of the plan pool: one a hardware thread, or SEID_PLAN_THREADS;
+// at most one an event.
+unsigned plan_threads(int64_t batch) {
+  int64_t n = std::max(1u, std::thread::hardware_concurrency());
+  if (const char* env = std::getenv("SEID_PLAN_THREADS")) {
+    const long v = std::strtol(env, nullptr, 10);
+    if (v > 0) n = v;
+  }
+  return unsigned(std::max<int64_t>(std::min(n, batch), 1));
+}
+
+// Output buffers of one plan across the batch (see seid_build_window_plans).
+struct PlanOut {
+  int32_t* start;
+  int32_t* src;
+  int32_t* dst;
+  int32_t* kk;
+  uint8_t* valid;
+  int32_t* dropped;
+  int64_t n_start;  // tiles * K of an event
+  int64_t width;    // list entries of an event
+};
+
+void pack_plan(const seid_plans::PlanResult& pr, const PlanOut& o, int64_t i) {
+  std::memcpy(o.start + i * o.n_start, pr.start.data(),
+              sizeof(int32_t) * size_t(o.n_start));
+  const int64_t n = int64_t(pr.list.src.size());
+  int32_t* sp = o.src + i * o.width;
+  int32_t* dp = o.dst + i * o.width;
+  int32_t* kp = o.kk + i * o.width;
+  uint8_t* vp = o.valid + i * o.width;
+  for (int64_t s = 0; s < o.width; ++s) {
+    sp[s] = s < n ? pr.list.src[size_t(s)] : 0;
+    dp[s] = s < n ? pr.list.dst[size_t(s)] : 0;
+    kp[s] = s < n ? pr.list.kk[size_t(s)] : 0;
+    vp[s] = s < n;
+  }
+  o.dropped[i] = int32_t(std::max<int64_t>(pr.list.total - n, 0));
+}
 
 struct EventRef {
   const uint64_t* ids;
@@ -292,5 +345,133 @@ int seid_read_voxel_slabs(void* handle, const char* path, const char* dataset,
   H.H5Fclose(f);
   return fail ? -1 : 0;
 }
+
+// Window plans of a batch.  coords: i32[b, cap0, 3], -1 padded, unsorted.
+// caps, ov_caps, window_r_series: depth + 1 entries; ov_caps_down: depth;
+// series_kernels: [depth + 1, 3].  outputs: the caller's buffers, in this
+// order:
+//   for each level l = 0..depth: coords i32[b, caps[l], 3], n_active i32[b],
+//     site_dropped i32[b];
+//   for each plan, in the order initial, series 0..depth, down_f
+//     0..depth-1, down_r 0..depth-1: start i32[b, tiles, K], ov_src,
+//     ov_dst, ov_k i32[b, S], ov_valid u8[b, S], ov_dropped i32[b]
+//   (tiles = cdiv(query capacity, 128); S the plan's list width: ov_caps[l]
+//   for series l, ov_cap_initial, ov_caps_down[l] for both plans of level
+//   l).
+// The events are shared out among plan_threads(b) workers, each building
+// and packing whole events; SEID_PLAN_TEST_DELAY_US makes each event sleep
+// first (tests of the pool on hosts with few cores).  Returns the number of
+// workers, or -1 if the arguments are refused.
+int64_t seid_build_window_plans(
+    const int32_t* coords, int64_t b, int64_t cap0, const int64_t* grid,
+    int64_t depth, const int64_t* caps, const int64_t* initial_kernel,
+    const int64_t* series_kernels, const int64_t* stride,
+    const int64_t* window_r_series, int64_t window_r_initial,
+    int64_t window_r_down, int64_t window_r_rev, const int64_t* ov_caps,
+    int64_t ov_cap_initial, const int64_t* ov_caps_down,
+    void* const* outputs) {
+  if (b < 0 || depth < 0 || cap0 < 0 || caps[0] < cap0) return -1;
+  seid_plans::Geometry g;
+  g.depth = depth;
+  g.grids.resize(size_t((depth + 1) * 3));
+  for (int d = 0; d < 3; ++d) {
+    g.grids[size_t(d)] = grid[d];
+    g.initial_kernel[d] = initial_kernel[d];
+    g.stride[d] = stride[d];
+    if (stride[d] < 1 || grid[d] < 1) return -1;
+  }
+  for (int64_t l = 1; l <= depth; ++l)
+    for (int d = 0; d < 3; ++d)
+      g.grids[size_t(l * 3 + d)] =
+          (g.grids[size_t((l - 1) * 3 + d)] + stride[d] - 1) / stride[d];
+  g.caps.assign(caps, caps + depth + 1);
+  g.series_kernels.assign(series_kernels, series_kernels + (depth + 1) * 3);
+  g.initial = {window_r_initial, ov_cap_initial};
+  for (int64_t l = 0; l <= depth; ++l)
+    g.series.push_back({window_r_series[l], ov_caps[l]});
+  for (int64_t l = 0; l < depth; ++l)
+    g.down.push_back({window_r_down, ov_caps_down[l]});
+  g.window_r_rev = window_r_rev;
+
+  auto tiles = [](int64_t cap) {
+    return (cap + seid_plans::kTileT - 1) / seid_plans::kTileT;
+  };
+  auto n_offsets = [](const int64_t* k) { return k[0] * k[1] * k[2]; };
+  const int64_t kd = n_offsets(stride);
+  size_t pos = size_t(3 * (depth + 1));
+  auto next_plan = [&](int64_t n_start, int64_t width) {
+    PlanOut o{static_cast<int32_t*>(outputs[pos]),
+              static_cast<int32_t*>(outputs[pos + 1]),
+              static_cast<int32_t*>(outputs[pos + 2]),
+              static_cast<int32_t*>(outputs[pos + 3]),
+              static_cast<uint8_t*>(outputs[pos + 4]),
+              static_cast<int32_t*>(outputs[pos + 5]), n_start, width};
+    pos += 6;
+    return o;
+  };
+  const PlanOut initial_out =
+      next_plan(tiles(caps[0]) * n_offsets(initial_kernel), ov_cap_initial);
+  std::vector<PlanOut> series_out, down_f_out, down_r_out;
+  for (int64_t l = 0; l <= depth; ++l)
+    series_out.push_back(next_plan(
+        tiles(caps[l]) * n_offsets(series_kernels + l * 3), ov_caps[l]));
+  for (int64_t l = 0; l < depth; ++l)
+    down_f_out.push_back(next_plan(tiles(caps[l + 1]) * kd, ov_caps_down[l]));
+  for (int64_t l = 0; l < depth; ++l)
+    down_r_out.push_back(next_plan(tiles(caps[l]) * kd, ov_caps_down[l]));
+
+  int64_t delay_us = 0;
+  if (const char* env = std::getenv("SEID_PLAN_TEST_DELAY_US"))
+    delay_us = std::atol(env);
+
+  auto one_event = [&](int64_t i) {
+    seid_plans::EventPlans ev;
+    seid_plans::build_event_plans(coords + i * cap0 * 3, cap0, g, &ev);
+    for (int64_t l = 0; l <= depth; ++l) {
+      const seid_plans::LevelData& lv = ev.levels[size_t(l)];
+      const int64_t cap = caps[l], n = int64_t(lv.keys.size());
+      int32_t* c = static_cast<int32_t*>(outputs[3 * l]) + i * cap * 3;
+      std::memcpy(c, lv.coords.data(), sizeof(int32_t) * size_t(n * 3));
+      std::fill(c + n * 3, c + cap * 3, -1);
+      static_cast<int32_t*>(outputs[3 * l + 1])[i] = int32_t(n);
+      static_cast<int32_t*>(outputs[3 * l + 2])[i] = int32_t(lv.dropped);
+    }
+    pack_plan(ev.initial, initial_out, i);
+    for (int64_t l = 0; l <= depth; ++l)
+      pack_plan(ev.series[size_t(l)], series_out[size_t(l)], i);
+    for (int64_t l = 0; l < depth; ++l) {
+      pack_plan(ev.down_f[size_t(l)], down_f_out[size_t(l)], i);
+      pack_plan(ev.down_r[size_t(l)], down_r_out[size_t(l)], i);
+    }
+  };
+
+  const unsigned n_threads = plan_threads(b);
+  std::atomic<int64_t> next(0);
+  auto work = [&]() {
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= b) return;
+      if (delay_us > 0)
+        std::this_thread::sleep_for(std::chrono::microseconds(delay_us));
+      const int64_t now = g_plan_inflight.fetch_add(1) + 1;
+      int64_t peak = g_plan_peak.load();
+      while (now > peak && !g_plan_peak.compare_exchange_weak(peak, now)) {
+      }
+      one_event(i);
+      g_plan_inflight.fetch_sub(1);
+    }
+  };
+  if (n_threads <= 1) {
+    work();
+  } else {
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < n_threads; ++t) pool.emplace_back(work);
+    for (auto& th : pool) th.join();
+  }
+  return int64_t(n_threads);
+}
+
+// The plan pool's concurrency watermark since the last call; resets it.
+int64_t seid_plan_pool_peak_concurrency() { return g_plan_peak.exchange(0); }
 
 }  // extern "C"

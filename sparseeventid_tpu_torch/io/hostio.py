@@ -1,8 +1,9 @@
-"""Host IO engine: threaded event -> padded COO batch assembly and the
-native HDF5 voxel-slab reader (JAX counterpart: ``io/hostio.py`` over the
-``_hostio`` extension).
+"""Host IO engine: threaded event -> padded COO batch assembly, the native
+HDF5 voxel-slab reader and the threaded window-plan builder (JAX
+counterpart: ``io/hostio.py`` over the ``_hostio`` extension).
 
-``csrc/hostio.cpp`` is compiled by g++ into a shared library with a plain C
+``csrc/hostio.cpp`` (with the plan builder of ``csrc/hostio_core.h``) is
+compiled by g++ into a shared library with a plain C
 interface at first use, under ``build/host/`` at the repository root, named
 by a hash of its source and flags, and loaded with ctypes (which releases
 the interpreter lock for each call).  A failed build raises with the
@@ -31,6 +32,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hostio.cpp"
+HEADERS = (SOURCE.with_name("hostio_core.h"),)
 BUILD_DIR = ROOT / "build" / "host"
 GXX_FLAGS = ("-O3", "-std=c++17", "-pthread", "-shared", "-fPIC")
 SYSTEM_HDF5 = ("libhdf5_serial.so.103", "libhdf5.so.310", "libhdf5.so")
@@ -45,6 +47,8 @@ _hdf5: Dict[str, Optional[int]] = {}
 
 def _target() -> Path:
     h = hashlib.sha1(SOURCE.read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
     return BUILD_DIR / f"hostio_{h.hexdigest()[:12]}.so"
 
@@ -84,6 +88,12 @@ def library() -> ctypes.CDLL:
             dll.seid_read_voxel_slabs.argtypes = [
                 _P, ctypes.c_char_p, ctypes.c_char_p, _P, _P, _I64, _P, _P]
             dll.seid_read_voxel_slabs.restype = ctypes.c_int
+            dll.seid_build_window_plans.argtypes = [
+                _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
+                _I64, _P, _I64, _P, _P]
+            dll.seid_build_window_plans.restype = _I64
+            dll.seid_plan_pool_peak_concurrency.argtypes = []
+            dll.seid_plan_pool_peak_concurrency.restype = _I64
             _lib.append(dll)
         return _lib[0]
 
@@ -193,6 +203,125 @@ def _assemble_numpy(
         out[bi, :k, :d] = coords[:k]
         out[bi, :k, d] = vals[:k]
     return out
+
+
+# ---- window plans -------------------------------------------------------------
+
+def _triple(v) -> Tuple[int, int, int]:
+    t = tuple(int(x) for x in v)
+    if len(t) != 3:
+        raise ValueError(f"expected 3 entries, got {t}")
+    return t
+
+
+def _plan_layout(caps: Sequence[int], initial_kernel, series_kernels, stride,
+                ov_caps: Sequence[int], ov_cap_initial: int,
+                ov_caps_down: Sequence[int], batch: int):
+    """The plan dict's keys, in the order of the C entry's outputs, each
+    with its shape and dtype."""
+    depth = len(caps) - 1
+    tiles = [-(-int(c) // 128) for c in caps]
+    kd = int(np.prod(stride))
+    out = []
+    for l, cap in enumerate(caps):
+        out += [(f"lvl{l}/coords", (batch, int(cap), 3), np.int32),
+                (f"lvl{l}/n_active", (batch,), np.int32),
+                (f"lvl{l}/site_dropped", (batch,), np.int32)]
+    plans = [("initial", tiles[0], int(np.prod(initial_kernel)),
+              ov_cap_initial)]
+    plans += [(f"lvl{l}/series", tiles[l], int(np.prod(series_kernels[l])),
+               ov_caps[l]) for l in range(depth + 1)]
+    plans += [(f"lvl{l}/down_f", tiles[l + 1], kd, ov_caps_down[l])
+              for l in range(depth)]
+    plans += [(f"lvl{l}/down_r", tiles[l], kd, ov_caps_down[l])
+              for l in range(depth)]
+    for prefix, n_tiles, k, width in plans:
+        width = int(width)
+        out += [(f"{prefix}/start", (batch, n_tiles, k), np.int32),
+                (f"{prefix}/ov_src", (batch, width), np.int32),
+                (f"{prefix}/ov_dst", (batch, width), np.int32),
+                (f"{prefix}/ov_k", (batch, width), np.int32),
+                (f"{prefix}/ov_valid", (batch, width), np.bool_),
+                (f"{prefix}/ov_dropped", (batch,), np.int32)]
+    return out
+
+
+def build_window_plans(
+    coords: np.ndarray,  # i32[B, cap0, 3], -1 padded (unsorted ok)
+    grid: Sequence[int],
+    caps: Sequence[int],
+    initial_kernel: Sequence[int],
+    series_kernel,  # (k0, k1, k2) or per-level [(k0, k1, k2)] * (depth + 1)
+    stride: Sequence[int],
+    window_r: int,
+    ov_caps: Sequence[int],
+    ov_cap_initial: int,
+    ov_caps_down: Sequence[int],
+    window_r_down: int = 0,
+    window_r_initial: int = 0,
+    window_r_series: Sequence[int] | None = None,
+) -> Dict[str, np.ndarray]:
+    """Threaded site pyramid and window plans of a batch, on the host.
+
+    A pure function of the coordinates: the loader's thread runs it so the
+    device never builds plans.  Keys: ``lvl{l}/coords|n_active|
+    site_dropped``, and ``{initial, lvl{l}/series, lvl{l}/down_f,
+    lvl{l}/down_r}/start|ov_src|ov_dst|ov_k|ov_valid|ov_dropped``, as the
+    JAX builder's.  Each list holds only real out-of-window pairs, in
+    (dst, k) order.  ``window_r`` is the series window (and the reverse
+    plans'); ``window_r_down`` / ``window_r_initial`` 0 mean ``window_r``;
+    ``window_r_series`` gives one window a level.  The geometry must be the
+    one the convs are given (``ops.host_plans.encoder_plans_from_host``).
+    """
+    coords = np.ascontiguousarray(coords, np.int32)
+    if coords.ndim != 3 or coords.shape[2] != 3:
+        raise ValueError(f"coords must be [B, N, 3], got {coords.shape}")
+    b, cap0 = coords.shape[:2]
+    caps = [int(c) for c in caps]
+    depth = len(caps) - 1
+    if caps[0] < cap0:
+        raise ValueError(f"caps[0] ({caps[0]}) must be >= coords.shape[1] ({cap0})")
+    if hasattr(series_kernel[0], "__len__"):
+        series = [_triple(k) for k in series_kernel]
+        if len(series) != depth + 1:
+            raise ValueError("per-level series_kernel needs depth + 1 entries")
+    else:
+        series = [_triple(series_kernel)] * (depth + 1)
+    window_r = int(window_r)
+    r_series = ([window_r] * (depth + 1) if window_r_series is None else
+                [int(r) if int(r) > 0 else window_r for r in window_r_series])
+    if len(r_series) != depth + 1 or len(ov_caps) != depth + 1 \
+            or len(ov_caps_down) != depth:
+        raise ValueError("per-level windows and widths need depth + 1 "
+                         "(downsample: depth) entries")
+    layout = _plan_layout(caps, initial_kernel, series, stride, ov_caps,
+                         ov_cap_initial, ov_caps_down, b)
+    out = {key: np.empty(shape, dtype) for key, shape, dtype in layout}
+    pointers = (ctypes.c_void_p * len(layout))(
+        *[_ptr(out[key]) for key, _, _ in layout])
+    i64 = lambda v: np.ascontiguousarray(v, np.int64)
+    args = dict(
+        grid=i64(_triple(grid)), caps=i64(caps),
+        initial=i64(_triple(initial_kernel)), series=i64(series),
+        stride=i64(_triple(stride)), r_series=i64(r_series),
+        ov_caps=i64([int(c) for c in ov_caps]),
+        ov_caps_down=i64([int(c) for c in ov_caps_down] or [0]),
+    )
+    used = library().seid_build_window_plans(
+        _ptr(coords), b, cap0, _ptr(args["grid"]), depth, _ptr(args["caps"]),
+        _ptr(args["initial"]), _ptr(args["series"]), _ptr(args["stride"]),
+        _ptr(args["r_series"]), int(window_r_initial) or window_r,
+        int(window_r_down) or window_r, window_r, _ptr(args["ov_caps"]),
+        int(ov_cap_initial), _ptr(args["ov_caps_down"]), pointers)
+    if used < 0:
+        raise ValueError("seid_build_window_plans refused its arguments")
+    return out
+
+
+def plan_pool_peak_concurrency() -> int:
+    """The most plan-pool workers inside the per-event builder at once since
+    the last call (which this one resets): 1 under SEID_PLAN_THREADS=1."""
+    return int(library().seid_plan_pool_peak_concurrency())
 
 
 # ---- HDF5 --------------------------------------------------------------------

@@ -133,10 +133,27 @@ def offset_count(kernel: Tuple[int, ...]) -> int:
     return k
 
 
+def _downsample_plan(block, st: SparseTensor, precomputed):
+    """(skeleton, plan, dropped) of a downsample block: the host-built
+    (skeleton, (forward, reverse)) when given, whose lost sites the encoder
+    counts once from the host's totals, else built on the device by the
+    block's backend."""
+    if precomputed is not None:
+        skeleton, plan = precomputed
+        return skeleton, plan, plan_overflow_dropped(plan)
+    skeleton, plan, ds_dropped = build_downsample_plan(
+        st, block.stride, block.out_capacity, backend=block.backend,
+        q_bound_frac_in=block.q_bound_frac_in,
+        q_bound_frac_out=block.q_bound_frac_out, tuning=block.tuning,
+    )
+    return skeleton, plan, ds_dropped.sum() + plan_overflow_dropped(plan)
+
+
 class ConvolutionDownsample(nn.Module):
     """Strided conv (filter == stride, no bias) + norm + act.  Builds the
-    coarser site set and its plans; ``forward`` also returns the sites and
-    pairs dropped by static capacities."""
+    coarser site set and its plans, or takes them from the host
+    (``forward(st, (skeleton, plans))``); ``forward`` also returns the sites
+    and pairs dropped by static capacities."""
 
     def __init__(
         self,
@@ -162,13 +179,8 @@ class ConvolutionDownsample(nn.Module):
         self.w = nn.Parameter(torch.empty(k, c_in, n_out))
         self.norm = _make_norm(params.normalization, n_out)
 
-    def forward(self, st: SparseTensor):
-        skeleton, plan, ds_dropped = build_downsample_plan(
-            st, self.stride, self.out_capacity, backend=self.backend,
-            q_bound_frac_in=self.q_bound_frac_in,
-            q_bound_frac_out=self.q_bound_frac_out, tuning=self.tuning,
-        )
-        dropped = ds_dropped.sum() + plan_overflow_dropped(plan)
+    def forward(self, st: SparseTensor, precomputed=None):
+        skeleton, plan, dropped = _downsample_plan(self, st, precomputed)
         out = apply_strided(st, skeleton, plan, self.w)
         if self.norm is not None:
             out = out.with_feats(self.norm(out.feats, out.row_mask()))
@@ -217,15 +229,10 @@ class PoolingDownsample(nn.Module):
         self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
         self.norm = _make_norm(params.normalization, n_out)
 
-    def forward(self, st: SparseTensor):
+    def forward(self, st: SparseTensor, precomputed=None):
         k = offset_count(self.stride)
-        if self.backend == WINDOW:
-            skeleton, plan, ds_dropped = build_downsample_plan(
-                st, self.stride, self.out_capacity, backend=WINDOW,
-                q_bound_frac_in=self.q_bound_frac_in,
-                q_bound_frac_out=self.q_bound_frac_out, tuning=self.tuning,
-            )
-            dropped = ds_dropped.sum() + plan_overflow_dropped(plan)
+        if precomputed is not None or self.backend == WINDOW:
+            skeleton, plan, dropped = _downsample_plan(self, st, precomputed)
             wk = (self.w[0] / k).expand(k, -1, -1)
             feats = apply_strided(st, skeleton, plan, wk).feats
         else:

@@ -22,9 +22,11 @@ from .heads import MultiHeadOutput, pool_encoded
 
 
 class SparseEventClassifier(nn.Module):
-    """forward(st, generator=None) -> (logits keyed by label, dropped),
-    ``dropped`` being the encoder's count of sites and conv pairs lost to
-    static capacities; ``generator`` feeds the heads' dropout in training."""
+    """forward(st, generator=None, plans=None) -> (logits keyed by label,
+    dropped), ``dropped`` being the encoder's count of sites and conv pairs
+    lost to static capacities; ``generator`` feeds the heads' dropout in
+    training; ``plans`` (``ops.host_plans.EncoderPlans``) are the encoder's
+    host-built plans, without which it builds them on the device."""
 
     def __init__(
         self,
@@ -52,9 +54,10 @@ class SparseEventClassifier(nn.Module):
         )
 
     def forward(
-        self, st: SparseTensor, generator: torch.Generator | None = None
+        self, st: SparseTensor, generator: torch.Generator | None = None,
+        plans=None,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        encoded, dropped = self.encoder(st)
+        encoded, dropped = self.encoder(st, plans)
         return self.head(pool_encoded(encoded), generator), dropped
 
 

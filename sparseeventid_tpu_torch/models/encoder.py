@@ -10,7 +10,10 @@ kernels are [1, k, k] (weights shared by the planes, no mixing across
 them) and the stride is (1, 2, 2); from ``plane_merge_depth`` on (if >= 0)
 the kernels are [3, k, k] and do mix planes.
 
-Every level's plan is built on the device from its site set.
+``forward(st, plans)`` takes every plan and site set from an
+``ops.host_plans.EncoderPlans`` built on the host (the main path: the
+trainer's loader builds them); without ``plans`` each level's plan is built
+on the device from its site set.
 """
 
 from __future__ import annotations
@@ -126,6 +129,16 @@ class Encoder(nn.Module):
     def _stride(self) -> Tuple[int, ...]:
         return (1, 2, 2) if self.dimension == 2 else (2, 2, 2)
 
+    def plan_kernels(self):
+        """(initial kernel, series kernel of each level 0..depth, stride):
+        the geometry a host plan builder must be given for this encoder."""
+        p = self.params
+        return (
+            self._kernel(5, 0),
+            tuple(self._kernel(p.filter_size, l) for l in range(p.depth + 1)),
+            self._stride(),
+        )
+
     def _qb_frac(self, level: int) -> float:
         p = self.params
         return min(1.0, p.query_bound_frac * p.query_bound_growth**level)
@@ -136,18 +149,32 @@ class Encoder(nn.Module):
             q_bound_frac=self._qb_frac(level), window_r=window_r,
         )
 
-    def forward(self, st: SparseTensor):
+    def forward(self, st: SparseTensor, plans=None):
         p = self.params
-        plan = self._plan(st, 5, 0, self.tuning.window_r_initial)
-        dropped = plan_overflow_dropped(plan)
+        if plans is None:
+            plan = self._plan(st, 5, 0, self.tuning.window_r_initial)
+            dropped = plan_overflow_dropped(plan)
+        else:
+            plan = plans.initial
+            dropped = plans.site_dropped + plan_overflow_dropped(plan)
         st = apply_submanifold(st, plan, self.initial_w, self.initial_b)
         for i in range(p.depth):
-            plan = self._plan(st, p.filter_size, i, self.tuning.for_level(i))
+            if plans is None:
+                plan = self._plan(st, p.filter_size, i, self.tuning.for_level(i))
+            else:
+                plan = plans.series[i]
             dropped = dropped + plan_overflow_dropped(plan)
             st = getattr(self, f"series_{i}")(st, plan)
-            st, d = getattr(self, f"down_{i}")(st)
+            precomputed = (
+                None if plans is None else (plans.skeletons[i], plans.down[i])
+            )
+            st, d = getattr(self, f"down_{i}")(st, precomputed)
             dropped = dropped + d
-        plan = self._plan(st, p.filter_size, p.depth, self.tuning.for_level(p.depth))
+        if plans is None:
+            plan = self._plan(st, p.filter_size, p.depth,
+                              self.tuning.for_level(p.depth))
+        else:
+            plan = plans.series[p.depth]
         dropped = dropped + plan_overflow_dropped(plan)
         st = self.final_series(st, plan)
         # 1x1 bottleneck: pointwise, float32 like the flax einsum with f32

@@ -51,20 +51,29 @@ def query_bound(capacity: int, frac: float | None) -> int | None:
     return None if b >= capacity else b
 
 
-def _overflow_cap(capacity: int) -> int:
-    """Width of an overflow list: the level capacity (at least 256).
+def device_list_width(capacity: int) -> int:
+    """Width of an overflow list built on the device (``ops.window.engine``):
+    the level capacity (at least 256).
 
-    The JAX package sizes its lists for its host plan builder, whose lists
-    hold only real out-of-window pairs (capacity // 6, at most 16384).  A
-    list built on the device also holds the unmatched candidates of query
-    tiles whose anchor block escaped the plan window, and at dune3d
-    occupancy those outnumber the real pairs 2-3x on the downsample plans,
-    and the candidates pass the JAX caps on the level-0 downsample and the
-    initial 5^3 plan (``chip_smoke.py`` prints the counts of each plan it
-    checks).  The width costs no kernel time (the sidecar walks only to the
-    last valid entry), so the list is as wide as the level.  This is the one
-    place the width is decided: the plan builders take it as an argument."""
+    A device-built list also holds the unmatched candidates of query tiles
+    whose anchor block escaped the plan window; at dune3d occupancy those
+    outnumber the real pairs 2-3x on the downsample plans and pass the host
+    widths (:func:`host_list_width`) on the level-0 downsample and the
+    initial 5^3 plan.  The width costs no kernel time (the sidecar walks
+    only to the last valid entry), so the list is as wide as the level."""
     return max(256, capacity)
+
+
+def host_list_width(capacity: int, k: int = 27) -> int:
+    """Width of an overflow list built on the host
+    (``io.hostio.build_window_plans``), whose lists hold only real
+    out-of-window pairs: capacity // 6 for up to 27 offsets, scaled by
+    ceil(k / 27) (a 5^3 kernel spills about 5x the pairs of a 3^3 one),
+    within [256, 16384].  The JAX package's ``_overflow_cap``, unchanged:
+    ``chip_smoke.py``'s ``host_plans`` phase prints each plan's largest
+    per-event pair count against it at both recipes."""
+    scale = max(1, -(-k // 27))
+    return max(256, min(16384, (capacity // 6) * scale))
 
 
 def build_series_plan(
@@ -75,7 +84,7 @@ def build_series_plan(
         return build_submanifold_window_plan(
             st, kernel_size,
             window_r=WindowTuning().window_r if window_r is None else window_r,
-            overflow_cap=_overflow_cap(st.capacity),
+            overflow_cap=device_list_width(st.capacity),
             q_bound=query_bound(st.capacity, q_bound_frac),
         )
     return build_submanifold_rulebook(st, kernel_size)
@@ -104,7 +113,7 @@ def build_downsample_plan(
     if backend == WINDOW:
         plans = build_strided_window_plans(
             st, skeleton, stride,
-            overflow_cap=_overflow_cap(st.capacity),
+            overflow_cap=device_list_width(st.capacity),
             q_bound=query_bound(skeleton.capacity, q_bound_frac_out),
             rev_q_bound=query_bound(st.capacity, q_bound_frac_in),
             tuning=tuning,
@@ -133,7 +142,7 @@ def build_upsample_plan(
     if backend == WINDOW:
         return build_strided_window_plans(
             target, st_coarse, stride,
-            overflow_cap=_overflow_cap(target.capacity), tuning=tuning,
+            overflow_cap=device_list_width(target.capacity), tuning=tuning,
         )
     return build_upsample(st_coarse, target, stride)
 

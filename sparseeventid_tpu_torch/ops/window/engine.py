@@ -111,7 +111,7 @@ def build_submanifold_window_plan(
     """Plan of a submanifold conv (output sites == input sites).
 
     ``overflow_cap`` is the overflow list's width; the model's policy for
-    it is ``ops.engine._overflow_cap``."""
+    it is ``ops.engine.device_list_width``."""
     offs = kernel_offsets(kernel_size, centered=True)
     qkeys = compute_query_keys(st, offs)
     keys = st.keys()

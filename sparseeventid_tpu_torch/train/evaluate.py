@@ -9,7 +9,9 @@ run directory.
 
 A split's data is its larcv file (``data.train`` / ``data.val`` /
 ``data.test``), or, for the word ``synthetic`` or an empty name under the
-synthetic detector, synthetic events on the detector's grid.
+synthetic detector, synthetic events on the detector's grid.  Each batch's
+window plans are built on the host (``train/plans.py``) unless
+``SEID_HOST_PLANS=0``.
 
 Entry points run on the card.  They use the CPU only when asked, by
 ``device="cpu"`` or ``run.compute_mode=CPU``; otherwise a machine without a
@@ -45,6 +47,7 @@ from ..io import (
 from ..models import build_sparse_classifier, init_parameters
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
+from .plans import planner_for
 from .supervised import eval_metrics
 
 logger = logging.getLogger(__name__)
@@ -213,6 +216,7 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     scheme = opt_cfg.loss_balance_scheme
     class_weights = class_weights_of(scheme, dev)
     output_file = getattr(cfg.mode, "output_file", "")
+    planner = planner_for(cfg, model.encoder, grid)
 
     bs = cfg.run.minibatch_size
     n_batches = max(len(dataset) // bs, 1)
@@ -222,7 +226,11 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
         batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
         st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
         with torch.no_grad():
-            logits, dropped = model(st)
+            plans = None
+            if planner is not None:
+                plans = planner.plans(
+                    st, planner.to_device(planner.build(batch["image"]), dev))
+            logits, dropped = model(st, plans=plans)
             m = eval_metrics(logits, labels, dropped, scheme, class_weights)
         per_batch.append({k: float(v) for k, v in m.items()})
         if output_file:

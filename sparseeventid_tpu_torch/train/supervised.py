@@ -4,7 +4,12 @@ counterpart: ``train/supervised.py``).
 The eval and predict steps take the model, which holds its parameters, and
 run it in eval mode without autograd.  The train step takes a
 ``TrainState`` and updates it in place: parameters, running statistics,
-optimizer moments, schedule and step counter."""
+optimizer moments, schedule and step counter.
+
+Given a ``plans_builder(st, host_plans) -> EncoderPlans`` (the trainer's
+``HostPlanner.plans``), each step takes the batch's host-built plan dict,
+on the device, and the encoder builds no plan; without one, or without a
+dict, the encoder builds its plans on the device."""
 
 from __future__ import annotations
 
@@ -29,25 +34,34 @@ def eval_metrics(logits, labels, dropped, scheme, class_weights=None
     return metrics
 
 
-def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None):
-    """Returns step(st, labels) -> metrics (device tensors)."""
+def _plans(plans_builder, st, host_plans):
+    if plans_builder is None or host_plans is None:
+        return None
+    return plans_builder(st, host_plans)
+
+
+def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None,
+                   plans_builder=None):
+    """Returns step(st, labels, host_plans=None) -> metrics (device
+    tensors)."""
 
     @torch.no_grad()
-    def step(st: SparseTensor, labels) -> Dict[str, torch.Tensor]:
+    def step(st: SparseTensor, labels, host_plans=None
+             ) -> Dict[str, torch.Tensor]:
         model.eval()
-        logits, dropped = model(st)
+        logits, dropped = model(st, plans=_plans(plans_builder, st, host_plans))
         return eval_metrics(logits, labels, dropped, scheme, class_weights)
 
     return step
 
 
-def make_predict_step(model):
-    """Returns step(st) -> softmax per head."""
+def make_predict_step(model, plans_builder=None):
+    """Returns step(st, host_plans=None) -> softmax per head."""
 
     @torch.no_grad()
-    def step(st: SparseTensor) -> Dict[str, torch.Tensor]:
+    def step(st: SparseTensor, host_plans=None) -> Dict[str, torch.Tensor]:
         model.eval()
-        logits, _ = model(st)
+        logits, _ = model(st, plans=_plans(plans_builder, st, host_plans))
         return {k: torch.softmax(v, dim=-1) for k, v in logits.items()}
 
     return step
@@ -59,9 +73,11 @@ def make_train_step(
     lr_schedule: Callable[[int], float] | None = None,
     class_weights=None,
     gradient_accumulation: int = 1,
+    plans_builder=None,
 ):
-    """Returns step(st, labels, generator=None) -> metrics (device tensors;
-    ``opt/lr`` a float), which advances ``state`` by one step.
+    """Returns step(st, labels, generator=None, host_plans=None) -> metrics
+    (device tensors; ``opt/lr`` a float), which advances ``state`` by one
+    step.
 
     With ``gradient_accumulation`` = k the gradients of k consecutive steps
     are averaged and the optimizer moves on every k-th, as
@@ -69,10 +85,11 @@ def make_train_step(
     model, optimizer, scheduler = state.model, state.optimizer, state.scheduler
     k = max(int(gradient_accumulation), 1)
 
-    def step(st: SparseTensor, labels, generator: torch.Generator | None = None
-             ) -> Dict[str, torch.Tensor]:
+    def step(st: SparseTensor, labels, generator: torch.Generator | None = None,
+             host_plans=None) -> Dict[str, torch.Tensor]:
         model.train()
-        logits, dropped = model(st, generator)
+        logits, dropped = model(st, generator,
+                                _plans(plans_builder, st, host_plans))
         loss, _ = multi_head_loss(logits, labels, scheme, class_weights)
         loss.backward()  # adds onto the gradients of earlier micro-steps
         metrics = {"loss/loss": loss.detach(), "overflow/dropped": dropped}

@@ -12,6 +12,11 @@ steps and at the end, keeping 5.  As in the JAX package, a resumed run's
 data stream starts again at its beginning.  Logs go to the run's
 ``process.log`` and, with tensorboardX, to ``tb/``.
 
+The window plans of every batch are built on the host, in the loader's
+thread, through a per-event plan cache whose line goes to the log once an
+epoch (``train/plans.py``); ``SEID_HOST_PLANS=0`` builds them on the device
+instead.  ``iotest`` times the same loaders, plan building included.
+
 Not here yet, and refused by name of the roadmap item: the other tasks and
 data-parallel training.
 """
@@ -47,6 +52,7 @@ from .evaluate import (
     run_dir,
 )
 from .optimizers import build_optimizer
+from .plans import HostPlanner, planner_for
 from .schedules import build_lr_schedule
 from .state import TrainState, param_count
 from .supervised import make_eval_step, make_train_step
@@ -80,11 +86,12 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 def build_training(cfg: SparseEventIDConfig, epoch_length: int,
                    params: Mapping[str, torch.Tensor] | None,
-                   device: torch.device):
-    """-> (state, train_step, n_steps) of the supervised task.  In a
-    transfer run the encoder's parameters are frozen: they need no gradient
-    and AdamW holds none of them, so neither its update nor its weight
-    decay moves them (the JAX ``optax.multi_transform`` with
+                   device: torch.device, planner: HostPlanner | None = None):
+    """-> (state, train_step, n_steps) of the supervised task; with a
+    ``planner`` the step takes the batch's host plans (``host_plans=``, a
+    dict on the device).  In a transfer run the encoder's parameters are
+    frozen: they need no gradient and AdamW holds none of them, so neither
+    its update nor its weight decay moves them (the JAX ``optax.multi_transform`` with
     ``set_to_zero``); its batch norms still update their statistics."""
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
     total_epochs = max(cfg.run.length, 1)
@@ -107,16 +114,25 @@ def build_training(cfg: SparseEventIDConfig, epoch_length: int,
     step = make_train_step(
         state, scheme, lr_schedule, class_weights_of(scheme, device),
         gradient_accumulation=opt_cfg.gradient_accumulation,
+        plans_builder=planner.plans if planner is not None else None,
     )
     n_steps = getattr(cfg.mode, "iterations", 0) or epoch_length * total_epochs
     return state, step, n_steps
 
 
-def make_loader(cfg: SparseEventIDConfig, dataset) -> BatchLoader:
+def make_loader(cfg: SparseEventIDConfig, dataset, transform=None) -> BatchLoader:
     return BatchLoader(
         dataset, cfg.run.minibatch_size, access_mode=cfg.data.mode,
-        seed=cfg.data.seed if cfg.data.seed >= 0 else 0,
+        seed=cfg.data.seed if cfg.data.seed >= 0 else 0, transform=transform,
     )
+
+
+def host_plans_of(planner: HostPlanner | None, batch, device):
+    """The batch's host plans copied to ``device`` (None without a
+    planner)."""
+    if planner is None:
+        return None
+    return planner.to_device(planner.for_batch(batch), device)
 
 
 def train(
@@ -150,19 +166,31 @@ def train(
             datasets = dict(zip(splits, owned))
         else:
             datasets = {"train": dataset}
-        loaders = {s: make_loader(cfg, ds) for s, ds in datasets.items()}
+        # one plan geometry for every split, the train split's grid
+        grid = tuple(datasets["train"].batch_grid())
+        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, grid,
+                              cache=True)
+        loaders = {}
         try:
-            return _train(cfg, datasets, loaders, params, dev, out_dir)
+            for split, ds in datasets.items():
+                if planner is not None and tuple(ds.batch_grid()) != grid:
+                    raise ValueError(f"split {split} has grid "
+                                     f"{ds.batch_grid()}, train has {grid}")
+                loaders[split] = make_loader(
+                    cfg, ds, planner.transform(split) if planner else None)
+            return _train(cfg, datasets, loaders, planner, params, dev, out_dir)
         finally:
             for loader in loaders.values():
                 loader.stop()
             close_datasets(owned)
 
 
-def _train(cfg, datasets, loaders, params, dev, out_dir) -> TrainRun:
+def _train(cfg, datasets, loaders, planner, params, dev, out_dir) -> TrainRun:
     loader, val_loader = loaders["train"], loaders.get("val")
-    state, step, n_steps = build_training(cfg, len(loader), params, dev)
+    state, step, n_steps = build_training(cfg, len(loader), params, dev, planner)
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
+    logger.info("window plans built on the %s",
+                "host" if planner is not None else "device")
     ckpt = CheckpointManager(out_dir / "checkpoints")
     if params is None:
         restored = restore_run(cfg.mode, ckpt, state.model, dev,
@@ -170,8 +198,10 @@ def _train(cfg, datasets, loaders, params, dev, out_dir) -> TrainRun:
         if restored is not None:
             state.step = restored
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
-    eval_step = make_eval_step(state.model, opt_cfg.loss_balance_scheme,
-                               class_weights_of(opt_cfg.loss_balance_scheme, dev))
+    eval_step = make_eval_step(
+        state.model, opt_cfg.loss_balance_scheme,
+        class_weights_of(opt_cfg.loss_balance_scheme, dev),
+        plans_builder=planner.plans if planner is not None else None)
     dtype = feature_dtype(cfg)
     cap0 = state.model.encoder.capacities[0]
     bs = cfg.run.minibatch_size
@@ -183,17 +213,20 @@ def _train(cfg, datasets, loaders, params, dev, out_dir) -> TrainRun:
     timer = StepTimer()
     for i in range(state.step, n_steps):
         if val_loader is not None and i % VAL_CHECK_INTERVAL == 0:
-            vst, vlabels = prepare_batch(next(val_loader),
-                                         datasets["val"].batch_grid(), cap0,
-                                         dtype, dev)
-            vm = {k: float(v) for k, v in eval_step(vst, vlabels).items()}
+            vbatch = next(val_loader)
+            vst, vlabels = prepare_batch(vbatch, datasets["val"].batch_grid(),
+                                         cap0, dtype, dev)
+            vm = {k: float(v) for k, v in eval_step(
+                vst, vlabels, host_plans_of(planner, vbatch, dev)).items()}
             run.validation[i] = vm
             writer.write(vm, i, prefix="val/")
             logger.info(format_log_message(vm, bs, i, mode="val"))
-        st, labels = prepare_batch(next(loader), datasets["train"].batch_grid(),
+        batch = next(loader)
+        st, labels = prepare_batch(batch, datasets["train"].batch_grid(),
                                    cap0, dtype, dev)
+        host = host_plans_of(planner, batch, dev)
         timer.mark_io()
-        metrics = step(st, labels, step_generator(cfg.run.seed, i, dev))
+        metrics = step(st, labels, step_generator(cfg.run.seed, i, dev), host)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timer.mark_step()
@@ -213,6 +246,10 @@ def _train(cfg, datasets, loaders, params, dev, out_dir) -> TrainRun:
         if (i + 1) % ckpt_every == 0:
             ckpt.save(state)
             saved = state.step
+        if (planner is not None and planner.cache is not None
+                and (i + 1) % len(loader) == 0):
+            # once an epoch: a full budget stops storing without a word
+            logger.info(planner.cache.stats_line())
     if saved != state.step:
         ckpt.save(state)
     writer.close()
@@ -223,14 +260,19 @@ def iotest(cfg: SparseEventIDConfig) -> Dict[str, Dict[str, float]]:
     """IO benchmark (bin/exec.py:226-267): for each active split, one
     warm-up fetch from its prefetching loader, then ``mode.iterations``
     timed fetches -> the mean ms of a fetch (the first timed one left out)
-    and images/s.  Host work only: no device is touched."""
+    and images/s.  The loaders build the window plans as the train loop's
+    do.  Host work only: no device is touched."""
     bs = cfg.run.minibatch_size
     iterations = getattr(cfg.mode, "iterations", 25) or 25
     results = {}
     with process_log(run_dir(cfg) / "process.log"):
+        encoder = build_sparse_classifier(cfg).encoder
         for split in cfg.data.active or ("train",):
             dataset = build_dataset(cfg, split)
-            loader = make_loader(cfg, dataset)
+            planner = planner_for(cfg, encoder, dataset.batch_grid(), cache=True)
+            loader = make_loader(
+                cfg, dataset,
+                planner.transform(split) if planner is not None else None)
             try:
                 next(loader)
                 times = []

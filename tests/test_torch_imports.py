@@ -57,7 +57,17 @@ def test_validate_needs_cuda_unless_asked(monkeypatch):
     assert resolve_device(cfg, device="cpu").type == "cpu"
 
 
-def test_cli_needs_cuda_unless_asked(monkeypatch, tmp_path):
+@pytest.fixture
+def one_torch_thread():
+    """Small CPU tensors run fastest on one thread, and far faster beside
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_needs_cuda_unless_asked(monkeypatch, tmp_path, one_torch_thread):
     from sparseeventid_tpu_torch.__main__ import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -65,9 +75,12 @@ def test_cli_needs_cuda_unless_asked(monkeypatch, tmp_path):
         main(["--config-name", "synthetic", "mode=inference"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config-name", "synthetic", "mode=train"])
+    # a small model: the run on the CPU is what is checked, not the width
     metrics = main(["--config-name", "synthetic", "mode=train",
                     "run.compute_mode=CPU", "mode.iterations=2",
-                    "framework.sparse_backend=window",
+                    "framework.sparse_backend=window", "encoder.depth=2",
+                    "encoder.blocks_per_layer=1", "encoder.n_initial_filters=8",
+                    "data.max_voxels=256", "head.hidden=32",
                     f"output_dir={tmp_path}"])
     assert metrics["overflow/dropped"] == 0 and metrics["loss/loss"] > 0
     assert metrics["opt/lr"] > 1e-5  # the second step of the warm-up

@@ -137,7 +137,7 @@ def test_plane_query_meta_and_series_plan_bit_equal(ksz):
                  np.asarray(jwc.compute_query_keys(sj, offs)).transpose(0, 2, 1))
     assert_equal(tq.compute_query_keys(st, offs), jwc.compute_query_keys(sj, offs))
     r = 176 if ksz == (1, 5, 5) else 160
-    cap = teng._overflow_cap(st.capacity)
+    cap = teng.device_list_width(st.capacity)
     pj = jwe.build_submanifold_window_plan(sj, ksz, overflow_cap=cap,
                                            interpret=True, window_r=r)
     pt = teng.build_series_plan(st, ksz, backend=teng.WINDOW, window_r=r)
@@ -161,7 +161,7 @@ def test_plane_strided_meta_and_plans_bit_equal():
         jwc.compute_strided_query_meta(skj, GRID, stride, offs))
     assert_equal(tq.compute_reverse_query_meta(st, skt, stride, 4),
                  jwc.compute_reverse_query_meta(sj, skj, stride, 4))
-    cap = teng._overflow_cap(st.capacity)
+    cap = teng.device_list_width(st.capacity)
     fj, rj = jwe.build_strided_window_plans(sj, skj, stride, overflow_cap=cap,
                                             interpret=True)
     sk2, (ft, rt), dropped = teng.build_downsample_plan(

@@ -70,7 +70,7 @@ def test_engine_plans_are_level_wide_and_bit_equal(which):
     plans equal the JAX builders' given that width."""
     coords, feats = random_coo(8, n=512, grid=(16, 16, 16), c=1, density=0.1)
     sj, st = both(coords, feats, (16, 16, 16))
-    cap = teng._overflow_cap(st.capacity)
+    cap = teng.device_list_width(st.capacity)
     if which == "downsample 2^3":
         _, (ft, rt), _ = teng.build_downsample_plan(
             st, (2, 2, 2), 512, backend=teng.WINDOW)
