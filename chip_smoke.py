@@ -117,8 +117,38 @@ Phases, one JSON line each; any failure exits non-zero:
               points, with the same checks and launch counts, each also on
               device plans (main2d_device, train2d_device); the kernel and
               host_plans phases also run at the dune2d shapes (K = 25, 9, 4)
- 13. the {"kernels": [...]} line (window_plan's launches from main_device),
-     then {"ok": true, "device": {...}} last.
+ 13. the other tasks at full dune3d width (B=8, bf16, depth 5, filters
+              32->192) on host plans, each after one warm-up step:
+              simclr (two views of aug_max_voxels = 3000 voxels through
+              one encoder, capacities 3072/2560/2048/1536/1024/1024 (the
+              default shrink of 0.5 drops sites of these views: one
+              forward at the default capacities prints how many): 4
+              steps through train.trainer.train, finite loss, top-1 <=
+              top-5 in [0, 1],
+              0 dropped, twice a single-view step's launches of every
+              kernel, no window_plan and no plain version; a profiled
+              step; simclr_repeat: the views differ, and two backward
+              passes of one batch give the same bits in every conv weight
+              gradient); simclr view kernels (window_conv_apply, window_dw
+              and the backward at the view's level-0 shape, bit-equal to
+              their plain versions, timed, in the kernel rows); yolo (4
+              steps, finite loss parts and vertex metrics, a profiled
+              step, then mode=inference from its checkpoint writes
+              val_rank_0.npz with an anchor map on the encoded grid
+              (32, 16, 40)); unsupervised (the weak-label window of the
+              24 events' energies and its label balance, 4 steps on the
+              weak_label head, a profiled step); optimizers (one step
+              under each of the eight kinds: finite loss, every head
+              parameter moved; each kind's two updates of the model's
+              parameters on the card equal the CPU's to rtol 1e-5);
+              profile (run.profile=true, 2 steps: the trace names the
+              port's kernels); fp32_simclr / fp32_yolo (z1, z2 and the
+              anchor map, window kernels on host plans against the plain
+              backend, rtol = atol = 1e-3); visualize (two event displays
+              where matplotlib imports, else {"matplotlib": false})
+ 14. the total wall time, the {"kernels": [...]} line (window_plan's
+     launches from main_device; launches_simclr, _yolo, _unsupervised of
+     the task runs), then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -301,6 +331,15 @@ class CachedDataset:
 
     def batch(self, indices):
         return self._batches[indices[0]]
+
+    @property
+    def energy(self):
+        """Every event's deposited energy, in index order (the weak-label
+        window of unsupervised_eventID is fitted to them)."""
+        import numpy as np
+
+        return np.concatenate([self._batches[k]["energy"]
+                               for k in sorted(self._batches)])
 
 
 def phase_device():
@@ -764,6 +803,10 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
          caps[2], tuning.window_r_strided, 64, 96, False),
     ]
 
+    if "cases" in geo:  # a geometry of a few shapes (the SimCLR views)
+        cases = [(*case[:-1], case[-1] and geo.get("sidecars", True))
+                 for case in cases
+                 if case[0][len(pre):].startswith(geo["cases"])]
     results = {n: [] for n in REPLACES if n not in OPS_KERNELS}
     for label, tab, ksz, qcap, r, c, co, sidecars in cases:
         strided = qcap is not None
@@ -1032,7 +1075,8 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             # kernel 6: window_dw over the forward plan (the initial conv)
             # the persistent grid must stride: more live tiles than blocks
             parts = K._dw_parts(dev, tab.batch_size, qst.capacity, k, c, co)
-            require(live_tiles > parts,
+            # (a view of 3000 voxels has no more live tiles than blocks)
+            require(live_tiles > parts or "cases" in geo,
                     f"{live_tiles} live tiles, {parts} window_dw blocks at {label}")
             for dt in (bf16, torch.float32):
                 dargs = (keys, x_int.to(dt), plan.qmeta, start, gy_int.to(dt),
@@ -2840,6 +2884,473 @@ def campaign_larcv(base, cfg) -> None:
 
 
 
+# ---- the other tasks (simclr, yolo, unsupervised_eventID), the optimizers
+# and run.profile, all at full dune3d width on host plans
+
+TASK_STEPS = 4  # one warm-up, three timed
+SIMCLR_TASK = ["name=simclr", "data.transform1=true", "data.transform2=true"]
+# The views' default capacities, capacity_schedule(3000, 5, 0.5, 1024) =
+# 3072/1536/1024/..., drop sites of these track-like events (their first
+# 3000 voxels keep about 3/4 of their sites at each 2x2x2 downsample: up
+# to 2238 at level 1, 1617 at level 2); the phases run a shrink of 0.75
+# (3072/2560/2048/1536/1024/1024), and simclr prints what the default
+# drops
+SIMCLR = [*SIMCLR_TASK, "framework.capacity_shrink=0.75"]
+SIMCLR_CAPACITIES = (3072, 2560, 2048, 1536, 1024, 1024)
+# a SimCLR step runs two forwards and two backwards, one of each a view
+LAUNCHES_PER_SIMCLR_STEP = {k: 2 * v for k, v in
+                            LAUNCHES_PER_TRAIN_STEP_HOST.items()}
+OPTIMIZERS = ("adam", "rmsprop", "sgd", "adagrad", "adadelta", "lars", "lamb",
+              "novograd")
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-7  # an update on the card against the CPU's
+TASK_FP32_TOL = 1e-3  # rtol and atol of z1, z2 and the anchor map (fp32)
+
+
+def _counted(fn):
+    """Run ``fn`` with every wrapper's launch count and every plain
+    version's call count at 0 -> (its result, launches, plain calls)."""
+    import torch
+
+    wrappers, plains = _kernel_counters()
+    for f in wrappers:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {f.__name__: f.launches for f in wrappers},
+            {f.__name__: f.calls for f in plains})
+
+
+TASK_OVERRIDES = []  # more overrides of the task phases' runs (rehearsals)
+
+
+def task_config(phase, extra=(), precision="bfloat16"):
+    """A task phase's config: its own run directory (a train run resumes
+    from the checkpoints of an earlier one in its directory)."""
+    return train_config([f"run.precision={precision}", f"run.id={phase}",
+                         f"mode.iterations={TASK_STEPS}", *extra,
+                         *TASK_OVERRIDES])
+
+
+def phase_task(dataset, phase, extra, per_step, metric_keys):
+    """TASK_STEPS steps of a task at full width through trainer.train on
+    host plans: finite loss and ``metric_keys``, 0 dropped, launches of
+    every kernel ``per_step`` times the steps, no plain version and no
+    window_plan launch -> (config, run, launches)."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    cfg = task_config(phase, extra)
+    torch.cuda.reset_peak_memory_stats()
+    run, launches, plain_calls = _counted(
+        lambda: train(cfg, dataset=dataset, device=DEVICE))
+    history = run.history
+    require(len(history) == TASK_STEPS == run.state.step, f"{phase}: steps")
+    for i, m in enumerate(history):
+        for k in ("loss/loss", *metric_keys):
+            require(np.isfinite(m[k]), f"{phase} step {i}: {k} not finite: {m}")
+        require(m["overflow/dropped"] == 0, f"{phase} step {i}: dropped: {m}")
+    expected = {k: v * TASK_STEPS for k, v in per_step.items()}
+    require(launches == expected,
+            f"{phase}: launch counts {launches}, expected {expected}")
+    require(launches["window_plan"] == 0
+            and all(v == 0 for v in plain_calls.values()),
+            f"{phase}: window_plan or a plain version on the path: "
+            f"{launches['window_plan']}, {plain_calls}")
+    timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
+    steps_per_s = len(timed) / sum(timed)
+    emit({"phase": phase, "steps": TASK_STEPS, "plans": "host",
+          "io_s": [m["time/io_s"] for m in history],
+          "step_s": [m["time/step_s"] for m in history],
+          "loss": [m["loss/loss"] for m in history],
+          "last": {k: history[-1][k] for k in metric_keys},
+          "launches": launches, "launches_per_step": per_step,
+          "plain_calls": plain_calls, "steps_per_s": steps_per_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(json.dumps({f"{phase}_steps_per_s": steps_per_s,
+                      f"{phase}_events_per_s": steps_per_s * BATCH,
+                      "timed_steps": len(timed), "batch": BATCH,
+                      "precision": "bfloat16"}), flush=True)
+    return cfg, run, launches
+
+
+def build_task_of(cfg, dataset):
+    """-> (the task of ``cfg`` on the card as the trainer builds it, its
+    loader's planner: None for SimCLR, whose views carry their own, and on
+    the plain backend)."""
+    import torch
+
+    from sparseeventid_tpu_torch.models import build_sparse_classifier
+    from sparseeventid_tpu_torch.train.plans import planner_for
+    from sparseeventid_tpu_torch.train.tasks import LOADER_PLANS, build_task
+
+    planner = None
+    if cfg.name in LOADER_PLANS:
+        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, GRID)
+    task = build_task(cfg, dataset, GRID, N_BATCHES, None,
+                      torch.device(DEVICE), planner)
+    return task, planner
+
+
+def profile_task_step(cfg, dataset, phase):
+    """Device time by kernel over one step of the task, ``prepare``
+    included (the SimCLR views and their plans are made there, on the
+    loop's thread), after a warm-up step -> the task."""
+    import torch
+
+    task, planner = build_task_of(cfg, dataset)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    batches = {}
+    for first in (0, BATCH):
+        batches[first] = dataset.batch([first])
+        if planner is not None:  # built in the loader's thread
+            batches[first] = planner.transform("train")(batches[first])
+
+    def one_step(first):
+        args = task.prepare(batches[first])
+        return float(task.train_step(args, gen)["loss/loss"])
+
+    one_step(0)
+    wall_ms, busy_ms, top, port = _device_profile(lambda: one_step(BATCH))
+    emit({"phase": f"profile_{phase}", "plans": "host", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+          "top_kernels": top, "port_kernels": port})
+    return task
+
+
+def phase_simclr(dataset):
+    """SimCLR at full width: two views of aug_max_voxels (3000) voxels
+    through one encoder, each step twice a single-view step's launches;
+    a profiled step; two backward passes of one batch from the same weights
+    give the same bits in every conv weight gradient (simclr_repeat), and
+    the views differ -> launches."""
+    import torch
+
+    from sparseeventid_tpu_torch.train.losses import nt_xent_loss
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
+
+    cfg, run, launches = phase_task(dataset, "simclr", SIMCLR,
+                                    LAUNCHES_PER_SIMCLR_STEP,
+                                    ("acc/top1", "acc/top5"))
+    for m in run.history:
+        require(0 <= m["acc/top1"] <= m["acc/top5"] <= 1,
+                f"simclr: top-k out of [0, 1]: {m}")
+    caps = run.state.model.encoder.capacities
+    require(caps == SIMCLR_CAPACITIES, f"simclr view capacities {caps}")
+    del run
+    # one forward of both views of batch 0 at the default capacities
+    default, _ = build_task_of(task_config("simclr_default", SIMCLR_TASK),
+                               dataset)
+    probe = default.eval_step(default.prepare(dataset.batch([0])))
+    emit({"phase": "simclr_default_capacities",
+          "capacities": list(default.state.model.encoder.capacities),
+          "dropped": float(probe["overflow/dropped"]),
+          "loss": float(probe["loss/loss"])})
+    del default, probe
+    task = profile_task_step(cfg, dataset, "simclr")
+    model = task.state.model
+    v1, v2, host = task.prepare(dataset.batch([0]))
+    require(not torch.equal(v1.coords, v2.coords), "simclr: the views are equal")
+    require(int(v1.n_active.max()) <= 3000 and int(v2.n_active.max()) <= 3000,
+            "simclr: a view passes aug_max_voxels")
+    planner = HostPlanner(model.encoder, GRID)
+    plans = [planner.plans(v, h) for v, h in zip((v1, v2), host)]
+
+    def gradients():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        z1, z2, _ = model(v1, v2, *plans)
+        nt_xent_loss(z1, z2).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    first, second = gradients(), gradients()
+    params = dict(model.named_parameters())
+    differ = sorted(n for n in first if not torch.equal(first[n], second[n]))
+    conv_differ = [n for n in differ if params[n].dim() == 3]
+    conv_weights = sum(1 for p in params.values() if p.dim() == 3)
+    emit({"phase": "simclr_repeat", "gradients": len(first),
+          "differ": len(differ), "differ_names": differ[:20],
+          "conv_weights": conv_weights, "conv_weights_differ": len(conv_differ),
+          "view_active": [v1.n_active.tolist(), v2.n_active.tolist()]})
+    require(len(first) == len(params) and conv_weights == 55,
+            f"simclr: {len(first)} gradients of {len(params)} parameters, "
+            f"{conv_weights} conv weights")
+    require(not conv_differ, f"simclr: conv weight gradients differ between "
+            f"two backward passes of one batch: {conv_differ}")
+    return launches
+
+
+def phase_simclr_kernels(dataset):
+    """window_conv_apply and the backward (window_dw for the initial conv)
+    at a SimCLR view's level-0 shape (capacity 3072: 125x1->32 initial,
+    27x32->32 series) on the views of batch 0, against their plain versions
+    as the kernel phase holds them -> rows."""
+    from sparseeventid_tpu_torch.train.tasks import augment_views
+
+    cfg = task_config("simclr_kernels", SIMCLR)
+    image = augment_views(cfg, GRID)(dataset.batch([0])["image"])
+    views = CachedDataset(GRID, {0: {"image": image}}, BATCH)
+    geo = dict(GEOMETRY_3D, rows=cfg.data.aug_max_voxels,
+               prefix="simclr view ", cases=("initial", "L0 series"),
+               sidecars=False)
+    return phase_kernels(views, geo)
+
+
+def phase_yolo(dataset):
+    """Vertex finding at full width: TASK_STEPS steps (finite loss parts and
+    vertex metrics), a profiled step, then mode=inference from the run's
+    checkpoint writes val_rank_0.npz whose anchor map lies on the encoded
+    grid (32, 16, 40) -> launches of the train run."""
+    import numpy as np
+
+    from sparseeventid_tpu_torch.train.evaluate import run_dir, validate
+
+    parts = ("loss/objectness", "loss/offset", "loss/event",
+             "vertex/mean_dist_cm", "vertex/frac_5cm", "vertex/frac_10cm",
+             "vertex/frac_20cm")
+    cfg, run, launches = phase_task(dataset, "yolo", ["name=yolo"],
+                                    LAUNCHES_PER_TRAIN_STEP_HOST, parts)
+    del run
+    profile_task_step(cfg, dataset, "yolo")
+    icfg = task_config("yolo", ["name=yolo", "mode=inference"])
+    metrics, inf_launches, plain_calls = _counted(
+        lambda: validate(icfg, dataset=dataset, device=DEVICE))
+    # each batch: the eval step's forward and the predict step's
+    expected = {k: 2 * N_BATCHES * v for k, v in LAUNCHES_PER_FORWARD_HOST.items()}
+    require({k: inf_launches[k] for k in expected} == expected
+            and all(v == 0 for v in plain_calls.values()),
+            f"yolo inference launches {inf_launches}, expected {expected}; "
+            f"plain {plain_calls}")
+    require(metrics["overflow/dropped"] == 0
+            and all(np.isfinite(metrics[k]) for k in ("loss/loss", *parts)),
+            f"yolo inference metrics {metrics}")
+    out = np.load(run_dir(icfg) / "validation_output" / "val_rank_0.npz")
+    n = BATCH * N_BATCHES
+    anchor_grid = tuple(g // 2**5 for g in GRID)
+    require(set(out.files) == {"label", "vertex_true", "anchor", "vertex",
+                               "pred_label"}, f"yolo outputs {out.files}")
+    require(anchor_grid == (32, 16, 40)
+            and out["anchor"].shape == (n, *anchor_grid)
+            and out["vertex"].shape == out["vertex_true"].shape == (n, 3)
+            and np.isfinite(out["vertex"]).all(),
+            f"yolo outputs: anchor {out['anchor'].shape}, vertex "
+            f"{out['vertex'].shape}")
+    emit({"phase": "yolo_inference", "metrics": metrics,
+          "anchor_grid": list(out["anchor"].shape[1:]),
+          "vertex_shape": list(out["vertex"].shape), "launches": inf_launches,
+          "plain_calls": plain_calls})
+    return launches
+
+
+def phase_unsupervised(dataset):
+    """Weak-label event ID at full width: the energy window fitted to the
+    split's 24 events, TASK_STEPS steps on the weak_label head, a profiled
+    step -> launches."""
+    import numpy as np
+
+    from sparseeventid_tpu_torch.train.unsupervised import weak_labels_from_energy
+
+    weak = weak_labels_from_energy(dataset.energy)
+    cfg, run, launches = phase_task(dataset, "unsupervised",
+                                    ["name=unsupervised_eventID"],
+                                    LAUNCHES_PER_TRAIN_STEP_HOST,
+                                    ("acc/weak_label",))
+    heads = sorted({n.split(".")[1] for n, _ in
+                    run.state.model.named_parameters() if n.startswith("head.")})
+    require(heads == ["weak_label"], f"unsupervised heads {heads}")
+    del run
+    emit({"phase": "unsupervised_labels",
+          "window": [float(x) for x in weak["window"]],
+          "events": int(len(weak["weak_label"])),
+          "label_1_share": float(np.mean(weak["weak_label"]))})
+    profile_task_step(cfg, dataset, "unsupervised")
+    return launches
+
+
+def phase_optimizers(dataset):
+    """One dune3d train step under each of the eight kinds (finite loss,
+    every head parameter moved), and each kind's two updates of the
+    model's parameters under seeded gradients on the card against the same
+    on the CPU (rtol 1e-5)."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.models import build_sparse_classifier
+    from sparseeventid_tpu_torch.train import TrainState, build_lr_schedule
+    from sparseeventid_tpu_torch.train.optimizers import build_optimizer
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
+    from sparseeventid_tpu_torch.train.trainer import (
+        build_training,
+        host_plans_of,
+        step_generator,
+    )
+    from sparseeventid_tpu_torch.train.evaluate import feature_dtype, prepare_batch
+
+    dev = torch.device(DEVICE)
+    report = {"phase": "optimizers"}
+    for kind in OPTIMIZERS:
+        cfg = task_config(f"optimizer_{kind}", [f"mode.optimizer.name={kind}"])
+        planner = HostPlanner(build_sparse_classifier(cfg).encoder, GRID)
+        state, step, _ = build_training(cfg, N_BATCHES, None, dev, planner)
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()
+                  if n.startswith("head.")}
+        batch = planner.transform("train")(dataset.batch([0]))
+        st, labels = prepare_batch(batch, GRID, state.model.encoder.capacities[0],
+                                   feature_dtype(cfg), dev)
+        m = step(st, labels, step_generator(SEED, 0, dev),
+                 host_plans_of(planner, batch, dev))
+        loss = float(m["loss/loss"])
+        still = [n for n, p in state.model.named_parameters()
+                 if n in before and torch.equal(p, before[n])]
+        require(np.isfinite(loss) and int(m["overflow/dropped"]) == 0,
+                f"optimizer {kind}: loss {loss}, dropped {m['overflow/dropped']}")
+        require(not still, f"optimizer {kind}: head parameters did not move: "
+                f"{still}")
+        # the update rule alone, card against CPU, from the same tensors
+        gen = torch.Generator().manual_seed(SEED + 7)
+        p0 = {n: p.detach().float().cpu() for n, p in
+              state.model.named_parameters()}
+        grads = [{n: torch.randn(t.shape, generator=gen) * 1e-2
+                  for n, t in p0.items()} for _ in range(2)]
+        sched = build_lr_schedule(cfg.mode.optimizer.lr_schedule, N_BATCHES, 1)
+        ends = {}
+        for where in ("cpu", DEVICE):
+            params = {n: torch.nn.Parameter(t.clone().to(where))
+                      for n, t in p0.items()}
+            holder = torch.nn.Module()
+            for n, p in params.items():
+                holder.register_parameter(n.replace(".", "_"), p)
+            opt, sch = build_optimizer(cfg.mode.optimizer, sched,
+                                       list(params.values()))
+            upd = TrainState(holder, opt, sch)
+            for g in grads:
+                for n, p in params.items():
+                    p.grad = g[n].to(where)
+                upd.apply_gradients()
+            ends[where] = {n: p.detach().cpu() for n, p in params.items()}
+        worst = 0.0
+        for n, want in ends["cpu"].items():
+            got = ends[DEVICE][n]
+            excess = ((got - want).abs() - OPT_RTOL * want.abs()).max().item()
+            worst = max(worst, excess)
+            require(torch.allclose(got, want, rtol=OPT_RTOL, atol=OPT_ATOL),
+                    f"optimizer {kind}: {n} on the card differs from the CPU "
+                    f"update by {(got - want).abs().max().item()}")
+        report[kind] = {"loss": loss, "head_params_moved": len(before),
+                        "card_vs_cpu_max_excess_over_rtol": worst,
+                        "tensors": len(p0)}
+        del state, step
+    emit(report)
+
+
+def phase_profile(dataset):
+    """run.profile=true through trainer.train, 2 steps: the Chrome trace
+    under <run dir>/profile/ names the port's CUDA kernels."""
+    import torch
+
+    from sparseeventid_tpu_torch.train.evaluate import run_dir
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    cfg = task_config("profile_run", ["mode.iterations=2", "run.profile=true"])
+    run = train(cfg, dataset=dataset, device=DEVICE)
+    torch.cuda.synchronize()
+    trace = run_dir(cfg) / "profile" / "trace.json"
+    require(trace.is_file(), f"no profiler trace at {trace}")
+    names = set()
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        for kname in ("conv_tc_kernel", "bwd_dw_kernel", "overflow_kernel",
+                      "dw_tile_kernel", "overflow_dw_kernel"):
+            if kname in str(e.get("name", "")):
+                names.add(kname)
+    require(names, "the profiler trace names none of the port's kernels")
+    emit({"phase": "profile_trace", "steps": len(run.history),
+          "trace_mb": trace.stat().st_size / 2**20,
+          "port_kernels_named": sorted(names)})
+
+
+def phase_fp32_tasks(dataset) -> None:
+    """fp32 forward of the SimCLR and vertex models from the same weights,
+    window kernels on host plans against the plain rulebook backend: z1, z2
+    and the anchor map within rtol = atol = 1e-3, and within 1e-3 of their
+    scale (fp32_simclr, fp32_yolo)."""
+    import torch
+
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for phase, extra in (("fp32_simclr", SIMCLR), ("fp32_yolo", ["name=yolo"])):
+        got = {}
+        for backend in ("xla", "window"):
+            cfg = task_config(phase, [*extra, "mode=inference",
+                                      f"framework.sparse_backend={backend}"],
+                              precision="float32")
+            task, planner = build_task_of(cfg, dataset)
+            args = task.prepare(dataset.batch([0]))
+            model = task.state.model.eval()
+            with torch.no_grad():
+                if cfg.name == "simclr":
+                    v1, v2, host = args
+                    plans = (None, None)
+                    if host is not None:  # the views' own plans
+                        views = HostPlanner(model.encoder, GRID)
+                        plans = (views.plans(v1, host[0]),
+                                 views.plans(v2, host[1]))
+                    z1, z2, dropped = model(v1, v2, *plans)
+                    out = {"z1": z1, "z2": z2}
+                else:
+                    st, _, _, host = args
+                    plans = (None if host is None
+                             else planner.plans(st, host))
+                    anchor, _, dropped = model(st, plans)
+                    out = {"anchor": anchor}
+            require(int(dropped) == 0, f"{phase} {backend}: dropped {int(dropped)}")
+            got[backend] = {k: v.float().cpu() for k, v in out.items()}
+            del task, model
+        row = {"phase": phase, "plans": "host", "rtol": TASK_FP32_TOL,
+               "atol": TASK_FP32_TOL}
+        for k, ref in got["xla"].items():
+            diff = (got["window"][k] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            # z is small at random init (a mean over the grid's volume), so
+            # the difference is also held to 1e-3 of the output's scale
+            within = (torch.allclose(got["window"][k], ref, rtol=TASK_FP32_TOL,
+                                     atol=TASK_FP32_TOL)
+                      and diff <= TASK_FP32_TOL * scale)
+            row[k] = {"max_abs_diff": diff, "max_abs": scale,
+                      "diff_over_scale": diff / scale if scale else None,
+                      "within": within}
+            require(scale > 0 and within,
+                    f"{phase}: {k} differs from the plain backend: {row}")
+        emit(row)
+
+
+def phase_visualize() -> None:
+    """mode=visualize through __main__.main on two synthetic dune3d events,
+    where matplotlib imports; elsewhere a line that says so."""
+    try:
+        import matplotlib  # noqa: F401
+    except ModuleNotFoundError:
+        emit({"phase": "visualize", "matplotlib": False})
+        return
+    from sparseeventid_tpu_torch.__main__ import main as cli
+
+    shown = cli(["--config-name", "dune3d", "mode=visualize", "mode.events=2",
+                 "data.val=synthetic", "data.synthetic_events=2",
+                 "run.minibatch_size=2", f"output_dir={RUN_DIR}",
+                 "run.id=visualize"])
+    written = shown["written"]
+    require(len(written) == 2 and all(Path(p).stat().st_size > 1000
+                                      for p in written),
+            f"visualize wrote {written}")
+    emit({"phase": "visualize", "matplotlib": True, "written": len(written)})
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] != "--parent" or len(argv) != 2):
@@ -2857,6 +3368,7 @@ def main(argv) -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     out_dir = HERE / "output" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2887,6 +3399,15 @@ def main(argv) -> int:
             rows.setdefault(kname, []).extend(per_shape)
         ops_launches = phase_engine_ops(dataset)
         phase_campaign(dataset)
+        task_launches = {"simclr": phase_simclr(dataset)}
+        for kname, per_shape in phase_simclr_kernels(dataset).items():
+            rows[kname].extend(per_shape)
+        task_launches["yolo"] = phase_yolo(dataset)
+        task_launches["unsupervised"] = phase_unsupervised(dataset)
+        phase_optimizers(dataset)
+        phase_profile(dataset)
+        phase_fp32_tasks(dataset)
+        phase_visualize()
         del dataset
         dataset_2d = make_dataset_2d()
         rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
@@ -2942,6 +3463,8 @@ def main(argv) -> int:
                 launches_main2d=launches_2d[kname],
                 launches_train2d=train_launches_2d[kname],
                 launches_ops_path=ops_launches[kname],
+                **{f"launches_{task}": counts[kname]
+                   for task, counts in task_launches.items()},
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -2953,6 +3476,7 @@ def main(argv) -> int:
         return 1
     finally:
         runs.cleanup()
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,12 @@
 """Command line: ``python -m sparseeventid_tpu_torch --config-name <recipe>
-mode=train|inference|iotest [overrides]``.
+mode=train|inference|iotest|visualize [name=<task>] [overrides]``.
 
-Train and inference run on the card unless ``run.compute_mode=CPU`` is
-given; iotest reads batches on the host only.  Each prints one JSON line:
-inference the mean metrics, train the metrics of its last step, iotest the
-mean fetch ms and images/s of each split.
+``name`` picks the task: supervised_eventID (the default), simclr, yolo or
+unsupervised_eventID.  Train and inference run on the card unless
+``run.compute_mode=CPU`` is given; iotest and visualize read batches on the
+host only.  Each prints one JSON line: inference the mean metrics, train
+the metrics of its last step, iotest the mean fetch ms and images/s of
+each split, visualize the PNG files it wrote (matplotlib needed).
 """
 
 from __future__ import annotations
@@ -45,10 +47,9 @@ def main(argv=None) -> dict:
 
         metrics = iotest(cfg)
     else:
-        raise NotImplementedError(
-            f"mode={cfg.mode.name.name} is not ported yet (ROADMAP: the full "
-            "trainer); use mode=train, inference or iotest"
-        )
+        from .train.trainer import visualize
+
+        metrics = {"written": [str(p) for p in visualize(cfg)]}
     print(json.dumps(metrics, sort_keys=True))
     return metrics
 

@@ -97,9 +97,10 @@ def _trunc_normal_fan_in(t: torch.Tensor, fan_in: int, scale: float,
 @torch.no_grad()
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     """Initialise every parameter from one seeded generator, in the flax
-    families: conv weights [K, C, CO] He-style over K*C, Linear weights
-    LeCun-style over their inputs, biases and norm offsets 0, norm scales 1.
-    The draws differ from flax's for the same seed."""
+    families: sparse conv weights [K, C, CO] He-style over K*C, Linear and
+    dense conv weights LeCun-style over their inputs, biases and norm
+    offsets 0, norm scales 1.  The draws differ from flax's for the same
+    seed."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -111,9 +112,9 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
             cpu = torch.empty(p.shape)
             _trunc_normal_fan_in(cpu, p.shape[0] * p.shape[1], 2.0, gen)
             p.copy_(cpu)
-        elif p.dim() == 2:  # nn.Linear weight [out, in]
+        elif p.dim() in (2, 5):  # nn.Linear [out, in], nn.Conv3d [out, in, *k]
             cpu = torch.empty(p.shape)
-            _trunc_normal_fan_in(cpu, p.shape[1], 1.0, gen)
+            _trunc_normal_fan_in(cpu, math.prod(p.shape[1:]), 1.0, gen)
             p.copy_(cpu)
         else:
             raise ValueError(f"no initialiser for parameter {name}")

@@ -20,6 +20,8 @@ from .sparse_tensor import (  # noqa: F401
     INVALID_KEY,
     SparseTensor,
     build_sparse_tensor,
+    from_dense,
     linearize,
+    to_dense,
     unlinearize,
 )

@@ -122,3 +122,40 @@ def build_sparse_tensor(
     feats_sorted = torch.where(live[..., None], feats_sorted, 0)
     coords_sorted = torch.where(live[..., None], coords_sorted, -1)
     return SparseTensor(coords_sorted, feats_sorted, n_active, tuple(grid_shape))
+
+
+def to_dense(st: SparseTensor) -> torch.Tensor:
+    """SparseToDense: [B, *grid_shape, C], channels last (the JAX layout).
+    Live rows add into their site's cell (a repeated key adds up); dead
+    rows are dropped."""
+    b = st.batch_size
+    c = st.num_channels
+    total = int(np.prod(st.grid_shape))
+    mask = st.row_mask()
+    slot = torch.where(mask, st.keys().long(), total)  # total: the drop slot
+    feats = torch.where(mask[..., None], st.feats, 0)
+    dense = torch.zeros((b, total + 1, c), dtype=st.feats.dtype, device=st.device)
+    dense.scatter_add_(1, slot[..., None].expand(-1, -1, c), feats)
+    return dense[:, :total].reshape((b, *st.grid_shape, c))
+
+
+def from_dense(dense: torch.Tensor, capacity: int,
+               grid_shape: Tuple[int, ...] | None = None) -> SparseTensor:
+    """Testing helper: dense [B, *grid, C] -> SparseTensor of its nonzero
+    sites in key order, the first ``capacity`` of each element."""
+    if grid_shape is None:
+        grid_shape = tuple(dense.shape[1:-1])
+    b, c = dense.shape[0], dense.shape[-1]
+    flat = dense.reshape(b, -1, c)
+    cells = flat.shape[1]
+    nz = (flat != 0).any(dim=-1)
+    index = torch.arange(cells, dtype=torch.int32, device=dense.device)
+    keys = torch.where(nz, index[None, :], INVALID_KEY)
+    keys = torch.sort(keys, dim=-1).values[:, :capacity]
+    coords = unlinearize(keys, tuple(grid_shape))
+    rows = keys.clamp(0, cells - 1).long()
+    feats = torch.gather(flat, 1, rows[..., None].expand(-1, -1, c))
+    live = keys != INVALID_KEY
+    feats = torch.where(live[..., None], feats, 0)
+    return SparseTensor(coords, feats, live.sum(-1).to(torch.int32),
+                        tuple(grid_shape))

@@ -128,15 +128,22 @@ def close_datasets(datasets) -> None:
             ds.close()
 
 
+def to_input(image: np.ndarray, grid, capacity: int, dtype: torch.dtype,
+             device: torch.device):
+    """A padded larcv image array -> SparseTensor on the device in the
+    feature type.  A 4-D image is 2D multiplane data, [B, planes,
+    MaxVoxels, 3]."""
+    to_sparse = (larcv_batch_to_sparse_2d if image.ndim == 4
+                 else larcv_batch_to_sparse_3d)
+    st = to_sparse(image, grid, capacity=capacity, device=device)
+    return st.with_feats(st.feats.to(dtype))
+
+
 def prepare_batch(batch, grid, capacity: int, dtype: torch.dtype,
                   device: torch.device):
     """A dataset batch (padded numpy arrays) -> (SparseTensor on the device
-    in the feature type, labels on the device).  A 4-D image is 2D
-    multiplane data, [B, planes, MaxVoxels, 3]."""
-    to_sparse = (larcv_batch_to_sparse_2d if batch["image"].ndim == 4
-                 else larcv_batch_to_sparse_3d)
-    st = to_sparse(batch["image"], grid, capacity=capacity, device=device)
-    st = st.with_feats(st.feats.to(dtype))
+    in the feature type, labels on the device)."""
+    st = to_input(batch["image"], grid, capacity, dtype, device)
     labels = {k: torch.from_numpy(batch[k]).to(device) for k in OUTPUT_SHAPE}
     return st, labels
 
@@ -173,17 +180,17 @@ def validate(
     device: torch.device | str | None = None,
 ) -> Dict[str, float]:
     """Run the validation split once -> mean metrics (``overflow/dropped``
-    is the total over the run).
+    is the total over the run).  The supervised task can write its softmax
+    (``mode.output_file``); yolo writes its per-event outputs to
+    ``<run dir>/validation_output/val_rank_0.npz``.
 
     ``dataset`` (``__len__``, ``batch(indices)``, ``batch_grid()``) defaults
     to the config's val split (test without one); ``params`` is a
     ``state_dict`` to evaluate (e.g. from ``convert.params_from_jax``),
     default a seeded random initialisation and then the run's restore."""
-    if cfg.name != "supervised_eventID":
-        raise NotImplementedError(
-            f"task {cfg.name!r} is not ported yet (ROADMAP: the other models "
-            "and tasks)"
-        )
+    from .tasks import check_task
+
+    check_task(cfg.name)
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
@@ -193,7 +200,9 @@ def validate(
                 cfg, "val" if "val" in cfg.data.active else "test")
             owned.append(dataset)
         try:
-            return _validate(cfg, dataset, params, dev, out_dir)
+            if cfg.name == "supervised_eventID":
+                return _validate(cfg, dataset, params, dev, out_dir)
+            return _validate_task(cfg, dataset, params, dev, out_dir)
         finally:
             close_datasets(owned)
 
@@ -245,4 +254,41 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
         write_softmax(output_file,
                       {k: np.concatenate(v) for k, v in outputs.items()})
         logger.info("wrote softmax outputs to %s", output_file)
+    return mean
+
+
+def _validate_task(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
+    """validate() for simclr, yolo and unsupervised_eventID: the task's
+    eval step over the split (JAX ``Trainer.validate``), and for yolo the
+    predict step's outputs, one ``.npz`` (keys label, vertex_true, anchor,
+    vertex, pred_label; the reference's vertex_finding.py:154-178)."""
+    from .tasks import LOADER_PLANS, build_task
+
+    grid = tuple(dataset.batch_grid())
+    planner = None
+    if cfg.name in LOADER_PLANS:
+        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, grid)
+    task = build_task(cfg, dataset, grid, 1, params, dev, planner)
+    if params is None:
+        restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),
+                    task.state.model, dev)
+    bs = cfg.run.minibatch_size
+    n_batches = max(len(dataset) // bs, 1)
+    per_batch, outputs = [], []
+    for i in range(n_batches):
+        batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
+        args = task.prepare(batch)
+        per_batch.append({k: float(v) for k, v in task.eval_step(args).items()})
+        if task.predict is not None:
+            outputs.append({k: v.cpu().numpy()
+                            for k, v in task.predict(args).items()})
+    mean = {k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]}
+    mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
+    logger.info("validation over %d batches: %s", n_batches, mean)
+    if outputs:
+        path = out_dir / "validation_output" / "val_rank_0.npz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **{k: np.concatenate([o[k] for o in outputs])
+                          for k in outputs[0]})
+        logger.info("wrote vertex validation outputs to %s", path)
     return mean

@@ -1,6 +1,8 @@
-"""Supervised 4-head losses and accuracy (JAX counterpart: ``train/losses.py``):
-focal loss (gamma 2, softmax clamped to [1e-7, 1 - 1e-7]) or cross-entropy
-with label smoothing 0.1 and optional class weights, summed over heads."""
+"""Losses and accuracy (JAX counterpart: ``train/losses.py``): for the
+supervised heads focal loss (gamma 2, softmax clamped to [1e-7, 1 - 1e-7])
+or cross-entropy with label smoothing 0.1 and optional class weights,
+summed over heads; for SimCLR the NT-Xent loss and its top-k retrieval
+accuracy over one card's batch."""
 
 from __future__ import annotations
 
@@ -64,3 +66,37 @@ def multi_head_accuracy(
         key: (lg.argmax(dim=-1) == labels[key].long()).float().mean()
         for key, lg in logits.items()
     }
+
+
+def _view_similarity(z1: torch.Tensor, z2: torch.Tensor, temperature: float):
+    """-> (sim [2N, 2N] over both views, self-pairs at -1e9, and the index
+    of each row's positive, i +- N).  The normalisation is smooth,
+    z * rsqrt(sum z^2 + 1e-12), so an empty view's gradient stays finite."""
+    n = z1.shape[0]
+    z = torch.cat([z1, z2], dim=0)
+    z = z * torch.rsqrt((z * z).sum(dim=-1, keepdim=True) + 1e-12)
+    sim = z @ z.T / temperature
+    eye = torch.eye(2 * n, dtype=torch.bool, device=z.device)
+    sim = sim.masked_fill(eye, -1e9)
+    idx = torch.arange(n, device=z.device)
+    return sim, torch.cat([idx + n, idx])
+
+
+def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor,
+                 temperature: float = 0.1) -> torch.Tensor:
+    """SimCLR NT-Xent: z1, z2 [N, D] the two views' projections; each of
+    the 2N rows competes its positive against the 2N - 2 negatives."""
+    sim, pos = _view_similarity(z1, z2, temperature)
+    logp = torch.log_softmax(sim, dim=-1)
+    return -logp.gather(1, pos[:, None])[:, 0].mean()
+
+
+def nt_xent_top_k_accuracy(z1: torch.Tensor, z2: torch.Tensor,
+                           temperature: float = 0.1, k: int = 1
+                           ) -> torch.Tensor:
+    """The share of rows whose positive is among their k most similar
+    (k at most 2N - 1, for tiny batches)."""
+    sim, pos = _view_similarity(z1, z2, temperature)
+    k = min(k, 2 * z1.shape[0] - 1)
+    top = sim.topk(k, dim=-1).indices
+    return (top == pos[:, None]).any(dim=-1).float().mean()

@@ -16,6 +16,22 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0  # train steps taken (micro-steps under accumulation)
 
+    def apply_gradients(self, every: int = 1) -> None:
+        """Count one step whose gradients ``backward`` has added to the
+        parameters'; on every ``every``-th, update with their mean over the
+        last ``every`` steps and move the schedule on, as
+        ``optax.MultiSteps`` does."""
+        self.step += 1
+        if self.step % every:
+            return
+        if every > 1:
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(every)
+        self.optimizer.step()
+        self.scheduler.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
 
 def param_count(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())

@@ -82,7 +82,7 @@ def make_train_step(
     With ``gradient_accumulation`` = k the gradients of k consecutive steps
     are averaged and the optimizer moves on every k-th, as
     ``optax.MultiSteps`` does."""
-    model, optimizer, scheduler = state.model, state.optimizer, state.scheduler
+    model = state.model
     k = max(int(gradient_accumulation), 1)
 
     def step(st: SparseTensor, labels, generator: torch.Generator | None = None,
@@ -98,15 +98,7 @@ def make_train_step(
         metrics.update({f"acc/{name}": v for name, v in acc.items()})
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
-        state.step += 1
-        if state.step % k == 0:
-            if k > 1:
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(k)
-            optimizer.step()
-            scheduler.step()
-            optimizer.zero_grad(set_to_none=True)
+        state.apply_gradients(k)
         return metrics
 
     return step

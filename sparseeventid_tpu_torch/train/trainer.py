@@ -1,61 +1,58 @@
-"""Train and iotest modes: the counterpart of the JAX ``Trainer`` for the
-supervised task (``train``, ``iotest``).
+"""Train, iotest and visualize modes: the counterpart of the JAX
+``Trainer`` (``train``, ``iotest``, ``visualize``).
 
 A train run reads its splits through prefetching ``BatchLoader``s, builds
-the model, optimizer and schedule from the config, restores (an
-encoder-only transfer, a full restore from ``mode.weights_location``, or
-the newest checkpoint of its run directory), and takes steps from the
-restored step to ``mode.iterations`` (0: ``run.length`` epochs of the train
-split).  Every ``VAL_CHECK_INTERVAL`` steps it evaluates one validation
-batch first; it saves a checkpoint every ``mode.checkpoint_iteration``
-steps and at the end, keeping 5.  As in the JAX package, a resumed run's
-data stream starts again at its beginning.  Logs go to the run's
-``process.log`` and, with tensorboardX, to ``tb/``.
+the task's model, optimizer and schedule from the config
+(``train/tasks.py``: supervised_eventID, simclr, yolo or
+unsupervised_eventID by ``cfg.name``), restores (an encoder-only transfer,
+a full restore from ``mode.weights_location``, or the newest checkpoint of
+its run directory), and takes steps from the restored step to
+``mode.iterations`` (0: ``run.length`` epochs of the train split).  Every
+``VAL_CHECK_INTERVAL`` steps it evaluates one validation batch first; it
+saves a checkpoint every ``mode.checkpoint_iteration`` steps and at the
+end, keeping 5.  As in the JAX package, a resumed run's data stream starts
+again at its beginning.  Logs go to the run's ``process.log`` and, with
+tensorboardX, to ``tb/``; with ``run.profile`` the loop runs under
+``torch.profiler`` and leaves a Chrome trace under ``profile/``.
 
 The window plans of every batch are built on the host, in the loader's
 thread, through a per-event plan cache whose line goes to the log once an
-epoch (``train/plans.py``); ``SEID_HOST_PLANS=0`` builds them on the device
-instead.  ``iotest`` times the same loaders, plan building included.
+epoch (``train/plans.py``); SimCLR builds its views' plans as it makes the
+views; ``SEID_HOST_PLANS=0`` builds them on the device instead.  ``iotest``
+times the same loaders, plan building included.
 
-Not here yet, and refused by name of the roadmap item: the other tasks and
-data-parallel training.
+Not here yet, and refused by name of the roadmap item: data-parallel
+training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
+from pathlib import Path
 from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
 
-from ..config.schema import OptimizerConfig, SparseEventIDConfig
+from ..config.schema import OUTPUT_SHAPE, SparseEventIDConfig
 from ..io.dataset import BatchLoader
-from ..models import build_sparse_classifier, init_parameters
-from ..utils.checkpoint import (
-    CheckpointManager,
-    encoder_freeze_names,
-    restore_run,
-    transfers_encoder,
-)
+from ..models import build_sparse_classifier
+from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
-from .evaluate import (
-    build_dataset,
-    class_weights_of,
-    close_datasets,
-    feature_dtype,
-    prepare_batch,
-    resolve_device,
-    run_dir,
-)
-from .optimizers import build_optimizer
-from .plans import HostPlanner, planner_for
-from .schedules import build_lr_schedule
+from .evaluate import build_dataset, close_datasets, resolve_device, run_dir
+from .plans import planner_for
 from .state import TrainState, param_count
-from .supervised import make_eval_step, make_train_step
+from .tasks import (  # noqa: F401  (build_training, host_plans_of: callers)
+    LOADER_PLANS,
+    build_task,
+    build_training,
+    check_task,
+    host_plans_of,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -84,55 +81,11 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
         int(entropy.generate_state(1, np.uint64)[0]))
 
 
-def build_training(cfg: SparseEventIDConfig, epoch_length: int,
-                   params: Mapping[str, torch.Tensor] | None,
-                   device: torch.device, planner: HostPlanner | None = None):
-    """-> (state, train_step, n_steps) of the supervised task; with a
-    ``planner`` the step takes the batch's host plans (``host_plans=``, a
-    dict on the device).  In a transfer run the encoder's parameters are
-    frozen: they need no gradient and AdamW holds none of them, so neither
-    its update nor its weight decay moves them (the JAX ``optax.multi_transform`` with
-    ``set_to_zero``); its batch norms still update their statistics."""
-    opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
-    total_epochs = max(cfg.run.length, 1)
-    lr_schedule = build_lr_schedule(opt_cfg.lr_schedule, epoch_length, total_epochs)
-    model = build_sparse_classifier(cfg)
-    if params is None:
-        init_parameters(model, cfg.run.seed)
-    else:
-        model.load_state_dict(params)
-    model.to(device)
-    if transfers_encoder(cfg.mode):
-        frozen = encoder_freeze_names(model)
-        for name, p in model.named_parameters():
-            if name in frozen:
-                p.requires_grad_(False)
-    trainable = [p for p in model.parameters() if p.requires_grad]
-    optimizer, scheduler = build_optimizer(opt_cfg, lr_schedule, trainable)
-    state = TrainState(model, optimizer, scheduler)
-    scheme = opt_cfg.loss_balance_scheme
-    step = make_train_step(
-        state, scheme, lr_schedule, class_weights_of(scheme, device),
-        gradient_accumulation=opt_cfg.gradient_accumulation,
-        plans_builder=planner.plans if planner is not None else None,
-    )
-    n_steps = getattr(cfg.mode, "iterations", 0) or epoch_length * total_epochs
-    return state, step, n_steps
-
-
 def make_loader(cfg: SparseEventIDConfig, dataset, transform=None) -> BatchLoader:
     return BatchLoader(
         dataset, cfg.run.minibatch_size, access_mode=cfg.data.mode,
         seed=cfg.data.seed if cfg.data.seed >= 0 else 0, transform=transform,
     )
-
-
-def host_plans_of(planner: HostPlanner | None, batch, device):
-    """The batch's host plans copied to ``device`` (None without a
-    planner)."""
-    if planner is None:
-        return None
-    return planner.to_device(planner.for_batch(batch), device)
 
 
 def train(
@@ -146,11 +99,7 @@ def train(
     validates on nothing.  ``params`` is a ``state_dict`` to start from;
     without it the run starts from a seeded random initialisation and then
     restores."""
-    if cfg.name != "supervised_eventID":
-        raise NotImplementedError(
-            f"task {cfg.name!r} is not ported yet (ROADMAP: the other models "
-            "and tasks)"
-        )
+    check_task(cfg.name)
     if cfg.run.distributed:
         raise NotImplementedError(
             "run.distributed: data-parallel training is not ported yet "
@@ -168,26 +117,53 @@ def train(
             datasets = {"train": dataset}
         # one plan geometry for every split, the train split's grid
         grid = tuple(datasets["train"].batch_grid())
-        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, grid,
-                              cache=True)
+        planner = None
+        if cfg.name in LOADER_PLANS:
+            planner = planner_for(cfg, build_sparse_classifier(cfg).encoder,
+                                  grid, cache=True)
         loaders = {}
         try:
             for split, ds in datasets.items():
-                if planner is not None and tuple(ds.batch_grid()) != grid:
+                if tuple(ds.batch_grid()) != grid:
                     raise ValueError(f"split {split} has grid "
                                      f"{ds.batch_grid()}, train has {grid}")
                 loaders[split] = make_loader(
                     cfg, ds, planner.transform(split) if planner else None)
-            return _train(cfg, datasets, loaders, planner, params, dev, out_dir)
+            with _profiled(cfg, out_dir, dev):
+                return _train(cfg, datasets["train"], grid, loaders, planner,
+                              params, dev, out_dir)
         finally:
             for loader in loaders.values():
                 loader.stop()
             close_datasets(owned)
 
 
-def _train(cfg, datasets, loaders, planner, params, dev, out_dir) -> TrainRun:
+@contextlib.contextmanager
+def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
+    """With ``run.profile``, run the block under ``torch.profiler`` (CPU and,
+    on the card, CUDA activities) and write its Chrome trace to
+    ``<run dir>/profile/trace.json`` (the JAX trainer's ``jax.profiler``
+    trace)."""
+    if not cfg.run.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    path = out_dir / "profile" / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(path))
+    logger.info("wrote the profiler trace %s", path)
+
+
+def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainRun:
     loader, val_loader = loaders["train"], loaders.get("val")
-    state, step, n_steps = build_training(cfg, len(loader), params, dev, planner)
+    task = build_task(cfg, dataset, grid, len(loader), params, dev, planner)
+    state = task.state
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
     logger.info("window plans built on the %s",
                 "host" if planner is not None else "device")
@@ -197,13 +173,6 @@ def _train(cfg, datasets, loaders, planner, params, dev, out_dir) -> TrainRun:
                                state.optimizer, state.scheduler)
         if restored is not None:
             state.step = restored
-    opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
-    eval_step = make_eval_step(
-        state.model, opt_cfg.loss_balance_scheme,
-        class_weights_of(opt_cfg.loss_balance_scheme, dev),
-        plans_builder=planner.plans if planner is not None else None)
-    dtype = feature_dtype(cfg)
-    cap0 = state.model.encoder.capacities[0]
     bs = cfg.run.minibatch_size
     log_every = getattr(cfg.mode, "logging_iteration", 1) or 1
     ckpt_every = getattr(cfg.mode, "checkpoint_iteration", 50) or 50
@@ -211,22 +180,16 @@ def _train(cfg, datasets, loaders, planner, params, dev, out_dir) -> TrainRun:
     run = TrainRun([], state, first_step=state.step)
     saved = None
     timer = StepTimer()
-    for i in range(state.step, n_steps):
+    for i in range(state.step, task.n_steps):
         if val_loader is not None and i % VAL_CHECK_INTERVAL == 0:
-            vbatch = next(val_loader)
-            vst, vlabels = prepare_batch(vbatch, datasets["val"].batch_grid(),
-                                         cap0, dtype, dev)
-            vm = {k: float(v) for k, v in eval_step(
-                vst, vlabels, host_plans_of(planner, vbatch, dev)).items()}
+            vm = {k: float(v) for k, v in
+                  task.eval_step(task.prepare(next(val_loader))).items()}
             run.validation[i] = vm
             writer.write(vm, i, prefix="val/")
             logger.info(format_log_message(vm, bs, i, mode="val"))
-        batch = next(loader)
-        st, labels = prepare_batch(batch, datasets["train"].batch_grid(),
-                                   cap0, dtype, dev)
-        host = host_plans_of(planner, batch, dev)
+        args = task.prepare(next(loader))
         timer.mark_io()
-        metrics = step(st, labels, step_generator(cfg.run.seed, i, dev), host)
+        metrics = task.train_step(args, step_generator(cfg.run.seed, i, dev))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timer.mark_step()
@@ -290,3 +253,73 @@ def iotest(cfg: SparseEventIDConfig) -> Dict[str, Dict[str, float]]:
             logger.info("%s: mean fetch %.2f ms, %.1f img/s", split,
                         mean * 1e3, bs / mean)
     return results
+
+
+def visualize(cfg: SparseEventIDConfig) -> List[Path]:
+    """Event displays (the JAX ``Trainer.visualize``; the reference CLI
+    names this mode but has no method for it): ``mode.events`` events of the
+    val split (else the first active split), each a PNG under
+    ``<run dir>/visualize/``, charge-coloured scatter plots of the x-y, x-z
+    and y-z projections for 3D data or one panel a plane for 2D multiplane
+    data, with the truth labels and the deposited energy in the title.
+    Host work only; needs matplotlib.  -> the files written."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    out = run_dir(cfg) / "visualize"
+    out.mkdir(parents=True, exist_ok=True)
+    n_events = int(getattr(cfg.mode, "events", 8))
+    active = cfg.data.active or ("train",)
+    split = "val" if "val" in active else active[0]
+    written = []
+    with process_log(run_dir(cfg) / "process.log"):
+        dataset = build_dataset(cfg, split)
+        loader = make_loader(cfg, dataset)
+        try:
+            while len(written) < n_events:
+                batch = next(loader)
+                for b in range(batch["image"].shape[0]):
+                    if len(written) >= n_events:
+                        break
+                    written.append(_event_display(
+                        plt, batch, b, split, len(written), out))
+                    logger.info("wrote %s", written[-1])
+        finally:
+            loader.stop()
+            close_datasets([dataset])
+    return written
+
+
+def _event_display(plt, batch, b: int, split: str, index: int,
+                   out: Path) -> Path:
+    labels = ", ".join(f"{k.removeprefix('label')}={int(batch[k][b])}"
+                       for k in sorted(OUTPUT_SHAPE) if k in batch)
+    image = np.asarray(batch["image"][b])
+    if image.ndim == 3:  # 2D multiplane [planes, MaxVoxels, 3]
+        fig, axes = plt.subplots(1, len(image), figsize=(5 * len(image), 5))
+        axes = np.atleast_1d(axes)
+        for p, ax in enumerate(axes):
+            live = image[p, :, -1] != -999.0
+            sc = ax.scatter(image[p, live, 0], image[p, live, 1],
+                            c=image[p, live, 2], s=1.5, cmap="viridis")
+            ax.set_title(f"plane {p}")
+            ax.set_aspect("equal")
+    else:  # 3D [MaxVoxels, 4]
+        live = image[:, 3] != -999.0
+        c, v = image[live, :3], image[live, 3]
+        fig, axes = plt.subplots(1, 3, figsize=(15, 5))
+        for ax, (i, j, name) in zip(
+                axes, [(0, 1, "x-y"), (0, 2, "x-z"), (1, 2, "y-z")]):
+            sc = ax.scatter(c[:, i], c[:, j], c=v, s=1.5, cmap="viridis")
+            ax.set_title(name)
+            ax.set_aspect("equal")
+    fig.colorbar(sc, ax=axes[-1], label="charge")
+    energy = (f"  energy={float(batch['energy'][b]):.0f}"
+              if "energy" in batch else "")
+    fig.suptitle(f"{split} event {index}: {labels}{energy}")
+    path = out / f"{split}_event_{index:03d}.png"
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    return path

@@ -84,8 +84,18 @@ def test_cli_needs_cuda_unless_asked(monkeypatch, tmp_path, one_torch_thread):
                     f"output_dir={tmp_path}"])
     assert metrics["overflow/dropped"] == 0 and metrics["loss/loss"] > 0
     assert metrics["opt/lr"] > 1e-5  # the second step of the warm-up
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--config-name", "synthetic", "mode=visualize"])
+    # visualize is host work: it needs no card, only matplotlib (without
+    # it, the import error names it)
+    show = ["--config-name", "synthetic", "mode=visualize", "mode.events=1",
+            "data.max_voxels=256", "data.synthetic_events=4",
+            f"output_dir={tmp_path}"]
+    try:
+        import matplotlib  # noqa: F401
+    except ModuleNotFoundError:
+        with pytest.raises(ModuleNotFoundError, match="matplotlib"):
+            main(show)
+    else:
+        assert [p.endswith(".png") for p in main(show)["written"]] == [True]
 
 
 def test_unported_inputs_raise_naming_the_roadmap(tmp_path):

@@ -175,9 +175,16 @@ def test_loss_gradients_match_jax(scheme):
 
 
 def test_other_optimizers_name_the_roadmap():
-    cfg = tload("synthetic", ["mode.optimizer.name=lamb"]).mode.optimizer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(cfg, lambda s: 1.0, [torch.nn.Parameter(torch.zeros(1))])
+    """The other seven kinds are built now (their updates are held against
+    optax in test_torch_optimizers.py); each sits under the schedule's
+    LambdaLR at base lr 1.0, as AdamW does."""
+    for kind in ("rmsprop", "sgd", "adagrad", "adadelta", "lars", "lamb",
+                 "novograd"):
+        cfg = tload("synthetic", [f"mode.optimizer.name={kind}"]).mode.optimizer
+        opt, sched = build_optimizer(cfg, lambda s: 0.5,
+                                     [torch.nn.Parameter(torch.zeros(1))])
+        assert opt.kind == kind and opt.param_groups[0]["lr"] == 0.5
+        assert sched.base_lrs == [1.0]
 
 
 def test_dropout_draws_from_its_generator():
