@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--parent DIR]
 
+(``--dp-rank DIR`` is the entry of a rank of the dp_two_ranks phase.)
+
 Phases, one JSON line each; any failure exits non-zero:
 
   1. device   the card's name, count, and nvidia-smi's name and power limit
@@ -146,9 +148,28 @@ Phases, one JSON line each; any failure exits non-zero:
               anchor map, window kernels on host plans against the plain
               backend, rtol = atol = 1e-3); visualize (two event displays
               where matplotlib imports, else {"matplotlib": false})
- 14. the total wall time, the {"kernels": [...]} line (window_plan's
+ 14. data parallelism (parallel/mesh.py) at full dune3d width on host
+              plans: dp_world1 (a world-size-1 NCCL group joined from
+              torchrun's variables: one step through the distributed path
+              (sync batch norm, metric and gradient mean) from the same
+              weights on batch 0 gives the one-process step's bits in every
+              gradient the optimizer is given and every running statistic;
+              then 4 steps through train.trainer.train(run.distributed=
+              true), steps/s beside train's, the NCCL kernels' device ms of
+              a step); dp_two_ranks (two ranks on the one card, gloo,
+              framework.oversubscribe=2, started by torch.distributed.run,
+              each rank running this script with --dp-rank DIR and taking 4
+              of batch 0's 8 events: the fp32 step's loss within 1e-3 and
+              every mean gradient within fp32_grad_compare's limit of one
+              process on the 8 events; after 2 bf16 supervised steps and 2
+              SimCLR steps (the gathered batch 2 x 4 events a view, top-1 <=
+              top-5 in [0, 1]) the ranks' parameters and statistics the same
+              bits, 0 dropped; steps/s and the collectives' ms a step, with
+              two ranks sharing one card's SMs, no scaling number)
+ 15. the total wall time, the {"kernels": [...]} line (window_plan's
      launches from main_device; launches_simclr, _yolo, _unsupervised of
-     the task runs), then {"ok": true, "device": {...}} last.
+     the task runs; launches_dp and launches_dp_two_ranks of the DP runs),
+     then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -161,6 +182,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -252,6 +275,7 @@ CAMPAIGN_EVENTS = 24
 RUN_DIR = Path("output")  # the runs' output_dir: main() sets a fresh one
 CAMPAIGN_OVERRIDES = []  # more overrides of the campaign's runs (rehearsals)
 FP32_GRAD_EVENTS = 2  # the plain backend's fp32 backward keeps ~7 GB an event
+STEPS_PER_S = {}  # steps/s of each train phase, by phase name
 
 
 def emit(obj) -> None:
@@ -376,10 +400,10 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def make_dataset():
+def make_dataset(n_batches=N_BATCHES):
     from sparseeventid_tpu_torch.io import SyntheticDataset, SyntheticEventConfig
 
-    n = BATCH * N_BATCHES
+    n = BATCH * n_batches
     ds = SyntheticDataset(
         n,
         SyntheticEventConfig(image_size=GRID, max_voxels=MAX_VOXELS,
@@ -1961,6 +1985,7 @@ def phase_train(dataset, recipe="dune3d", grid=GRID, phase="train",
                       f"{phase}_events_per_s": steps_per_s * BATCH,
                       "timed_steps": len(timed), "batch": BATCH,
                       "precision": "bfloat16"}), flush=True)
+    STEPS_PER_S[phase] = steps_per_s
     profile_train_step(dataset, recipe, grid, phase, host)
     if host:
         gradients_repeat(dataset, recipe, grid, phase)
@@ -3351,9 +3376,434 @@ def phase_visualize() -> None:
     emit({"phase": "visualize", "matplotlib": True, "written": len(written)})
 
 
+# ---- data parallelism (parallel/mesh.py) ----------------------------------
+
+DP_STEPS = 4  # one warm-up, three timed
+DP_WORLD = 2  # ranks of dp_two_ranks, all on the one card
+DP_TWO_RANK_STEPS = 2
+DP_RANK_TIMEOUT_S = 420  # the ranks' whole run, start-up included
+DP_FP32_LOSS_RTOL = 1e-3
+
+
+class EventsDataset:
+    """One padded batch served event by event: a rank's loader takes its
+    shard's events out of it."""
+
+    def __init__(self, grid, batch):
+        self._grid = tuple(grid)
+        self._batch = batch
+
+    def __len__(self):
+        return len(self._batch["image"])
+
+    def batch_grid(self):
+        return self._grid
+
+    def batch(self, indices):
+        import numpy as np
+
+        idx = np.asarray(indices)
+        return {k: v[idx] for k, v in self._batch.items()}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def digest(tensors) -> str:
+    """One hash of the bits of every tensor of a name -> tensor mapping."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in tensors.items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def optimizer_gradients(cfg, dataset, events):
+    """One train step of ``cfg``'s task, built as the trainer builds it from
+    the run's seed, on ``events`` (host plans built as the loader's thread
+    builds them) -> (its metrics, the gradients its optimizer was given,
+    the buffers after the step)."""
+    import torch
+
+    task, planner = build_task_of(cfg, dataset)
+    state = task.state
+    grads = {}
+    update = state.optimizer.step
+
+    def spy(*args, **kwargs):
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+        return update(*args, **kwargs)
+
+    state.optimizer.step = spy
+    batch = dataset.batch(list(events))
+    if planner is not None:
+        batch = planner.transform("train")(batch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    metrics = task.train_step(task.prepare(batch), gen)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()}, grads,
+            {n: b.detach().clone() for n, b in state.model.named_buffers()})
+
+
+def _counted_dp(fn):
+    """``_counted``, and the launches of the two ops-path kernels, which no
+    model selects -> (result, launches, plain calls, ops-path launches)."""
+    from sparseeventid_tpu_torch.ops import gather_conv as GC
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    ops = (K.window_gather, GC.gather_conv)
+    for f in ops:
+        f.launches = 0
+    out, launches, plain_calls = _counted(fn)
+    return out, launches, plain_calls, {f.__name__: f.launches for f in ops}
+
+
+def profile_dp_step(cfg, dataset):
+    """One train step of ``cfg``'s task after a warm-up: the wall ms of
+    three steps (batches 1, 2, 1), then one profiled step -> its device-busy
+    ms, the device ms and launches of NCCL kernels, and the host ms of the
+    collectives (the self CPU time of the c10d ops and their
+    ``record_param_comms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    task, planner = build_task_of(cfg, dataset)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    batches = [planner.transform("train")(dataset.batch([first]))
+               for first in (0, BATCH, 2 * BATCH)]
+
+    def step(b):
+        task.train_step(task.prepare(batches[b]), gen)
+        torch.cuda.synchronize()
+
+    step(0)
+    walls = []
+    for b in (1, 2, 1):
+        t0 = time.perf_counter()
+        step(b)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(1)
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in device if "nccl" in e.key.lower()]
+    comms = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+             and (e.key.startswith("c10d::") or e.key == "record_param_comms")]
+    return {"wall_ms": walls,
+            "device_busy_ms": sum(e.self_device_time_total for e in device) / 1e3,
+            "nccl_device_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+            "nccl_launches": sum(e.count for e in nccl),
+            "collective_calls": sum(e.count for e in comms
+                                    if e.key.startswith("c10d::")),
+            "collective_host_ms": sum(e.self_cpu_time_total for e in comms) / 1e3}
+
+
+def phase_dp_world1(dataset):
+    """dune3d at full width on host plans as a world-size-1 NCCL group,
+    joined by ``mesh.initialize_distributed`` from torchrun's variables: one
+    train step through the distributed path (sync batch norm, metrics and
+    gradient mean) from the same weights on batch 0 as the one-process
+    step gives the same bits in every gradient the optimizer is given and
+    in every running statistic; then DP_STEPS steps through
+    train.trainer.train(run.distributed=true), their steps/s beside the
+    train phase's; one profiled step each without and with the group (wall,
+    device-busy, the NCCL kernels' device ms and the collectives' host ms)
+    -> the launches of the train run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sparseeventid_tpu_torch.parallel import mesh
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    base = ["run.precision=bfloat16", "run.id=dp_world1"]
+    events = range(BATCH)
+    ref_metrics, ref_grads, ref_bufs = optimizer_gradients(
+        train_config(base), dataset, events)
+    one_process = profile_dp_step(train_config(base), dataset)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    os.environ.update(env)
+    try:
+        cfg = train_config([*base, "run.distributed=true"])
+        dev = mesh.initialize_distributed(cfg)
+        backend = dist.get_backend()
+        require(mesh.world() == 1 and backend == "nccl",
+                f"dp_world1: world {mesh.world()}, backend {backend}")
+        dp_metrics, dp_grads, dp_bufs = optimizer_gradients(cfg, dataset, events)
+        differ = sorted(n for n in ref_grads
+                        if not torch.equal(ref_grads[n], dp_grads.get(n)))
+        buf_differ = sorted(n for n in ref_bufs
+                            if not torch.equal(ref_bufs[n], dp_bufs[n]))
+        metric_differ = sorted(k for k in ref_metrics
+                               if ref_metrics[k] != dp_metrics[k])
+        emit({"phase": "dp_world1_step", "backend": backend, "device": str(dev),
+              "gradients": len(dp_grads), "gradients_differ": len(differ),
+              "differ_names": differ[:20], "running_stats": len(dp_bufs),
+              "running_stats_differ": len(buf_differ),
+              "metrics_differ": metric_differ, "loss": dp_metrics["loss/loss"]})
+        require(len(dp_grads) == len(ref_grads) > 0 and not differ,
+                f"dp_world1: gradients differ from the one-process step: {differ}")
+        require(not buf_differ and not metric_differ,
+                f"dp_world1: running statistics {buf_differ} or metrics "
+                f"{metric_differ} differ from the one-process step")
+
+        run_cfg = train_config([*base, "run.distributed=true",
+                                f"mode.iterations={DP_STEPS}"])
+        run, launches, plain_calls, ops = _counted_dp(
+            lambda: train(run_cfg, dataset))
+        history = run.history
+        require(len(history) == DP_STEPS == run.state.step, "dp_world1: steps")
+        for i, m in enumerate(history):
+            require(np.isfinite(m["loss/loss"]) and m["overflow/dropped"] == 0,
+                    f"dp_world1 step {i}: {m}")
+        expected = {k: v * DP_STEPS for k, v in LAUNCHES_PER_TRAIN_STEP_HOST.items()}
+        require(launches == expected,
+                f"dp_world1: launch counts {launches}, expected {expected}")
+        require(all(v == 0 for v in plain_calls.values())
+                and not any(ops.values()),
+                f"dp_world1: plain version or ops-path kernel on the path: "
+                f"{plain_calls}, {ops}")
+        timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
+        steps_per_s = len(timed) / sum(timed)
+        distributed = profile_dp_step(cfg, dataset)
+    finally:
+        mesh.destroy()
+        for k in env:
+            os.environ.pop(k, None)
+    emit({"phase": "dp_world1", "steps": DP_STEPS, "backend": backend,
+          "step_s": [m["time/step_s"] for m in history],
+          "io_s": [m["time/io_s"] for m in history],
+          "loss": [m["loss/loss"] for m in history],
+          "launches": launches, "plain_calls": plain_calls,
+          "profiled_step": {"one_process": one_process,
+                            "distributed": distributed}})
+    launches.update(ops)
+    print(json.dumps({"dp_world1_steps_per_s": steps_per_s,
+                      "train_steps_per_s": STEPS_PER_S.get("train"),
+                      "timed_steps": len(timed), "batch": BATCH,
+                      "precision": "bfloat16",
+                      "nccl_device_ms_per_step": distributed["nccl_device_ms"],
+                      "collective_host_ms_per_step":
+                      distributed["collective_host_ms"]}), flush=True)
+    return launches
+
+
+def phase_dp_two_ranks():
+    """Two ranks on the one card (framework.oversubscribe=2, gloo), started
+    by torch.distributed.run: each takes 4 of the 8 events of dune3d batch
+    0 (its loader's shard).  Supervised at fp32: the data-parallel step's
+    loss within DP_FP32_LOSS_RTOL of one process on the 8 events and every
+    mean gradient within FP32_GRAD_LIMIT (relative L2, conv biases ahead of
+    a batch norm left out); two bf16 steps through train.trainer.train: the
+    ranks' parameters and running statistics the same bits, 0 dropped;
+    SimCLR, two steps: the gathered batch holds 2 x 4 events a view, finite
+    loss, top-1 <= top-5 in [0, 1], the ranks' parameters the same bits.
+    Steps/s and the collectives' ms a step are printed; two ranks share one
+    card's SMs, so they are no scaling number -> rank 0's launches of the
+    supervised run."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = RUN_DIR / "dp_two_ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    # each rank runs the script that is running (chip_smoke.py, or a
+    # rehearsal that imports it) with --dp-rank
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={DP_WORLD}", str(Path(sys.argv[0]).resolve()),
+           "--dp-rank", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, start_new_session=True, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        log, _ = proc.communicate(timeout=DP_RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        raise Failure(f"dp_two_ranks: ranks still ran after {DP_RANK_TIMEOUT_S} s: "
+                      f"{log[-4000:]}")
+    wall_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"dp_two_ranks: exit code {proc.returncode}: {log[-4000:]}")
+    ranks = [json.loads((out / f"rank_{r}.json").read_text())
+             for r in range(DP_WORLD)]
+    r0 = ranks[0]
+    emit({"phase": "dp_two_ranks", "wall_s": wall_s, "ranks": ranks,
+          "note": "two ranks share one card's SMs: no scaling number"})
+    fp32 = r0["fp32"]
+    require(fp32["loss_within"] and fp32["within"],
+            f"dp_two_ranks: fp32 step against one process: {fp32}")
+    for key in ("grads_digest", "supervised_digest", "simclr_digest"):
+        require(len({r[key] for r in ranks}) == 1,
+                f"dp_two_ranks: ranks differ in {key}: {[r[key] for r in ranks]}")
+    for r in ranks:
+        require(r["supervised"]["dropped"] == 0 and r["simclr"]["dropped"] == 0,
+                f"dp_two_ranks: dropped: {r}")
+        require(r["supervised"]["finite"] and r["simclr"]["finite"],
+                f"dp_two_ranks: loss not finite: {r}")
+        require(r["simclr"]["top1_le_top5"],
+                f"dp_two_ranks: top-1/top-5 out of order: {r['simclr']}")
+        # every rank's 4 events a view, 128-wide projections
+        require(r["simclr"]["gathered"]
+                and all(s == [BATCH, 128] for s in r["simclr"]["gathered"]),
+                f"dp_two_ranks: gathered batch {r['simclr']['gathered']}")
+        expected = {k: v * DP_TWO_RANK_STEPS
+                    for k, v in LAUNCHES_PER_TRAIN_STEP_HOST.items()}
+        require(r["supervised"]["launches"] == expected,
+                f"dp_two_ranks: launches {r['supervised']['launches']}, "
+                f"expected {expected}")
+    print(json.dumps({"dp_two_ranks_steps_per_s": r0["supervised"]["steps_per_s"],
+                      "dp_two_ranks_collective_ms_per_step":
+                      r0["supervised"]["collective_ms_per_step"],
+                      "dp_two_ranks_simclr_steps_per_s":
+                      r0["simclr"]["steps_per_s"],
+                      "events_per_rank": BATCH // DP_WORLD, "backend": "gloo",
+                      "note": "two ranks on one card"}), flush=True)
+    return {**r0["supervised"]["launches"], **r0["supervised"]["ops_launches"]}
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Time every collective of torch.distributed the block calls, each
+    between two synchronisations of the card -> {name: [calls, ms]}."""
+    import torch
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "broadcast", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+    spent = {n: [0, 0.0] for n in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name][0] += 1
+            spent[name][1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def dp_rank_main(out: Path) -> int:
+    """One rank of dp_two_ranks (started by torch.distributed.run): writes
+    ``out/rank_<rank>.json``."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.parallel import mesh
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    global RUN_DIR
+    RUN_DIR = out / "runs"
+    rank = int(os.environ["RANK"])
+    dataset = EventsDataset(GRID, make_dataset(1).batch([0]))
+    mine = range(rank * BATCH // DP_WORLD, (rank + 1) * BATCH // DP_WORLD)
+    shared = ["framework.oversubscribe=2",
+              f"run.minibatch_size={BATCH // DP_WORLD}"]
+    fp32 = ["run.precision=float32", "head.dropout=0.0", *shared]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank == 0:  # one process on the 8 events, before the group exists
+        ref_metrics, ref_grads, _ = optimizer_gradients(
+            train_config([*fp32, "run.id=dp_fp32_ref"]), dataset, range(BATCH))
+    cfg = train_config([*fp32, "run.distributed=true", "run.id=dp_fp32"])
+    dev = mesh.initialize_distributed(cfg)
+    require(str(dev) == "cuda:0" and torch.distributed.get_backend() == "gloo",
+            f"rank {rank}: {dev}, {torch.distributed.get_backend()}")
+    metrics, grads, _ = optimizer_gradients(cfg, dataset, mine)
+    result = {"rank": rank, "device": str(dev), "grads_digest": digest(grads),
+              "fp32_loss": metrics["loss/loss"],
+              "fp32_dropped": metrics["overflow/dropped"]}
+    if rank == 0:
+        worst, worst_name = 0.0, ""
+        for name, g in grads.items():
+            if name.endswith(".b"):  # a conv bias ahead of a batch norm
+                continue
+            rel = float((g - ref_grads[name]).norm()) / float(ref_grads[name].norm())
+            if rel > worst:
+                worst, worst_name = rel, name
+        ref_loss = ref_metrics["loss/loss"]
+        result["fp32"] = {
+            "loss": metrics["loss/loss"], "ref_loss": ref_loss,
+            "loss_within": abs(metrics["loss/loss"] - ref_loss)
+            <= DP_FP32_LOSS_RTOL * abs(ref_loss),
+            "worst_rel_l2": worst, "worst_tensor": worst_name,
+            "limit": FP32_GRAD_LIMIT, "within": worst <= FP32_GRAD_LIMIT,
+            "tensors": len(grads)}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    def run_task(run_id, extra):
+        cfg = train_config(["run.precision=bfloat16", *shared, *extra,
+                            "run.distributed=true", f"run.id={run_id}",
+                            f"mode.iterations={DP_TWO_RANK_STEPS}"])
+        with timed_collectives() as spent:
+            run, launches, plain, ops = _counted_dp(lambda: train(cfg, dataset))
+        h = run.history
+        timed = [m["time/io_s"] + m["time/step_s"] for m in h[1:]]
+        steps = len(h)
+        report = {
+            "steps": steps, "loss": [m["loss/loss"] for m in h],
+            "finite": all(np.isfinite(m["loss/loss"]) for m in h),
+            "dropped": sum(m["overflow/dropped"] for m in h),
+            "steps_per_s": len(timed) / sum(timed), "launches": launches,
+            "ops_launches": ops,
+            "plain_calls": plain, "collectives": spent,
+            "collective_ms_per_step": (spent["all_reduce"][1]
+                                       + spent["all_gather"][1]) / steps}
+        require(steps == DP_TWO_RANK_STEPS and not any(plain.values())
+                and not any(ops.values()),
+                f"rank {rank} {run_id}: {report}")
+        return run, report
+
+    run, result["supervised"] = run_task("dp_supervised", [])
+    result["supervised_digest"] = digest(run.state.model.state_dict())
+    gathered = []
+    gather = mesh.all_gather_rows
+
+    def spy(x):
+        y = gather(x)
+        gathered.append(list(y.shape))
+        return y
+
+    mesh.all_gather_rows = spy
+    try:
+        run, report = run_task("dp_simclr", SIMCLR)
+    finally:
+        mesh.all_gather_rows = gather
+    last = run.history[-1]
+    report.update(gathered=gathered, top1=last["acc/top1"], top5=last["acc/top5"],
+                  top1_le_top5=all(0.0 <= m["acc/top1"] <= m["acc/top5"] <= 1.0
+                                   for m in run.history))
+    result["simclr"] = report
+    result["simclr_digest"] = digest(run.state.model.state_dict())
+    mesh.destroy()
+    (out / f"rank_{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
 def main(argv) -> int:
     global PARENT
-    if argv and (argv[0] != "--parent" or len(argv) != 2):
+    if argv and (argv[0] not in ("--parent", "--dp-rank") or len(argv) != 2):
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     try:
@@ -3370,6 +3820,12 @@ def main(argv) -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
+    if argv[:1] == ["--dp-rank"]:  # a rank of dp_two_ranks
+        try:
+            return dp_rank_main(Path(argv[1]))
+        except Failure as e:
+            print(f"chip_smoke rank: FAILED: {e}", file=sys.stderr)
+            return 1
     out_dir = HERE / "output" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     global RUN_DIR
@@ -3408,6 +3864,8 @@ def main(argv) -> int:
         phase_profile(dataset)
         phase_fp32_tasks(dataset)
         phase_visualize()
+        dp_launches = phase_dp_world1(dataset)
+        dp_two_rank_launches = phase_dp_two_ranks()
         del dataset
         dataset_2d = make_dataset_2d()
         rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
@@ -3427,6 +3885,8 @@ def main(argv) -> int:
                 kernels.append(dict(
                     name=kname, route="cuda", source=SOURCES[kname],
                     replaces=REPLACES[kname], launches=ops_launches[kname],
+                    launches_dp=dp_launches[kname],
+                    launches_dp_two_ranks=dp_two_rank_launches[kname],
                     path="ops_path (ConvolutionUpsample backward; "
                     "gather_submanifold_conv forward and backward)",
                     max_abs_err=max(r["max_abs_err"] for r in per_shape),
@@ -3463,6 +3923,8 @@ def main(argv) -> int:
                 launches_main2d=launches_2d[kname],
                 launches_train2d=train_launches_2d[kname],
                 launches_ops_path=ops_launches[kname],
+                launches_dp=dp_launches[kname],
+                launches_dp_two_ranks=dp_two_rank_launches[kname],
                 **{f"launches_{task}": counts[kname]
                    for task, counts in task_launches.items()},
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),

@@ -7,6 +7,17 @@ unsupervised_eventID.  Train and inference run on the card unless
 host only.  Each prints one JSON line: inference the mean metrics, train
 the metrics of its last step, iotest the mean fetch ms and images/s of
 each split, visualize the PNG files it wrote (matplotlib needed).
+
+With ``run.distributed=true`` train and inference are data parallel, one
+process a device, started by torchrun:
+
+    torchrun --nproc_per_node=N -m sparseeventid_tpu_torch \
+        --config-name dune3d mode=train run.distributed=true
+
+The process group is joined before the mode runs (unless the caller has
+joined one) and left on exit.  Two ranks may share one card with
+``framework.oversubscribe=2`` (gloo); on the CPU add
+``run.compute_mode=CPU`` (gloo).
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from pathlib import Path
 
 from .config import load_config
 from .config.schema import ModeKind
+from .parallel import mesh
 
 
 def main(argv=None) -> dict:
@@ -33,25 +45,35 @@ def main(argv=None) -> dict:
         args.config_name, args.overrides,
         recipes_dir=Path(args.recipes_dir) if args.recipes_dir else None,
     )
+    joins = cfg.run.distributed and not mesh.is_initialized()
+    if joins:
+        mesh.initialize_distributed(cfg)
+    try:
+        metrics = _run_mode(cfg)
+    finally:
+        if joins:
+            mesh.destroy()
+    print(json.dumps(metrics, sort_keys=True))
+    return metrics
+
+
+def _run_mode(cfg) -> dict:
     if cfg.mode.name == ModeKind.train:
         from .train.trainer import train
 
         history = train(cfg).history
-        metrics = history[-1] if history else {}
-    elif cfg.mode.name == ModeKind.inference:
+        return history[-1] if history else {}
+    if cfg.mode.name == ModeKind.inference:
         from .train.evaluate import validate
 
-        metrics = validate(cfg)
-    elif cfg.mode.name == ModeKind.iotest:
+        return validate(cfg)
+    if cfg.mode.name == ModeKind.iotest:
         from .train.trainer import iotest
 
-        metrics = iotest(cfg)
-    else:
-        from .train.trainer import visualize
+        return iotest(cfg)
+    from .train.trainer import visualize
 
-        metrics = {"written": [str(p) for p in visualize(cfg)]}
-    print(json.dumps(metrics, sort_keys=True))
-    return metrics
+    return {"written": [str(p) for p in visualize(cfg)]}
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ from .build import (  # noqa: F401
     SparseEventClassifier,
     build_sparse_classifier,
     init_parameters,
+    model_family,
 )
 from .encoder import (  # noqa: F401
     GRID_QUANTUM,

@@ -32,10 +32,14 @@ from ..ops.window.query import WindowTuning
 class MaskedBatchNorm(nn.Module):
     """Batch norm over active voxels only (scn.BatchNormalization semantics:
     eps 1e-4, running averages with momentum 0.9).  Eval uses the running
-    statistics."""
+    statistics.  With ``sync`` (JAX's ``axis_name``) training takes its
+    statistics over the batches of every rank (sync batch norm); eval
+    runs no collective."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-4):
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-4,
+                 sync: bool = False):
         super().__init__()
+        self.sync = sync
         self.momentum = momentum
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(channels))
@@ -45,7 +49,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = masked_batch_stats(feats, mask)
+            mean, var = masked_batch_stats(feats, mask, self.sync)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_((1.0 - m) * mean)
@@ -55,9 +59,9 @@ class MaskedBatchNorm(nn.Module):
         return apply_norm(feats, mask, mean, var, self.scale, self.bias, self.eps)
 
 
-def _make_norm(norm: Norm, channels: int):
+def _make_norm(norm: Norm, channels: int, sync_bn: bool = False):
     if norm == Norm.batch:
-        return MaskedBatchNorm(channels)
+        return MaskedBatchNorm(channels, sync=sync_bn)
     if norm == Norm.none:
         return None
     raise NotImplementedError(
@@ -74,13 +78,13 @@ class SparseBlock(nn.Module):
     """Submanifold conv + norm + activation."""
 
     def __init__(self, c_in: int, n_out: int, params: ConvRepresentation,
-                 k: int, activate: bool = True):
+                 k: int, activate: bool = True, sync_bn: bool = False):
         super().__init__()
         self.params = params
         self.activate = activate
         self.w = nn.Parameter(torch.empty(k, c_in, n_out))
         self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
-        self.norm = _make_norm(params.normalization, n_out)
+        self.norm = _make_norm(params.normalization, n_out, sync_bn)
 
     def forward(self, st: SparseTensor, plan) -> SparseTensor:
         out = apply_submanifold(st, plan, self.w, self.b)
@@ -94,11 +98,14 @@ class SparseBlock(nn.Module):
 class SparseResidualBlock(nn.Module):
     """conv-norm-act, conv-norm, + residual, act."""
 
-    def __init__(self, channels: int, params: ConvRepresentation, k: int):
+    def __init__(self, channels: int, params: ConvRepresentation, k: int,
+                 sync_bn: bool = False):
         super().__init__()
         self.params = params
-        self.conv1 = SparseBlock(channels, channels, params, k, activate=True)
-        self.conv2 = SparseBlock(channels, channels, params, k, activate=False)
+        self.conv1 = SparseBlock(channels, channels, params, k, activate=True,
+                                 sync_bn=sync_bn)
+        self.conv2 = SparseBlock(channels, channels, params, k, activate=False,
+                                 sync_bn=sync_bn)
 
     def forward(self, st: SparseTensor, plan) -> SparseTensor:
         out = self.conv2(self.conv1(st, plan), plan)
@@ -109,13 +116,14 @@ class SparseBlockSeries(nn.Module):
     """n_blocks (residual) blocks sharing one plan."""
 
     def __init__(self, n_blocks: int, channels: int,
-                 params: ConvRepresentation, k: int):
+                 params: ConvRepresentation, k: int, sync_bn: bool = False):
         super().__init__()
         self.names = [f"block_{i}" for i in range(n_blocks)]
         for name in self.names:
             block = (
-                SparseResidualBlock(channels, params, k) if params.residual
-                else SparseBlock(channels, channels, params, k)
+                SparseResidualBlock(channels, params, k, sync_bn)
+                if params.residual
+                else SparseBlock(channels, channels, params, k, sync_bn=sync_bn)
             )
             self.add_module(name, block)
 
@@ -166,6 +174,7 @@ class ConvolutionDownsample(nn.Module):
         q_bound_frac_in: float = 1.0,
         q_bound_frac_out: float = 1.0,
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.stride = tuple(stride)
@@ -177,7 +186,7 @@ class ConvolutionDownsample(nn.Module):
         self.tuning = tuning
         k = offset_count(self.stride)
         self.w = nn.Parameter(torch.empty(k, c_in, n_out))
-        self.norm = _make_norm(params.normalization, n_out)
+        self.norm = _make_norm(params.normalization, n_out, sync_bn)
 
     def forward(self, st: SparseTensor, precomputed=None):
         skeleton, plan, dropped = _downsample_plan(self, st, precomputed)
@@ -216,6 +225,7 @@ class PoolingDownsample(nn.Module):
         q_bound_frac_in: float = 1.0,
         q_bound_frac_out: float = 1.0,
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.stride = tuple(stride)
@@ -227,7 +237,7 @@ class PoolingDownsample(nn.Module):
         self.tuning = tuning
         self.w = nn.Parameter(torch.empty(1, c_in, n_out))
         self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
-        self.norm = _make_norm(params.normalization, n_out)
+        self.norm = _make_norm(params.normalization, n_out, sync_bn)
 
     def forward(self, st: SparseTensor, precomputed=None):
         k = offset_count(self.stride)
@@ -265,6 +275,7 @@ class ConvolutionUpsample(nn.Module):
         params: ConvRepresentation,
         backend: str = XLA,
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.stride = tuple(stride)
@@ -273,7 +284,7 @@ class ConvolutionUpsample(nn.Module):
         self.tuning = tuning
         self.w = nn.Parameter(torch.empty(offset_count(self.stride), c_in, n_out))
         self.b = nn.Parameter(torch.zeros(n_out)) if params.bias else None
-        self.norm = _make_norm(params.normalization, n_out)
+        self.norm = _make_norm(params.normalization, n_out, sync_bn)
 
     def forward(self, st: SparseTensor, target: SparseTensor):
         plan = build_upsample_plan(

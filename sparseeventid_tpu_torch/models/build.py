@@ -1,5 +1,6 @@
 """Model assembly: the flagship sparse ResNet encoder + 4-head classifier
-(JAX counterpart: ``models/build.py``; the sparse family only)."""
+(JAX counterpart: ``models/build.py``; the sparse family only, which
+``model_family`` holds every model of the port to)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from torch import nn
 from ..config.schema import (
     OUTPUT_SHAPE,
     ConvRepresentation,
+    DataMode,
     SparseEventIDConfig,
     sparse_capacity,
 )
@@ -26,7 +28,8 @@ class SparseEventClassifier(nn.Module):
     dropped), ``dropped`` being the encoder's count of sites and conv pairs
     lost to static capacities; ``generator`` feeds the heads' dropout in
     training; ``plans`` (``ops.host_plans.EncoderPlans``) are the encoder's
-    host-built plans, without which it builds them on the device."""
+    host-built plans, without which it builds them on the device;
+    ``sync_bn`` makes every batch norm a sync batch norm."""
 
     def __init__(
         self,
@@ -38,6 +41,7 @@ class SparseEventClassifier(nn.Module):
         head_dropout: float = 0.5,
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         if encoder_cfg.per_label_final_series:
@@ -46,7 +50,8 @@ class SparseEventClassifier(nn.Module):
                 "other models and tasks)"
             )
         self.encoder = Encoder(
-            encoder_cfg, dimension, capacities, backend=backend, tuning=tuning
+            encoder_cfg, dimension, capacities, backend=backend, tuning=tuning,
+            sync_bn=sync_bn,
         )
         self.head = MultiHeadOutput(
             encoder_cfg.n_output_filters, output_shape, head_hidden,
@@ -61,15 +66,33 @@ class SparseEventClassifier(nn.Module):
         return self.head(pool_encoded(encoded), generator), dropped
 
 
+def model_family(cfg: SparseEventIDConfig) -> str:
+    """The model family of a config, as JAX's ``build_model`` picks it from
+    the encoder type and ``framework.mode`` -> "sparse".  ``sparse`` and
+    ``graph`` both ride the sparse engine (as in JAX); the dense and
+    point-cloud families are not ported and raise."""
+    if not isinstance(cfg.encoder, ConvRepresentation):
+        raise TypeError(
+            "the port's models require encoder=convnet: the point-cloud "
+            "models (pointnet, dgcnn) are not ported yet (ROADMAP.md Queue 1: "
+            "point-cloud models)")
+    if cfg.framework.mode == DataMode.dense:
+        raise NotImplementedError(
+            "framework.mode=dense: the dense model family is not ported yet "
+            "(ROADMAP.md Queue 1: dense mode)")
+    return "sparse"
+
+
 def build_sparse_classifier(
     cfg: SparseEventIDConfig,
     output_shape: Mapping[str, int] | None = None,
+    sync_bn: bool = False,
 ) -> SparseEventClassifier:
     """The flagship model from a config tree, with uninitialised weights
-    (see ``init_parameters``)."""
+    (see ``init_parameters``); the config must select the sparse family
+    (``model_family``)."""
+    model_family(cfg)
     enc = cfg.encoder
-    if not isinstance(enc, ConvRepresentation):
-        raise TypeError("sparse classifier requires encoder=convnet")
     caps = capacity_schedule(
         sparse_capacity(cfg), enc.depth, cfg.framework.capacity_shrink,
         cfg.framework.min_capacity,
@@ -83,6 +106,7 @@ def build_sparse_classifier(
         head_dropout=cfg.head.dropout,
         backend=cfg.framework.sparse_backend,
         tuning=WindowTuning.from_config(cfg.framework.tuning),
+        sync_bn=sync_bn,
     )
 
 

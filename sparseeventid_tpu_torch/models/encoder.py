@@ -61,7 +61,8 @@ def capacity_schedule(
 class Encoder(nn.Module):
     """forward(st) -> (encoded SparseTensor with tanh applied, dropped),
     where ``dropped`` sums the sites and conv pairs lost to static
-    capacities over every plan (0 when the run is exact)."""
+    capacities over every plan (0 when the run is exact).  ``sync_bn``
+    makes every batch norm a sync batch norm (JAX's ``axis_name``)."""
 
     def __init__(
         self,
@@ -70,6 +71,7 @@ class Encoder(nn.Module):
         capacities: Tuple[int, ...] = (),
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         if dimension not in (2, 3):
@@ -97,7 +99,7 @@ class Encoder(nn.Module):
         for i in range(p.depth):
             self.add_module(f"series_{i}", SparseBlockSeries(
                 p.blocks_per_layer, filters, p,
-                offset_count(self._kernel(p.filter_size, i)),
+                offset_count(self._kernel(p.filter_size, i)), sync_bn,
             ))
             if p.growth_rate == GrowthRate.multiplicative:
                 nxt = filters * 2
@@ -107,11 +109,12 @@ class Encoder(nn.Module):
                 filters, nxt, self._stride(), p, out_capacity=caps[i + 1],
                 backend=backend, q_bound_frac_in=self._qb_frac(i),
                 q_bound_frac_out=self._qb_frac(i + 1), tuning=tuning,
+                sync_bn=sync_bn,
             ))
             filters = nxt
         self.final_series = SparseBlockSeries(
             p.blocks_per_layer, filters, p,
-            offset_count(self._kernel(p.filter_size, p.depth)),
+            offset_count(self._kernel(p.filter_size, p.depth)), sync_bn,
         )
         self.bottleneck_w = nn.Parameter(torch.empty(1, filters, p.n_output_filters))
         self.bottleneck_b = (

@@ -1,5 +1,6 @@
 """Masked batch normalization over active voxels only (scn.BatchNormalization
-semantics: statistics over the live rows of the whole minibatch)."""
+semantics: statistics over the live rows of the whole minibatch, and with
+sync batch norm over the minibatches of every rank)."""
 
 from __future__ import annotations
 
@@ -7,17 +8,34 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import mesh
+
 
 def masked_batch_stats(
     feats: torch.Tensor,  # [B, N, C]
     mask: torch.Tensor,  # bool[B, N]
+    sync: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, var) per channel over the active rows of the whole batch."""
+    """(mean, var) per channel over the active rows of the whole batch.
+
+    With ``sync`` (JAX's ``axis_name``) the live count and the two sums are
+    packed into one tensor and summed over every rank of the process group
+    before the count is clamped and the mean and variance formed: sync
+    batch norm.  Per-rank means or variances cannot be averaged instead,
+    since sparse events give each rank its own live count.  Without a group
+    the result is the unsynced one, bit for bit."""
     m = mask[..., None].float()
     f = feats.float()
-    count = torch.clamp(m.sum(), min=1.0)
-    mean = (f * m).sum(dim=(0, 1)) / count
-    var = torch.clamp((f * f * m).sum(dim=(0, 1)) / count - mean * mean, min=0.0)
+    count = m.sum()
+    s1 = (f * m).sum(dim=(0, 1))
+    s2 = (f * f * m).sum(dim=(0, 1))
+    if sync:
+        c = s1.shape[0]
+        packed = mesh.all_reduce_sum(torch.cat([count.reshape(1), s1, s2]))
+        count, s1, s2 = packed[0], packed[1:1 + c], packed[1 + c:]
+    count = torch.clamp(count, min=1.0)
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean * mean, min=0.0)
     return mean, var
 
 

@@ -16,6 +16,13 @@ window plans are built on the host (``train/plans.py``) unless
 Entry points run on the card.  They use the CPU only when asked, by
 ``device="cpu"`` or ``run.compute_mode=CPU``; otherwise a machine without a
 CUDA device raises.
+
+With ``run.distributed`` (``parallel/mesh.py``) rank r validates its
+contiguous shard of the split, every rank as many batches; the metrics are
+averaged across ranks and the dropped counts summed.  The softmax file is
+gathered to rank 0 in event order and written once, so a split that the
+ranks' batches cover gives the one-process file; yolo writes one
+``val_rank_<rank>.npz`` a rank.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..io import (
     larcv_batch_to_sparse_3d,
 )
 from ..models import build_sparse_classifier, init_parameters
+from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from .plans import planner_for
@@ -57,10 +65,14 @@ SYNTHETIC = "synthetic"  # a split name that asks for synthetic events
 
 def resolve_device(cfg: SparseEventIDConfig | None = None,
                    device: torch.device | str | None = None) -> torch.device:
-    """The explicit ``device`` if given, the CPU for run.compute_mode=CPU,
-    else the card; raises when the card is wanted and none is present."""
+    """The explicit ``device`` if given; under run.distributed this rank's
+    device, after joining the process group (``mesh.initialize_distributed``);
+    the CPU for run.compute_mode=CPU, else the card.  Raises when the card
+    is wanted and none is present."""
     if device is not None:
         dev = torch.device(device)
+    elif cfg is not None and cfg.run.distributed:
+        dev = mesh.initialize_distributed(cfg)
     elif cfg is not None and cfg.run.compute_mode == ComputeMode.CPU:
         dev = torch.device("cpu")
     else:
@@ -173,6 +185,16 @@ def write_softmax(path: str | Path, outputs: Dict[str, np.ndarray]) -> None:
         np.savez(path, **outputs)
 
 
+def shard_batches(n_events: int, batch_size: int):
+    """This rank's batches of event indices: its contiguous shard of the
+    split in batches of ``batch_size``, as many batches on every rank (one
+    process: every event, the last batch short if it must be)."""
+    shard = np.array_split(np.arange(n_events), mesh.world())[mesh.rank()]
+    n_batches = mesh.min_across(max(len(shard) // batch_size, 1))
+    return [shard[i * batch_size:(i + 1) * batch_size].tolist()
+            for i in range(n_batches)]
+
+
 def validate(
     cfg: SparseEventIDConfig,
     dataset=None,
@@ -182,7 +204,7 @@ def validate(
     """Run the validation split once -> mean metrics (``overflow/dropped``
     is the total over the run).  The supervised task can write its softmax
     (``mode.output_file``); yolo writes its per-event outputs to
-    ``<run dir>/validation_output/val_rank_0.npz``.
+    ``<run dir>/validation_output/val_rank_<rank>.npz``.
 
     ``dataset`` (``__len__``, ``batch(indices)``, ``batch_grid()``) defaults
     to the config's val split (test without one); ``params`` is a
@@ -227,12 +249,11 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     output_file = getattr(cfg.mode, "output_file", "")
     planner = planner_for(cfg, model.encoder, grid)
 
-    bs = cfg.run.minibatch_size
-    n_batches = max(len(dataset) // bs, 1)
+    batches = shard_batches(len(dataset), cfg.run.minibatch_size)
     per_batch = []
     outputs = {k: [] for k in OUTPUT_SHAPE}
-    for i in range(n_batches):
-        batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
+    for indices in batches:
+        batch = dataset.batch(indices)
         st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
         with torch.no_grad():
             plans = None
@@ -240,20 +261,24 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
                 plans = planner.plans(
                     st, planner.to_device(planner.build(batch["image"]), dev))
             logits, dropped = model(st, plans=plans)
-            m = eval_metrics(logits, labels, dropped, scheme, class_weights)
+            m = mesh.reduce_metrics(
+                eval_metrics(logits, labels, dropped, scheme, class_weights))
         per_batch.append({k: float(v) for k, v in m.items()})
         if output_file:
             for k in OUTPUT_SHAPE:
-                outputs[k].append(torch.softmax(logits[k], dim=-1).cpu().numpy())
+                outputs[k].append(torch.softmax(logits[k], dim=-1))
     mean = {
         k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]
     }
     mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
-    logger.info("validation over %d batches: %s", n_batches, mean)
+    logger.info("validation over %d batches a rank: %s", len(batches), mean)
     if output_file:
-        write_softmax(output_file,
-                      {k: np.concatenate(v) for k, v in outputs.items()})
-        logger.info("wrote softmax outputs to %s", output_file)
+        with torch.no_grad():  # every rank's rows, in rank (= event) order
+            scores = {k: mesh.all_gather_rows(torch.cat(v)).cpu().numpy()
+                      for k, v in outputs.items()}
+        if mesh.is_main():
+            write_softmax(output_file, scores)
+            logger.info("wrote softmax outputs to %s", output_file)
     return mean
 
 
@@ -272,21 +297,19 @@ def _validate_task(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     if params is None:
         restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),
                     task.state.model, dev)
-    bs = cfg.run.minibatch_size
-    n_batches = max(len(dataset) // bs, 1)
+    batches = shard_batches(len(dataset), cfg.run.minibatch_size)
     per_batch, outputs = [], []
-    for i in range(n_batches):
-        batch = dataset.batch(list(range(i * bs, min((i + 1) * bs, len(dataset)))))
-        args = task.prepare(batch)
+    for indices in batches:
+        args = task.prepare(dataset.batch(indices))
         per_batch.append({k: float(v) for k, v in task.eval_step(args).items()})
         if task.predict is not None:
             outputs.append({k: v.cpu().numpy()
                             for k, v in task.predict(args).items()})
     mean = {k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]}
     mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
-    logger.info("validation over %d batches: %s", n_batches, mean)
+    logger.info("validation over %d batches a rank: %s", len(batches), mean)
     if outputs:
-        path = out_dir / "validation_output" / "val_rank_0.npz"
+        path = out_dir / "validation_output" / f"val_rank_{mesh.rank()}.npz"
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(path, **{k: np.concatenate([o[k] for o in outputs])
                           for k in outputs[0]})

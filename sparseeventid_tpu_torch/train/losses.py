@@ -1,8 +1,8 @@
 """Losses and accuracy (JAX counterpart: ``train/losses.py``): for the
 supervised heads focal loss (gamma 2, softmax clamped to [1e-7, 1 - 1e-7])
 or cross-entropy with label smoothing 0.1 and optional class weights,
-summed over heads; for SimCLR the NT-Xent loss and its top-k retrieval
-accuracy over one card's batch."""
+summed over heads; for SimCLR the NT-Xent loss, over the batches of every
+rank under data parallelism, and its top-k retrieval accuracy."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.schema import LossBalanceScheme
+from ..parallel import mesh
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -83,9 +84,17 @@ def _view_similarity(z1: torch.Tensor, z2: torch.Tensor, temperature: float):
 
 
 def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor,
-                 temperature: float = 0.1) -> torch.Tensor:
+                 temperature: float = 0.1, sync: bool = False) -> torch.Tensor:
     """SimCLR NT-Xent: z1, z2 [N, D] the two views' projections; each of
-    the 2N rows competes its positive against the 2N - 2 negatives."""
+    the 2N rows competes its positive against the 2N - 2 negatives.
+
+    With ``sync`` (JAX's ``axis_name``) z1 and z2 are first gathered from
+    every rank in rank order (``mesh.all_gather_rows``), so every rank
+    computes the loss of the global batch; the gather's backward hands each
+    rank the gradient of its own rows summed over the ranks' losses, which
+    the gradient mean then brings to the global loss's gradient."""
+    if sync:
+        z1, z2 = mesh.all_gather_rows(z1), mesh.all_gather_rows(z2)
     sim, pos = _view_similarity(z1, z2, temperature)
     logp = torch.log_softmax(sim, dim=-1)
     return -logp.gather(1, pos[:, None])[:, 0].mean()

@@ -9,6 +9,11 @@ flax's do.  Each view has its own plans: ``plans_builder(st, host_dict)``
 (the trainer's view planner) turns a view's host-built plan dict into the
 encoder's plans; without it, or without dicts, the encoder builds them on
 the device.
+
+With ``sync`` (JAX's ``axis_name``) the loss is over the projections of
+every rank's batch (``losses.nt_xent_loss``).  Top-1 and top-5 are computed
+on the rank's own batch and then averaged across ranks, as in JAX; every
+metric is reduced across ranks (``mesh.reduce_metrics``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..models.encoder import Encoder
 from ..models.heads import pool_encoded
 from ..ops import SparseTensor
 from ..ops.window.query import WindowTuning
+from ..parallel import mesh
 from .losses import nt_xent_loss, nt_xent_top_k_accuracy
 from .state import TrainState
 
@@ -52,10 +58,11 @@ class RepresentationModel(nn.Module):
         projection_dim: int = 128,
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.encoder = Encoder(encoder_cfg, dimension, capacities,
-                               backend=backend, tuning=tuning)
+                               backend=backend, tuning=tuning, sync_bn=sync_bn)
         self.projector = ProjectionHead(encoder_cfg.n_output_filters,
                                         out=projection_dim)
 
@@ -76,19 +83,20 @@ def _view_plans(plans_builder, v1, v2, host):
 
 def simclr_metrics(loss, z1, z2, dropped, temperature: float = 0.1
                    ) -> Dict[str, torch.Tensor]:
-    """The loss, top-1 and top-5 retrieval and the dropped count."""
-    return {
+    """The loss, top-1 and top-5 retrieval and the dropped count, reduced
+    across ranks."""
+    return mesh.reduce_metrics({
         "loss/loss": loss,
         "acc/top1": nt_xent_top_k_accuracy(z1, z2, temperature, 1),
         "acc/top5": nt_xent_top_k_accuracy(z1, z2, temperature, 5),
         "overflow/dropped": dropped,
-    }
+    })
 
 
 def make_simclr_train_step(state: TrainState, lr_schedule=None,
                            temperature: float = 0.1,
                            gradient_accumulation: int = 1,
-                           plans_builder=None):
+                           plans_builder=None, sync: bool = False):
     """Returns step(v1, v2, host_plans=None, generator=None) -> metrics,
     which advances ``state`` by one step (``host_plans`` a pair of plan
     dicts on the device, one a view; the generator is unused: the model
@@ -102,7 +110,7 @@ def make_simclr_train_step(state: TrainState, lr_schedule=None,
         model.train()
         z1, z2, dropped = model(v1, v2, *_view_plans(plans_builder, v1, v2,
                                                      host_plans))
-        loss = nt_xent_loss(z1, z2, temperature)
+        loss = nt_xent_loss(z1, z2, temperature, sync)
         loss.backward()
         with torch.no_grad():
             metrics = simclr_metrics(loss.detach(), z1, z2, dropped,
@@ -116,7 +124,7 @@ def make_simclr_train_step(state: TrainState, lr_schedule=None,
 
 
 def make_simclr_eval_step(model: RepresentationModel, temperature: float = 0.1,
-                          plans_builder=None):
+                          plans_builder=None, sync: bool = False):
     """Returns step(v1, v2, host_plans=None) -> metrics."""
 
     @torch.no_grad()
@@ -125,7 +133,7 @@ def make_simclr_eval_step(model: RepresentationModel, temperature: float = 0.1,
         model.eval()
         z1, z2, dropped = model(v1, v2, *_view_plans(plans_builder, v1, v2,
                                                      host_plans))
-        return simclr_metrics(nt_xent_loss(z1, z2, temperature), z1, z2,
-                              dropped, temperature)
+        return simclr_metrics(nt_xent_loss(z1, z2, temperature, sync), z1,
+                              z2, dropped, temperature)
 
     return step

@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from ..parallel import mesh
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -20,10 +22,16 @@ class TrainState:
         """Count one step whose gradients ``backward`` has added to the
         parameters'; on every ``every``-th, update with their mean over the
         last ``every`` steps and move the schedule on, as
-        ``optax.MultiSteps`` does."""
+        ``optax.MultiSteps`` does.
+
+        Under data parallelism the gradients are first averaged across
+        ranks (JAX ``pmean``), once an optimizer step: with accumulation
+        that is the mean over ranks of the summed micro-steps, which equals
+        the mean of JAX's per-micro-step ``pmean``."""
         self.step += 1
         if self.step % every:
             return
+        mesh.mean_gradients(self.model.parameters())
         if every > 1:
             for p in self.model.parameters():
                 if p.grad is not None:

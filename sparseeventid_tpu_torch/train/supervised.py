@@ -9,7 +9,11 @@ optimizer moments, schedule and step counter.
 Given a ``plans_builder(st, host_plans) -> EncoderPlans`` (the trainer's
 ``HostPlanner.plans``), each step takes the batch's host-built plan dict,
 on the device, and the encoder builds no plan; without one, or without a
-dict, the encoder builds its plans on the device."""
+dict, the encoder builds its plans on the device.
+
+Under data parallelism (``parallel/mesh.py``) every step's metrics are the
+mean across ranks, ``overflow/dropped`` the sum, as the JAX steps'
+``pmean`` / ``psum``."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from ..config.schema import LossBalanceScheme
 from ..ops import SparseTensor
+from ..parallel import mesh
 from .losses import multi_head_accuracy, multi_head_loss
 from .state import TrainState
 
@@ -50,7 +55,8 @@ def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None,
              ) -> Dict[str, torch.Tensor]:
         model.eval()
         logits, dropped = model(st, plans=_plans(plans_builder, st, host_plans))
-        return eval_metrics(logits, labels, dropped, scheme, class_weights)
+        return mesh.reduce_metrics(
+            eval_metrics(logits, labels, dropped, scheme, class_weights))
 
     return step
 
@@ -96,6 +102,7 @@ def make_train_step(
         with torch.no_grad():
             acc = multi_head_accuracy(logits, labels)
         metrics.update({f"acc/{name}": v for name, v in acc.items()})
+        metrics = mesh.reduce_metrics(metrics)
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
         state.apply_gradients(k)

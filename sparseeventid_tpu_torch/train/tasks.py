@@ -21,6 +21,12 @@ supervised, yolo and unsupervised by the run's planner, in the loader's
 thread and through its cache; for SimCLR in ``prepare``, one uncached plan
 dict a view at the views' capacities (their coordinates change with every
 draw).
+
+With ``run.distributed`` every model's batch norms are sync batch norms and
+SimCLR's loss gathers the views of every rank (``parallel/mesh.py``).  Each
+rank builds from the same seed, fits ``unsupervised_eventID``'s window to
+the whole split it is given (never to its shard, so every rank labels
+alike) and augments its own events with views seeded ``run.seed + 101``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,12 @@ from ..config.schema import (
     sparse_capacity,
 )
 from ..io.augment import augment_larcv_batch
-from ..models import build_sparse_classifier, capacity_schedule, init_parameters
+from ..models import (
+    build_sparse_classifier,
+    capacity_schedule,
+    init_parameters,
+    model_family,
+)
 from ..ops.window.query import WindowTuning
 from ..utils.checkpoint import encoder_freeze_names, transfers_encoder
 from .evaluate import class_weights_of, feature_dtype, prepare_batch, to_input
@@ -139,8 +150,8 @@ def build_training(cfg: SparseEventIDConfig, epoch_length: int,
     """-> (state, train_step, n_steps) of the supervised task; with a
     ``planner`` the step takes the batch's host plans (``host_plans=``, a
     dict on the device)."""
-    state, lr_schedule = new_state(cfg, build_sparse_classifier(cfg),
-                                   epoch_length, params, device)
+    model = build_sparse_classifier(cfg, sync_bn=cfg.run.distributed)
+    state, lr_schedule = new_state(cfg, model, epoch_length, params, device)
     opt_cfg = optimizer_config(cfg)
     scheme = opt_cfg.loss_balance_scheme
     step = make_train_step(
@@ -156,9 +167,11 @@ def _plans_builder(planner):
 
 
 def _encoder_kwargs(cfg: SparseEventIDConfig, capacities):
+    model_family(cfg)
     return dict(encoder_cfg=cfg.encoder, dimension=cfg.data.dimension,
                 capacities=capacities, backend=cfg.framework.sparse_backend,
-                tuning=WindowTuning.from_config(cfg.framework.tuning))
+                tuning=WindowTuning.from_config(cfg.framework.tuning),
+                sync_bn=cfg.run.distributed)
 
 
 def task_capacities(cfg: SparseEventIDConfig, max_voxels: int | None = None):
@@ -207,7 +220,8 @@ def _unsupervised(cfg, dataset, grid, epoch_length, params, dev, planner):
     lo, hi = (float(x) for x in
               weak_labels_from_energy(_energies(dataset))["window"])
     logger.info("weak-label energy window: [%.3g, %.3g]", lo, hi)
-    model = build_sparse_classifier(cfg, output_shape={"weak_label": 2})
+    model = build_sparse_classifier(cfg, output_shape={"weak_label": 2},
+                                    sync_bn=cfg.run.distributed)
     state, lr_schedule = new_state(cfg, model, epoch_length, params, dev)
     opt_cfg = optimizer_config(cfg)
     scheme = opt_cfg.loss_balance_scheme
@@ -301,8 +315,9 @@ def _simclr(cfg, dataset, grid, epoch_length, params, dev, planner):
     step = make_simclr_train_step(
         state, lr_schedule,
         gradient_accumulation=optimizer_config(cfg).gradient_accumulation,
-        plans_builder=pb)
-    eval_step = make_simclr_eval_step(model, plans_builder=pb)
+        plans_builder=pb, sync=cfg.run.distributed)
+    eval_step = make_simclr_eval_step(model, plans_builder=pb,
+                                      sync=cfg.run.distributed)
     view = augment_views(cfg, grid)
     cap0, dtype = model.encoder.capacities[0], feature_dtype(cfg)
 

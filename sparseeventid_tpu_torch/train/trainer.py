@@ -21,8 +21,15 @@ epoch (``train/plans.py``); SimCLR builds its views' plans as it makes the
 views; ``SEID_HOST_PLANS=0`` builds them on the device instead.  ``iotest``
 times the same loaders, plan building included.
 
-Not here yet, and refused by name of the roadmap item: data-parallel
-training.
+With ``run.distributed`` the run is data parallel (``parallel/mesh.py``):
+one process a device, joined from torchrun's environment.  Every loader,
+the validation loader too, reads the rank's contiguous shard of its split;
+every rank takes the same number of steps (the shortest shard's epoch sets
+``run.length``'s count); rank 0's parameters and buffers are broadcast once
+after the initialisation and the restore; only rank 0 writes
+``process.log``, ``tb/``, the profiler trace and the checkpoints.  The
+dropout generator of a step is the same on every rank, so masks are drawn
+by position in the rank's batch (as JAX replicates its dropout key).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from ..config.schema import OUTPUT_SHAPE, SparseEventIDConfig
 from ..io.dataset import BatchLoader
 from ..models import build_sparse_classifier
+from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
@@ -82,9 +90,12 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 def make_loader(cfg: SparseEventIDConfig, dataset, transform=None) -> BatchLoader:
+    """The split's prefetching loader over this rank's shard."""
     return BatchLoader(
         dataset, cfg.run.minibatch_size, access_mode=cfg.data.mode,
-        seed=cfg.data.seed if cfg.data.seed >= 0 else 0, transform=transform,
+        seed=cfg.data.seed if cfg.data.seed >= 0 else 0,
+        process_index=mesh.rank(), process_count=mesh.world(),
+        transform=transform,
     )
 
 
@@ -100,11 +111,6 @@ def train(
     without it the run starts from a seeded random initialisation and then
     restores."""
     check_task(cfg.name)
-    if cfg.run.distributed:
-        raise NotImplementedError(
-            "run.distributed: data-parallel training is not ported yet "
-            "(ROADMAP: DDP over the four cards)"
-        )
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
@@ -144,7 +150,7 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
     on the card, CUDA activities) and write its Chrome trace to
     ``<run dir>/profile/trace.json`` (the JAX trainer's ``jax.profiler``
     trace)."""
-    if not cfg.run.profile:
+    if not cfg.run.profile or not mesh.is_main():
         yield
         return
     from torch.profiler import ProfilerActivity, profile
@@ -162,7 +168,10 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
 
 def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainRun:
     loader, val_loader = loaders["train"], loaders.get("val")
-    task = build_task(cfg, dataset, grid, len(loader), params, dev, planner)
+    # one step count on every rank: a rank that stepped once more would
+    # wait in a collective for ever
+    epoch_length = mesh.min_across(len(loader))
+    task = build_task(cfg, dataset, grid, epoch_length, params, dev, planner)
     state = task.state
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
     logger.info("window plans built on the %s",
@@ -173,6 +182,7 @@ def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainR
                                state.optimizer, state.scheduler)
         if restored is not None:
             state.step = restored
+    mesh.broadcast_module(state.model)
     bs = cfg.run.minibatch_size
     log_every = getattr(cfg.mode, "logging_iteration", 1) or 1
     ckpt_every = getattr(cfg.mode, "checkpoint_iteration", 50) or 50

@@ -16,6 +16,9 @@ hidden map, the event logits.  It computes in float32 whatever the
 encoder's feature type, as flax's ``nn.Conv`` / ``nn.Dense`` with float32
 parameters do.  The dense convs are ``torch.nn.functional.conv3d``: the
 JAX package computes them in XLA, outside any Pallas kernel.
+
+Under data parallelism the train and eval steps' metrics are the mean
+across ranks, ``overflow/dropped`` the sum (``mesh.reduce_metrics``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..config.schema import ConvRepresentation
 from ..models.encoder import Encoder
 from ..ops import SparseTensor, to_dense
 from ..ops.window.query import WindowTuning
+from ..parallel import mesh
 from .state import TrainState
 
 CM_PER_VOXEL = 0.4  # dune3d meta
@@ -65,10 +69,11 @@ class VertexModel(nn.Module):
         n_event_classes: int = 3,
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.encoder = Encoder(encoder_cfg, dimension, capacities,
-                               backend=backend, tuning=tuning)
+                               backend=backend, tuning=tuning, sync_bn=sync_bn)
         self.head = VertexHead(encoder_cfg.n_output_filters, n_event_classes)
 
     def forward(self, st: SparseTensor, plans=None):
@@ -189,7 +194,7 @@ def make_vertex_train_step(state: TrainState, anchor_grid, full_grid,
         loss, metrics = vertex_metrics(anchor, event_logits, dropped, vertex,
                                        event_label, anchor_grid, full_grid)
         loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()})
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
         state.apply_gradients(every)
@@ -207,8 +212,9 @@ def make_vertex_eval_step(model: VertexModel, anchor_grid, full_grid,
         model.eval()
         anchor, event_logits, dropped = model(
             st, _plans(plans_builder, st, host_plans))
-        return vertex_metrics(anchor, event_logits, dropped, vertex,
-                              event_label, anchor_grid, full_grid)[1]
+        return mesh.reduce_metrics(vertex_metrics(
+            anchor, event_logits, dropped, vertex, event_label, anchor_grid,
+            full_grid)[1])
 
     return step
 

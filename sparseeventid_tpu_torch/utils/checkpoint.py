@@ -7,9 +7,11 @@ encoder-only transfer + freeze (create_trainer.py:94-106).
 Format: one ``torch.save`` file a step, ``step_<n>.pt``, holding the model's
 ``state_dict`` (parameters and running statistics), the optimizer's and the
 schedule's state and the step; a human-readable ``checkpoint`` index file
-with a ``latest:`` line; keep-N garbage collection.  Files are loaded with
-``weights_only=True``.  The JAX package's msgpack checkpoints are not read
-here: ``convert.params_from_jax`` carries JAX weights across.
+with a ``latest:`` line; keep-N garbage collection.  Under data parallelism
+rank 0 alone writes, and every rank waits for the file before it goes on.
+Files are loaded with ``weights_only=True``.  The JAX package's msgpack
+checkpoints are not read here: ``convert.params_from_jax`` carries JAX
+weights across.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Set
 
 import torch
 
+from ..parallel import mesh
 from ..train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -59,6 +62,12 @@ class CheckpointManager:
     # ---- save -----------------------------------------------------------
     def save(self, state: TrainState) -> Path:
         path = self.path(state.step)
+        if mesh.is_main():
+            self._write(state, path)
+        mesh.barrier()  # no rank reads or resumes before the file is whole
+        return path
+
+    def _write(self, state: TrainState, path: Path) -> None:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -71,7 +80,6 @@ class CheckpointManager:
         self._update_index(state.step)
         self._gc()
         logger.info("Saved checkpoint %s", path)
-        return path
 
     def _write_index(self, steps: List[int]):
         lines = [f"latest: step_{steps[-1]}{SUFFIX}"] + [

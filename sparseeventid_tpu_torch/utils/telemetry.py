@@ -9,6 +9,8 @@ import time
 from pathlib import Path
 from typing import Mapping, Optional
 
+from ..parallel import mesh
+
 
 class StepTimer:
     """The io / step split of a train step: ``mark_io`` after the batch is
@@ -57,13 +59,16 @@ def format_log_message(
 
 class SummaryWriter:
     """TensorBoard scalars through tensorboardX where it imports; without
-    it every call does nothing."""
+    it, and on a rank other than 0, every call does nothing."""
 
     def __init__(self, logdir: str | Path):
+        self._w = None
+        if not mesh.is_main():
+            return
         try:
             from tensorboardX import SummaryWriter as TBWriter
         except ImportError:
-            self._w = None
+            pass
         else:
             self._w = TBWriter(str(logdir))
 

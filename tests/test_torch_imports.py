@@ -104,7 +104,7 @@ def test_unported_inputs_raise_naming_the_roadmap(tmp_path):
     from sparseeventid_tpu_torch.train.trainer import train
 
     out = f"output_dir={tmp_path}"
-    for ov in (["run.distributed=true"],
+    for ov in (["framework.mode=dense"],
                ["encoder.per_label_final_series=true"],
                ["encoder.normalization=group"],
                ["encoder.normalization=layer"]):
