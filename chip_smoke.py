@@ -166,10 +166,36 @@ Phases, one JSON line each; any failure exits non-zero:
               top-5 in [0, 1]) the ranks' parameters and statistics the same
               bits, 0 dropped; steps/s and the collectives' ms a step, with
               two ranks sharing one card's SMs, no scaling number)
- 15. the total wall time, the {"kernels": [...]} line (window_plan's
+ 15. the other models at full width (depth 5, 4 blocks a level, filters
+              32->192, bottleneck 128), each through train.trainer.train
+              (3 steps: one warm-up, two timed) and then validate() from the
+              run's checkpoint, finite losses, 0 dropped, every launch
+              count required (train_and_validate): groupnorm (dune3d,
+              encoder.normalization=group, host plans; the fp32 window
+              kernels against the plain backend, logits rtol = atol = 1e-3
+              and one step's gradients within fp32_grad_compare's limit;
+              normalization=layer, forward only); remat (dune3d bf16 from
+              the same weights on batch 0: one step with framework.remat
+              on and one off give the same bits in every conv weight
+              gradient and every running statistic, the recomputation's
+              48 series convs counted; peak GiB and steps/s over 3 steps
+              each); pointnet and dgcnn (encoder=pointnet|dgcnn, 2048
+              points an event: the card against the CPU from the same
+              weights within rtol = atol = 1e-3, TF32 off; DGCNN's
+              knn_indices on the card equal the CPU's on integer
+              coordinates with ties at the k-th neighbour); per_label
+              (dune2d, encoder.per_label_final_series=true: one
+              window_plan a forward on host plans, fp32 logits against the
+              plain backend); dense (framework.mode=dense, fp32 with TF32
+              off: the dune2d grid through PlaneAxisDataset, inference
+              B=8, training DENSE_TRAIN_BATCH_2D; 3D at DENSE_GRID_3D; the
+              card against the CPU on small inputs, eval mode).  The dense
+              and point-cloud phases launch no kernel of csrc/
+ 16. the total wall time, the {"kernels": [...]} line (window_plan's
      launches from main_device; launches_simclr, _yolo, _unsupervised of
-     the task runs; launches_dp and launches_dp_two_ranks of the DP runs),
-     then {"ok": true, "device": {...}} last.
+     the task runs; launches_dp and launches_dp_two_ranks of the DP runs;
+     launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
+     of the model runs), then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -236,15 +262,24 @@ OPS_KERNELS = ("window_gather", "gather_conv")
 # only the train step does
 FORWARD_KERNELS = ("window_plan", "window_conv_apply", "overflow_apply_batched",
                    "overflow_apply")
-# launches per train step, dune3d and dune2d alike: 17 plans (1 initial + 6 series + 5 x 2
-# strided), 54 convs (1 + 48 + 5), each with a forward sidecar; the backward
-# runs the fused kernel for the 53 convs with C > 1 and window_dw for the
-# initial one, a dX sidecar for the 53 (the image needs no gradient) and a
-# dW sidecar for all 54
-LAUNCHES_PER_TRAIN_STEP = {
+# launches per train step without framework.remat, dune3d and dune2d alike:
+# 17 plans (1 initial + 6 series + 5 x 2 strided), 54 convs (1 + 48 + 5),
+# each with a forward sidecar; the backward runs the fused kernel for the 53
+# convs with C > 1 and window_dw for the initial one, a dX sidecar for the
+# 53 (the image needs no gradient) and a dW sidecar for all 54
+LAUNCHES_PER_TRAIN_STEP_NO_REMAT = {
     "window_plan": 17, "window_conv_apply": 54, "overflow_apply_batched": 106,
     "overflow_apply": 1, "window_bwd_strided": 53, "window_dw": 1,
     "overflow_dw_batched": 53, "overflow_dw": 1,
+}
+# with framework.remat (the default) the backward recomputes each block
+# series' forward: its 48 convs (6 series x 4 blocks x 2) run again, each
+# with its forward sidecar; the plans are built outside the series, once
+REMAT_SERIES_CONVS = 48
+LAUNCHES_PER_TRAIN_STEP = {
+    **LAUNCHES_PER_TRAIN_STEP_NO_REMAT,
+    "window_conv_apply": 54 + REMAT_SERIES_CONVS,
+    "overflow_apply_batched": 106 + REMAT_SERIES_CONVS,
 }
 # launches of the ops_path drive.  ConvolutionUpsample (64 -> 32 channels)
 # forward and backward: the forward and the reverse plan; the forward conv
@@ -3801,6 +3836,487 @@ def dp_rank_main(out: Path) -> int:
     return 0
 
 
+# ---- the other models: group and layer norm, per-label final series,
+# framework.remat, the dense and point-cloud families
+
+MODEL_STEPS = 3  # train steps of each model phase: one warm-up, two timed
+# the per-label final series: 4 labels x 4 blocks x 2 convs on one plan,
+# built on the card from the encoded sites (so on host plans too); they are
+# not recomputed under remat
+PER_LABEL_CONVS = 4 * 4 * 2
+LAUNCHES_PER_FORWARD_PER_LABEL = {
+    **LAUNCHES_PER_FORWARD_HOST, "window_plan": 1,
+    "window_conv_apply": 54 + PER_LABEL_CONVS,
+    "overflow_apply_batched": 53 + PER_LABEL_CONVS,
+}
+LAUNCHES_PER_TRAIN_STEP_PER_LABEL = {
+    **LAUNCHES_PER_TRAIN_STEP_HOST, "window_plan": 1,
+    "window_conv_apply": 54 + REMAT_SERIES_CONVS + PER_LABEL_CONVS,
+    # forward, recomputed forward, and dX of every conv with C > 1
+    "overflow_apply_batched": (106 + REMAT_SERIES_CONVS
+                               + 2 * PER_LABEL_CONVS),
+    "window_bwd_strided": 53 + PER_LABEL_CONVS,
+    "overflow_dw_batched": 53 + PER_LABEL_CONVS,
+}
+NO_LAUNCHES = {k: 0 for k in LAUNCHES_PER_TRAIN_STEP}
+# the dense family on the dune2d grid (3 planes of 1536 x 1024): inference
+# at BATCH, training at the largest batch that fits the card's 80 GB (the
+# phase prints its peak: half of it an event); in 3D at a cut grid,
+# 1/8 of dune3d's in each axis (the dune3d grid's level-0 activation alone
+# is 85.9 GB an event at 32 fp32 channels)
+DENSE_TRAIN_BATCH_2D = 2
+DENSE_GRID_3D = (128, 64, 160)
+DENSE_TRAIN_BATCH_3D = BATCH
+DENSE_COMPARE_TOL = 1e-3  # rtol and atol of the card's logits against the CPU's
+POINTS_COMPARE_EVENTS = 2  # events of the card-against-CPU forward
+
+
+def _fp32_window_vs_plain(phase, extra, dataset, grid, recipe="dune3d",
+                          gradients=True):
+    """One batch's first FP32_GRAD_EVENTS events at fp32 through the window
+    kernels on host plans and through the plain rulebook backend, from the
+    same weights: the logits within rtol = atol = 1e-3 (eval mode) and, with
+    ``gradients``, every parameter gradient of one train-mode loss within
+    fp32_grad_compare's limit (conv biases ahead of a norm left out)."""
+    import torch
+
+    from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
+    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
+    from sparseeventid_tpu_torch.train.evaluate import prepare_batch
+    from sparseeventid_tpu_torch.train.losses import multi_head_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    batch = {k: v[:FP32_GRAD_EVENTS] for k, v in dataset.batch([0]).items()}
+    out = {}
+    for backend in ("xla", "window"):
+        cfg = train_config(["run.precision=float32", "head.dropout=0.0",
+                            f"framework.sparse_backend={backend}", *extra],
+                           recipe)
+        model = init_parameters(build_sparse_classifier(cfg), SEED).to(dev)
+        st, labels = prepare_batch(batch, grid, model.encoder.capacities[0],
+                                   torch.float32, dev)
+        plans = (host_plans(model, batch["image"], grid, st)
+                 if backend == "window" else None)
+        with torch.no_grad():
+            logits, dropped = model.eval()(st, plans=plans)
+        require(int(dropped) == 0, f"{phase} fp32 {backend}: dropped {int(dropped)}")
+        logits = torch.cat([logits[k] for k in OUTPUT_SHAPE], dim=1).cpu()
+        grads = {}
+        if gradients:
+            lg, _ = model.train()(st, plans=plans)
+            loss, _ = multi_head_loss(lg, labels,
+                                      cfg.mode.optimizer.loss_balance_scheme)
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters() if not n.endswith(".b")}
+        out[backend] = (logits, grads)
+        del model
+        torch.cuda.empty_cache()
+    (ref_logits, ref), (logits, grads) = out["xla"], out["window"]
+    report = {"logits_max_abs_diff": float((logits - ref_logits).abs().max()),
+              "logits_max_abs": float(ref_logits.abs().max()),
+              "logits_within": torch.allclose(logits, ref_logits, rtol=FP32_RTOL,
+                                              atol=FP32_ATOL_LOGITS)}
+    if gradients:
+        worst, worst_name = 0.0, ""
+        for name, g in grads.items():
+            rel = float((g - ref[name]).norm()) / max(float(ref[name].norm()),
+                                                      1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        report.update(tensors=len(grads), worst_rel_l2=worst,
+                      worst_tensor=worst_name, limit=FP32_GRAD_LIMIT,
+                      grads_within=worst <= FP32_GRAD_LIMIT)
+    emit({"phase": f"{phase}_fp32_compare", "plans": "host",
+          "events": FP32_GRAD_EVENTS, **report})
+    require(report["logits_within"], f"{phase}: fp32 logits differ: {report}")
+    require(report.get("grads_within", True),
+            f"{phase}: fp32 gradients differ: {report}")
+
+
+def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
+                       per_step=None, per_forward=None, train_batch=BATCH):
+    """MODEL_STEPS steps through trainer.train, then validate() over the
+    dataset from the run's checkpoint: finite losses, 0 dropped, the launch
+    counts of every kernel ``per_step`` times the steps and ``per_forward``
+    times the batches, no plain version -> (steps/s, events/s of training,
+    events/s of inference, the train run's launches)."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.train.evaluate import validate
+    from sparseeventid_tpu_torch.train.trainer import train
+
+    cfg = train_config(["run.precision=bfloat16", f"run.id={phase}",
+                        f"mode.iterations={MODEL_STEPS}",
+                        f"run.minibatch_size={train_batch}", *extra], recipe)
+    torch.cuda.reset_peak_memory_stats()
+    run, launches, plain_calls, ops = _counted_dp(
+        lambda: train(cfg, dataset=dataset, device=DEVICE))
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    history = run.history
+    require(len(history) == MODEL_STEPS == run.state.step, f"{phase}: steps")
+    for i, m in enumerate(history):
+        require(np.isfinite(m["loss/loss"]) and m["overflow/dropped"] == 0,
+                f"{phase} step {i}: {m}")
+    if per_step is not None:
+        expected = {k: v * MODEL_STEPS for k, v in per_step.items()}
+        require(launches == expected,
+                f"{phase}: launch counts {launches}, expected {expected}")
+    require(all(v == 0 for v in plain_calls.values()) and not any(ops.values()),
+            f"{phase}: plain version or ops-path kernel on the path: "
+            f"{plain_calls}, {ops}")
+    timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
+    steps_per_s = len(timed) / sum(timed)
+    del run
+    torch.cuda.empty_cache()
+
+    # inference from the run's last checkpoint, after a warm-up batch
+    cfg_v = train_config(["mode=inference", "run.precision=bfloat16",
+                          f"run.id={phase}", *extra], recipe)
+    warm = CachedDataset(grid, {0: dataset.batch(list(range(BATCH)))}, BATCH)
+    validate(cfg_v, dataset=warm, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, v_launches, v_plain, v_ops = _counted_dp(
+        lambda: validate(cfg_v, dataset=dataset, device=DEVICE))
+    seconds = time.perf_counter() - t0
+    require(np.isfinite(metrics["loss/loss"]) and metrics["overflow/dropped"] == 0,
+            f"{phase} inference: {metrics}")
+    n_batches = len(dataset) // BATCH
+    if per_forward is not None:
+        expected = {k: v * n_batches for k, v in per_forward.items()}
+        require(v_launches == expected,
+                f"{phase} inference: launch counts {v_launches}, expected {expected}")
+    require(all(v == 0 for v in v_plain.values()) and not any(v_ops.values()),
+            f"{phase} inference: plain version or ops-path kernel on the path: "
+            f"{v_plain}, {v_ops}")
+    events_per_s = n_batches * BATCH / seconds
+    emit({"phase": phase, "recipe": recipe, "steps": MODEL_STEPS,
+          "train_batch": train_batch,
+          "io_s": [m["time/io_s"] for m in history],
+          "step_s": [m["time/step_s"] for m in history],
+          "loss": [m["loss/loss"] for m in history], "launches": launches,
+          "train_peak_mem_gib": train_peak, "inference_metrics": metrics,
+          "inference_launches": v_launches, "inference_batch": BATCH,
+          "inference_seconds": seconds,
+          "inference_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(json.dumps({f"{phase}_steps_per_s": steps_per_s,
+                      f"{phase}_train_events_per_s": steps_per_s * train_batch,
+                      f"{phase}_inference_events_per_s": events_per_s,
+                      "train_peak_mem_gib": train_peak,
+                      "timed_steps": len(timed), "precision": "bfloat16"}),
+          flush=True)
+    STEPS_PER_S[phase] = steps_per_s
+    return {**launches, **ops}
+
+
+def phase_groupnorm(dataset):
+    """dune3d with encoder.normalization=group through train and validate
+    on host plans (the launch counts of the batch-norm model), the fp32
+    window-vs-plain logits and gradients; normalization=layer, the same
+    function, forward only -> the train run's launches."""
+    launches = train_and_validate(
+        "groupnorm", ["encoder.normalization=group"], dataset, GRID,
+        per_step=LAUNCHES_PER_TRAIN_STEP_HOST,
+        per_forward=LAUNCHES_PER_FORWARD_HOST)
+    _fp32_window_vs_plain("groupnorm", ["encoder.normalization=group"],
+                          dataset, GRID)
+    _fp32_window_vs_plain("layernorm", ["encoder.normalization=layer"],
+                          dataset, GRID, gradients=False)
+    return launches
+
+
+def phase_per_label(dataset_2d):
+    """dune2d with encoder.per_label_final_series=true through train and
+    validate: every label's series on one plan built on the card from the
+    encoded sites (window_plan once a forward, on host plans too); fp32
+    window-vs-plain logits -> the train run's launches."""
+    import torch
+
+    from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
+    from sparseeventid_tpu_torch.train.evaluate import prepare_batch
+
+    extra = ["encoder.per_label_final_series=true"]
+    launches = train_and_validate(
+        "per_label", extra, dataset_2d, GRID_2D, "dune2d",
+        per_step=LAUNCHES_PER_TRAIN_STEP_PER_LABEL,
+        per_forward=LAUNCHES_PER_FORWARD_PER_LABEL)
+    _fp32_window_vs_plain("per_label", extra, dataset_2d, GRID_2D, "dune2d",
+                          gradients=False)
+    # the window_plan launches of one forward on host plans
+    cfg = train_config(["run.precision=bfloat16", *extra], "dune2d")
+    model = init_parameters(build_sparse_classifier(cfg), SEED).to(DEVICE).eval()
+    batch = dataset_2d.batch([0])
+    st, _ = prepare_batch(batch, GRID_2D, model.encoder.capacities[0],
+                          torch.bfloat16, torch.device(DEVICE))
+    plans = host_plans(model, batch["image"], GRID_2D, st)
+    with torch.no_grad():
+        _, one, _ = _counted(lambda: model(st, plans=plans))
+    emit({"phase": "per_label_forward", "plans": "host",
+          "label_kernel": list(model.label_kernel), "launches": one})
+    require(one == LAUNCHES_PER_FORWARD_PER_LABEL,
+            f"per_label: one forward's launches {one}")
+    return launches
+
+
+def phase_remat(dataset):
+    """framework.remat on and off at dune3d width, bf16, host plans: one
+    forward and backward of batch 0 from the same weights with the same
+    dropout draws gives the same bits in every conv weight gradient and
+    every running statistic, the recomputation's launches counted; then
+    MODEL_STEPS steps through train for each, steps/s and peak GiB ->
+    the remat step's launches."""
+    import torch
+
+    from sparseeventid_tpu_torch.train.evaluate import (
+        class_weights_of,
+        prepare_batch,
+    )
+    from sparseeventid_tpu_torch.train.losses import multi_head_loss
+    from sparseeventid_tpu_torch.train.trainer import build_training, train
+
+    dev = torch.device(DEVICE)
+    batch = dataset.batch([0])
+    result, report = {}, {"phase": "remat", "plans": "host"}
+    for remat in (True, False):
+        cfg = train_config(["run.precision=bfloat16",
+                            f"framework.remat={str(remat).lower()}"])
+        state, _, _ = build_training(cfg, N_BATCHES, None, dev)
+        model = state.model
+        require(model.encoder.remat == remat, "remat not taken from the config")
+        scheme = cfg.mode.optimizer.loss_balance_scheme
+        st, labels = prepare_batch(batch, GRID, model.encoder.capacities[0],
+                                   torch.bfloat16, dev)
+        plans = host_plans(model, batch["image"], GRID, st)
+
+        def one_step():
+            model.train()
+            gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+            logits, _ = model(st, gen, plans)
+            loss, _ = multi_head_loss(logits, labels, scheme,
+                                      class_weights_of(scheme, dev))
+            loss.backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, launches, _, ops = _counted_dp(one_step)
+        require(not any(ops.values()), f"remat: ops-path kernel launched: {ops}")
+        key = "on" if remat else "off"
+        report[f"step_peak_gib_{key}"] = torch.cuda.max_memory_allocated() / 2**30
+        report[f"step_activation_peak_gib_{key}"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        report[f"launches_{key}"] = launches
+        result[key] = ({n: p.grad.detach().clone()
+                        for n, p in model.named_parameters() if p.grad is not None},
+                       {n: b.clone() for n, b in model.named_buffers()},
+                       {n for n, p in model.named_parameters() if p.dim() == 3})
+        del state, model
+        torch.cuda.empty_cache()
+    (g_on, b_on, conv), (g_off, b_off, _) = result["on"], result["off"]
+    differ = sorted(n for n in g_on if not torch.equal(g_on[n], g_off[n]))
+    stats_differ = sorted(n for n in b_on if not torch.equal(b_on[n], b_off[n]))
+    report.update(gradients=len(g_on), conv_weights=len(conv),
+                  gradients_differ=len(differ),
+                  conv_weights_differ=len([n for n in differ if n in conv]),
+                  running_stats=len(b_on), running_stats_differ=len(stats_differ))
+    for remat in (True, False):
+        key = "on" if remat else "off"
+        cfg = train_config(["run.precision=bfloat16", f"run.id=remat_{key}",
+                            f"mode.iterations={MODEL_STEPS}",
+                            f"framework.remat={str(remat).lower()}"])
+        torch.cuda.reset_peak_memory_stats()
+        run = train(cfg, dataset=dataset, device=DEVICE)
+        timed = [m["time/io_s"] + m["time/step_s"] for m in run.history[1:]]
+        report[f"train_steps_per_s_{key}"] = len(timed) / sum(timed)
+        report[f"train_peak_mem_gib_{key}"] = (torch.cuda.max_memory_allocated()
+                                               / 2**30)
+        require(all(m["overflow/dropped"] == 0 for m in run.history),
+                f"remat {key}: dropped")
+        del run
+        torch.cuda.empty_cache()
+    emit(report)
+    print(json.dumps({"remat_steps_per_s_on": report["train_steps_per_s_on"],
+                      "remat_steps_per_s_off": report["train_steps_per_s_off"],
+                      "remat_peak_gib_on": report["train_peak_mem_gib_on"],
+                      "remat_peak_gib_off": report["train_peak_mem_gib_off"]}),
+          flush=True)
+    require(len(conv) == 55 and not report["conv_weights_differ"]
+            and not stats_differ,
+            f"remat changes bits: gradients {differ[:10]}, statistics "
+            f"{stats_differ[:10]}")
+    require(report["launches_on"] == LAUNCHES_PER_TRAIN_STEP_HOST
+            and report["launches_off"] == {
+                **LAUNCHES_PER_TRAIN_STEP_NO_REMAT, "window_plan": 0},
+            f"remat launches: on {report['launches_on']}, off "
+            f"{report['launches_off']}")
+    return {**report["launches_on"], **{k: 0 for k in OPS_KERNELS}}
+
+
+class SlicedDataset:
+    """A CachedDataset's events in batches of any size that divides BATCH
+    (the train runs of the dense family take fewer events a step)."""
+
+    def __init__(self, cached):
+        self.cached = cached
+
+    def __len__(self):
+        return len(self.cached)
+
+    def batch_grid(self):
+        return self.cached.batch_grid()
+
+    def batch(self, indices):
+        first = indices[0] - indices[0] % BATCH
+        rows = [i - first for i in indices]
+        return {k: v[rows] for k, v in self.cached.batch([first]).items()}
+
+
+class PlaneAxisDataset(SlicedDataset):
+    """dune2d events as the dense family's input transform reads them: each
+    pixel of [B, planes, N, 3] (x, y, value) becomes a voxel (plane, y, x,
+    value) of the plane-axis grid (planes, H, W), the layout of the sparse
+    2D transform; pixels outside the grid are dropped as there."""
+
+    def batch(self, indices):
+        import numpy as np
+
+        out = super().batch(indices)
+        image = out["image"]
+        b, planes, n, _ = image.shape
+        h, w = self.batch_grid()[1:]
+        x, y, v = image[..., 0], image[..., 1], image[..., 2]
+        valid = ((x != -999.0) & (y != -999.0) & (v != -999.0)
+                 & (y >= 0) & (y < h) & (x >= 0) & (x < w))
+        plane = np.broadcast_to(np.arange(planes)[None, :, None], (b, planes, n))
+        voxels = np.stack([plane, y, x, v], axis=-1).astype(np.float32)
+        voxels[~valid] = -999.0
+        out["image"] = voxels.reshape(b, planes * n, 4)
+        return out
+
+
+def _card_against_cpu(phase, model, inputs, modes=("eval", "train")):
+    """The logits of ``model`` (the card's weights) on the card and of its
+    copy on the CPU from the same weights, in each of ``modes``, TF32 off
+    -> the report row; rtol = atol = DENSE_COMPARE_TOL."""
+    import copy
+
+    import torch
+
+    from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = copy.deepcopy(model).cpu()
+    row = {}
+    for mode in modes:
+        outs = []
+        for m, dev in ((model, DEVICE), (cpu, "cpu")):
+            m.train(mode == "train")
+            x = ([t.to(dev) for t in inputs] if isinstance(inputs, tuple)
+                 else inputs.to(dev))
+            with torch.no_grad():
+                lg, _ = m(tuple(x) if isinstance(inputs, tuple) else x)
+            outs.append(torch.cat([lg[k] for k in OUTPUT_SHAPE], 1).cpu())
+        card, ref = outs
+        row[mode] = {"max_abs_diff": float((card - ref).abs().max()),
+                     "max_abs": float(ref.abs().max()),
+                     "within": torch.allclose(card, ref, rtol=DENSE_COMPARE_TOL,
+                                              atol=DENSE_COMPARE_TOL)}
+    emit({"phase": f"{phase}_card_vs_cpu", "tf32": False, **row})
+    for mode, r in row.items():
+        require(r["within"], f"{phase}: card against CPU ({mode}): {r}")
+
+
+def phase_dense(dataset_2d):
+    """framework.mode=dense, flax's fp32 rules, TF32 off as the family sets
+    it: dune2d-grid inference (B=8) and training (DENSE_TRAIN_BATCH_2D)
+    through validate and train on plane-axis images; 3D at DENSE_GRID_3D;
+    the card against the CPU on small inputs -> launches (none)."""
+    import torch
+
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.io import SyntheticDataset, SyntheticEventConfig
+    from sparseeventid_tpu_torch.models import build_model, init_parameters
+
+    dense = ["framework.mode=dense"]
+    launches = train_and_validate(
+        "dense2d", dense, PlaneAxisDataset(dataset_2d), GRID_2D, "dune2d",
+        per_step=NO_LAUNCHES, per_forward=NO_LAUNCHES,
+        train_batch=DENSE_TRAIN_BATCH_2D)
+    require(not torch.backends.cudnn.allow_tf32, "dense: TF32 left on")
+    ds3 = SyntheticDataset(
+        BATCH * N_BATCHES,
+        SyntheticEventConfig(image_size=DENSE_GRID_3D, max_voxels=MAX_VOXELS,
+                             mean_tracks=20.0, steps_per_track=300),
+        seed=SEED)
+    cached = CachedDataset(DENSE_GRID_3D, {
+        i: ds3.batch(list(range(i, i + BATCH)))
+        for i in range(0, BATCH * N_BATCHES, BATCH)}, BATCH * N_BATCHES)
+    train_and_validate("dense3d", dense, SlicedDataset(cached), DENSE_GRID_3D,
+                       per_step=NO_LAUNCHES, per_forward=NO_LAUNCHES,
+                       train_batch=DENSE_TRAIN_BATCH_3D)
+    gen = torch.Generator().manual_seed(SEED)
+    for recipe, shape in (("dune3d", (2, 16, 16, 16, 1)),
+                          ("dune2d", (2, 3, 32, 32, 1))):
+        cfg = load_config(recipe, [*dense, "head.dropout=0.0"])
+        model, mode = build_model(cfg)
+        require(mode == "dense", f"dense: build_model gave {mode}")
+        init_parameters(model, SEED).to(DEVICE)
+        x = torch.rand(shape, generator=gen) * (torch.rand(shape, generator=gen) < 0.2)
+        # eval mode only: at depth 5 a small grid's last levels hold 1 to 8
+        # cells an event, and train-mode statistics over so few values
+        # turn float32 rounding into differences of the logits' own size
+        _card_against_cpu(f"dense_{recipe}", model, x, modes=("eval",))
+    return launches
+
+
+def phase_points(dataset, encoder):
+    """encoder=pointnet|dgcnn on dune3d batches (max_points 2048 a cloud):
+    train and validate (finite, no port kernel launched), the card against
+    the CPU from the same weights on POINTS_COMPARE_EVENTS clouds of
+    integer coordinates and values; for DGCNN, knn_indices on the card
+    equal to the CPU's there, ties included -> launches (none)."""
+    import numpy as np
+    import torch
+
+    from sparseeventid_tpu_torch.io import larcv_batch_to_pointcloud
+    from sparseeventid_tpu_torch.models import build_model, init_parameters
+
+    launches = train_and_validate(encoder, [f"encoder={encoder}"], dataset,
+                                  GRID, per_step=NO_LAUNCHES,
+                                  per_forward=NO_LAUNCHES)
+    cfg = train_config([f"encoder={encoder}", "head.dropout=0.0"])
+    model, mode = build_model(cfg)
+    require(mode == "points", f"{encoder}: build_model gave {mode}")
+    init_parameters(model, SEED).to(DEVICE)
+    image = dataset.batch([0])["image"][:POINTS_COMPARE_EVENTS].copy()
+    image[..., -1] = np.where(image[..., -1] == -999.0, -999.0,
+                              np.round(image[..., -1] * 4.0))
+    pts, mask = larcv_batch_to_pointcloud(image, cfg.encoder.max_points)
+    x = (torch.from_numpy(pts), torch.from_numpy(mask))
+    _card_against_cpu(encoder, model, x)
+    if encoder == "dgcnn":
+        from sparseeventid_tpu_torch.models.dgcnn import knn_indices
+
+        k = cfg.encoder.k
+        card = knn_indices(x[0].to(DEVICE), x[1].to(DEVICE), k).cpu()
+        cpu = knn_indices(*x, k)
+        d = ((pts[:, :, None, :] - pts[:, None, :, :]) ** 2).sum(-1)
+        kth = np.sort(np.where(mask[:, None, :], d, 1e9), -1)[..., k - 1:k + 1]
+        ties = int((kth[..., 0] == kth[..., 1])[mask].sum())
+        emit({"phase": "dgcnn_knn", "points": int(mask.sum()), "k": k,
+              "equal": bool(torch.equal(card, cpu)),
+              "points_tied_at_k": ties})
+        require(torch.equal(card, cpu), "dgcnn: knn_indices differ on the card")
+        require(ties > 0, "dgcnn: no tie at the k-th neighbour to test")
+    return launches
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] not in ("--parent", "--dp-rank") or len(argv) != 2):
@@ -3866,6 +4382,12 @@ def main(argv) -> int:
         phase_visualize()
         dp_launches = phase_dp_world1(dataset)
         dp_two_rank_launches = phase_dp_two_ranks()
+        t_models = time.perf_counter()
+        model_launches = {"groupnorm": phase_groupnorm(dataset),
+                          "remat": phase_remat(dataset)}
+        for encoder in ("pointnet", "dgcnn"):
+            model_launches[encoder] = phase_points(dataset, encoder)
+        models_s = time.perf_counter() - t_models
         del dataset
         dataset_2d = make_dataset_2d()
         rows_2d = phase_kernels(dataset_2d, GEOMETRY_2D)
@@ -3877,6 +4399,11 @@ def main(argv) -> int:
         train_launches_2d = phase_train(dataset_2d, "dune2d", GRID_2D,
                                         "train2d")
         phase_train(dataset_2d, "dune2d", GRID_2D, "train2d_device", host=False)
+        t_models = time.perf_counter()
+        model_launches["per_label"] = phase_per_label(dataset_2d)
+        model_launches["dense"] = phase_dense(dataset_2d)
+        models_s += time.perf_counter() - t_models
+        emit({"phase": "models_total", "seconds": models_s})
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")
@@ -3887,6 +4414,8 @@ def main(argv) -> int:
                     replaces=REPLACES[kname], launches=ops_launches[kname],
                     launches_dp=dp_launches[kname],
                     launches_dp_two_ranks=dp_two_rank_launches[kname],
+                    **{f"launches_{m}": counts[kname]
+                       for m, counts in model_launches.items()},
                     path="ops_path (ConvolutionUpsample backward; "
                     "gather_submanifold_conv forward and backward)",
                     max_abs_err=max(r["max_abs_err"] for r in per_shape),
@@ -3927,6 +4456,8 @@ def main(argv) -> int:
                 launches_dp_two_ranks=dp_two_rank_launches[kname],
                 **{f"launches_{task}": counts[kname]
                    for task, counts in task_launches.items()},
+                **{f"launches_{m}": counts[kname]
+                   for m, counts in model_launches.items()},
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

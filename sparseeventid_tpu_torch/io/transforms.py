@@ -1,4 +1,5 @@
-"""Host-side format transforms: larcv padded batches -> model inputs."""
+"""Host-side format transforms: larcv padded batches -> model inputs (a
+SparseTensor on the device, or numpy dense grids and point clouds)."""
 
 from __future__ import annotations
 
@@ -66,3 +67,54 @@ def larcv_batch_to_sparse_2d(
         tuple(image_size),
         capacity=capacity,
     )
+
+
+def _only_3d_images(image: np.ndarray, what: str) -> None:
+    if image.ndim != 3:
+        raise ValueError(
+            f"{what} takes [B, MaxVoxels, D+1] images; got shape "
+            f"{image.shape} (2D multiplane images [B, planes, N, 3] are not "
+            "converted, as in the JAX package)")
+
+
+def larcv_batch_to_dense(
+    image: np.ndarray, image_size: Tuple[int, ...]
+) -> np.ndarray:
+    """[B, MaxVoxels, D+1] padded with -999 -> dense float32
+    [B, *image_size, 1], channels-last (the JAX package's layout)."""
+    _only_3d_images(image, "larcv_batch_to_dense")
+    b = image.shape[0]
+    out = np.zeros((b, *image_size, 1), np.float32)
+    coords = image[..., :-1]
+    vals = image[..., -1]
+    valid = np.all(coords != -999.0, axis=-1) & (vals != -999.0)
+    for bi in range(b):
+        c = coords[bi][valid[bi]].astype(np.int64)
+        out[(bi, *c.T, 0)] = vals[bi][valid[bi]]
+    return out
+
+
+def larcv_batch_to_pointcloud(
+    image: np.ndarray, max_points: int,
+    shuffle_rng: np.random.Generator | None = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """[B, MaxVoxels, D+1] -> (float32 points [B, max_points, D+1], bool
+    mask [B, max_points]); a point's features are (coordinates..., value).
+    An event with more valid voxels keeps its first ``max_points``, or,
+    with ``shuffle_rng``, ``shuffle_rng.choice`` of them without
+    replacement (the same draws as the JAX package's for the same
+    generator)."""
+    _only_3d_images(image, "larcv_batch_to_pointcloud")
+    b, _, f = image.shape
+    pts = np.zeros((b, max_points, f), np.float32)
+    mask = np.zeros((b, max_points), bool)
+    valid = np.all(image[..., :-1] != -999.0, axis=-1)
+    for bi in range(b):
+        idx = np.nonzero(valid[bi])[0]
+        if shuffle_rng is not None and len(idx) > max_points:
+            idx = shuffle_rng.choice(idx, max_points, replace=False)
+        else:
+            idx = idx[:max_points]
+        pts[bi, :len(idx)] = image[bi, idx]
+        mask[bi, :len(idx)] = True
+    return pts, mask

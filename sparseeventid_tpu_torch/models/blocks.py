@@ -4,18 +4,30 @@ Submodules and parameters carry the flax module names (``conv1``, ``norm``,
 ``w``, ``b``, ``block_0``, ...), so a flax parameter tree maps onto the
 ``state_dict`` by joining its path with dots (``convert.py``).  Plans are
 explicit: a block series shares one plan for all its convs.
+
+``checkpointed_series`` runs a series under ``torch.utils.checkpoint``
+(flax's ``nn.remat``, ``framework.remat``): its activations are dropped
+after the forward and recomputed in the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.schema import ConvRepresentation, Norm
-from ..ops import SparseTensor, apply_norm, average_pool, masked_batch_stats
+from ..ops import (
+    SparseTensor,
+    apply_norm,
+    average_pool,
+    masked_batch_stats,
+    masked_group_norm,
+)
 from ..ops.engine import (
     WINDOW,
     XLA,
@@ -34,7 +46,9 @@ class MaskedBatchNorm(nn.Module):
     eps 1e-4, running averages with momentum 0.9).  Eval uses the running
     statistics.  With ``sync`` (JAX's ``axis_name``) training takes its
     statistics over the batches of every rank (sync batch norm); eval
-    runs no collective."""
+    runs no collective.  ``update_stats`` is False only while a
+    checkpointed series recomputes its forward: the running averages move
+    once a step, as under flax's ``nn.remat``."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-4,
                  sync: bool = False):
@@ -46,28 +60,56 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.update_stats = True
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, var = masked_batch_stats(feats, mask, self.sync)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.mul_(m).add_((1.0 - m) * mean)
-                self.var.mul_(m).add_((1.0 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.mul_(m).add_((1.0 - m) * mean)
+                    self.var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
         return apply_norm(feats, mask, mean, var, self.scale, self.bias, self.eps)
 
 
+class MaskedGroupNorm(nn.Module):
+    """scn.SparseGroupNorm: statistics per event and group over its live
+    rows (eps 1e-5); no running statistics and no collective, so it is the
+    same under data parallelism."""
+
+    def __init__(self, channels: int, num_groups: int = 1, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return masked_group_norm(feats, mask, self.num_groups, self.scale,
+                                 self.bias, self.eps)
+
+
 def _make_norm(norm: Norm, channels: int, sync_bn: bool = False):
     if norm == Norm.batch:
         return MaskedBatchNorm(channels, sync=sync_bn)
-    if norm == Norm.none:
-        return None
-    raise NotImplementedError(
-        f"normalization={norm.name} is not ported yet (ROADMAP: group/layer "
-        "norm)"
-    )
+    if norm in (Norm.group, Norm.layer):  # one group, as the reference
+        return MaskedGroupNorm(channels)
+    return None
+
+
+class InputNorm(nn.Module):
+    """SparseGroupNorm(1, C) on the raw input (the reference's InputNorm;
+    the encoder does not call it)."""
+
+    def __init__(self, channels: int = 1):
+        super().__init__()
+        self.norm = MaskedGroupNorm(channels)
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        return st.with_feats(self.norm(st.feats, st.row_mask()))
 
 
 def _leaky(st: SparseTensor, slope: float) -> SparseTensor:
@@ -131,6 +173,42 @@ class SparseBlockSeries(nn.Module):
         for name in self.names:
             st = getattr(self, name)(st, plan)
         return st
+
+
+@contextlib.contextmanager
+def _frozen_statistics(module: nn.Module, frozen: bool):
+    norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.update_stats = not frozen
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+def checkpointed_series(series: SparseBlockSeries, st: SparseTensor,
+                        plan) -> SparseTensor:
+    """``series(st, plan)`` under ``torch.utils.checkpoint``: the backward
+    recomputes the forward instead of keeping its activations.  The
+    recomputation normalises with the batch's statistics again but leaves
+    the running averages alone (they move once, as flax's ``nn.remat``
+    mutates ``batch_stats`` once).  Under sync batch norm it issues the
+    all-reduce of each norm again; every rank recomputes the same series in
+    the same order, so the collectives pair up, as JAX's remat reruns its
+    ``psum``.  The plans are no tensors the checkpoint tracks: they pass
+    through unchanged.  The series draws no random numbers, so no RNG state
+    is kept."""
+    calls = []
+
+    def run(feats: torch.Tensor) -> torch.Tensor:
+        calls.append(None)
+        with _frozen_statistics(series, frozen=len(calls) > 1):
+            return series(st.with_feats(feats), plan).feats
+
+    feats = checkpoint(run, st.feats, use_reentrant=False,
+                       preserve_rng_state=False)
+    return st.with_feats(feats)
 
 
 def offset_count(kernel: Tuple[int, ...]) -> int:

@@ -14,6 +14,11 @@ the kernels are [3, k, k] and do mix planes.
 ``ops.host_plans.EncoderPlans`` built on the host (the main path: the
 trainer's loader builds them); without ``plans`` each level's plan is built
 on the device from its site set.
+
+With ``remat`` (``framework.remat``, JAX's ``nn.remat`` of each block
+series) a training forward runs every block series under
+``torch.utils.checkpoint``: the backward recomputes the series' forward
+instead of keeping its activations.  The gradients are the same bits.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from .blocks import (
     ConvolutionDownsample,
     PoolingDownsample,
     SparseBlockSeries,
+    checkpointed_series,
     offset_count,
 )
 
@@ -62,7 +68,8 @@ class Encoder(nn.Module):
     """forward(st) -> (encoded SparseTensor with tanh applied, dropped),
     where ``dropped`` sums the sites and conv pairs lost to static
     capacities over every plan (0 when the run is exact).  ``sync_bn``
-    makes every batch norm a sync batch norm (JAX's ``axis_name``)."""
+    makes every batch norm a sync batch norm (JAX's ``axis_name``);
+    ``remat`` recomputes each block series in the backward."""
 
     def __init__(
         self,
@@ -72,6 +79,7 @@ class Encoder(nn.Module):
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
         sync_bn: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if dimension not in (2, 3):
@@ -81,6 +89,7 @@ class Encoder(nn.Module):
         self.dimension = dimension
         self.backend = backend
         self.tuning = tuning
+        self.remat = remat
         caps = tuple(capacities) or (None,) * (p.depth + 1)
         self.capacities = caps
         downsampler = (
@@ -152,6 +161,11 @@ class Encoder(nn.Module):
             q_bound_frac=self._qb_frac(level), window_r=window_r,
         )
 
+    def _series(self, series: SparseBlockSeries, st: SparseTensor, plan):
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpointed_series(series, st, plan)
+        return series(st, plan)
+
     def forward(self, st: SparseTensor, plans=None):
         p = self.params
         if plans is None:
@@ -167,7 +181,7 @@ class Encoder(nn.Module):
             else:
                 plan = plans.series[i]
             dropped = dropped + plan_overflow_dropped(plan)
-            st = getattr(self, f"series_{i}")(st, plan)
+            st = self._series(getattr(self, f"series_{i}"), st, plan)
             precomputed = (
                 None if plans is None else (plans.skeletons[i], plans.down[i])
             )
@@ -179,7 +193,7 @@ class Encoder(nn.Module):
         else:
             plan = plans.series[p.depth]
         dropped = dropped + plan_overflow_dropped(plan)
-        st = self.final_series(st, plan)
+        st = self._series(self.final_series, st, plan)
         # 1x1 bottleneck: pointwise, float32 like the flax einsum with f32
         # weights
         feats = torch.matmul(st.feats.float(), self.bottleneck_w[0].float())

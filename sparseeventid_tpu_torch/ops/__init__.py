@@ -6,8 +6,8 @@ from .conv import (  # noqa: F401
     strided_conv,
     submanifold_conv,
 )
-from .norm import apply_norm, masked_batch_stats  # noqa: F401
-from .pool import global_avg_pool  # noqa: F401
+from .norm import apply_norm, masked_batch_stats, masked_group_norm  # noqa: F401
+from .pool import global_avg_pool, global_max_pool  # noqa: F401
 from .rulebook import (  # noqa: F401
     Rulebook,
     build_downsample_rulebook,

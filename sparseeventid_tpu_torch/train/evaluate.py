@@ -9,8 +9,10 @@ run directory.
 
 A split's data is its larcv file (``data.train`` / ``data.val`` /
 ``data.test``), or, for the word ``synthetic`` or an empty name under the
-synthetic detector, synthetic events on the detector's grid.  Each batch's
-window plans are built on the host (``train/plans.py``) unless
+synthetic detector, synthetic events on the detector's grid.  The
+supervised task runs every model family (``models.build.build_model``:
+sparse, dense or point-cloud input).  Each batch's window plans of a sparse
+model are built on the host (``train/plans.py``) unless
 ``SEID_HOST_PLANS=0``.
 
 Entry points run on the card.  They use the CPU only when asked, by
@@ -48,14 +50,16 @@ from ..config.schema import (
 from ..io import (
     SyntheticDataset,
     SyntheticEventConfig,
+    larcv_batch_to_dense,
+    larcv_batch_to_pointcloud,
     larcv_batch_to_sparse_2d,
     larcv_batch_to_sparse_3d,
 )
-from ..models import build_sparse_classifier, init_parameters
+from ..models import DENSE, POINTS, SPARSE, build_model, init_parameters
 from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
-from .plans import planner_for
+from .plans import run_planner
 from .supervised import eval_metrics
 
 logger = logging.getLogger(__name__)
@@ -140,24 +144,46 @@ def close_datasets(datasets) -> None:
             ds.close()
 
 
-def to_input(image: np.ndarray, grid, capacity: int, dtype: torch.dtype,
-             device: torch.device):
-    """A padded larcv image array -> SparseTensor on the device in the
-    feature type.  A 4-D image is 2D multiplane data, [B, planes,
-    MaxVoxels, 3]."""
+def max_points(cfg: SparseEventIDConfig) -> int:
+    """The point clouds' capacity (``encoder.max_points``)."""
+    return getattr(cfg.encoder, "max_points", 2048)
+
+
+def to_input(image: np.ndarray, grid, capacity: int | None,
+             dtype: torch.dtype, device: torch.device, mode: str = SPARSE,
+             points: int = 2048):
+    """A padded larcv image array -> the input of a model family on the
+    device, in the feature type (the JAX trainer's ``_image_to_input``):
+    ``sparse``, a SparseTensor of ``capacity`` rows (a 4-D image is 2D
+    multiplane data, [B, planes, MaxVoxels, 3]); ``dense``, the grid
+    [B, *grid, 1]; ``points``, (points [B, points, D+1], mask).  The dense
+    and point-cloud conversions take 3-D images only."""
+    if mode == DENSE:
+        dense = torch.from_numpy(larcv_batch_to_dense(image, tuple(grid)))
+        return dense.to(device).to(dtype)
+    if mode == POINTS:
+        pts, mask = larcv_batch_to_pointcloud(image, points)
+        return (torch.from_numpy(pts).to(device).to(dtype),
+                torch.from_numpy(mask).to(device))
     to_sparse = (larcv_batch_to_sparse_2d if image.ndim == 4
                  else larcv_batch_to_sparse_3d)
     st = to_sparse(image, grid, capacity=capacity, device=device)
     return st.with_feats(st.feats.to(dtype))
 
 
-def prepare_batch(batch, grid, capacity: int, dtype: torch.dtype,
-                  device: torch.device):
-    """A dataset batch (padded numpy arrays) -> (SparseTensor on the device
-    in the feature type, labels on the device)."""
-    st = to_input(batch["image"], grid, capacity, dtype, device)
+def prepare_batch(batch, grid, capacity: int | None, dtype: torch.dtype,
+                  device: torch.device, mode: str = SPARSE,
+                  points: int = 2048):
+    """A dataset batch (padded numpy arrays) -> (the model's input on the
+    device in the feature type, see ``to_input``; labels on the device)."""
+    x = to_input(batch["image"], grid, capacity, dtype, device, mode, points)
     labels = {k: torch.from_numpy(batch[k]).to(device) for k in OUTPUT_SHAPE}
-    return st, labels
+    return x, labels
+
+
+def input_capacity(model: torch.nn.Module, mode: str) -> int | None:
+    """The level-0 capacity of a sparse model's input (None otherwise)."""
+    return model.encoder.capacities[0] if mode == SPARSE else None
 
 
 def class_weights_of(scheme, device):
@@ -210,9 +236,9 @@ def validate(
     to the config's val split (test without one); ``params`` is a
     ``state_dict`` to evaluate (e.g. from ``convert.params_from_jax``),
     default a seeded random initialisation and then the run's restore."""
-    from .tasks import check_task
+    from .tasks import task_check
 
-    check_task(cfg.name)
+    task_check(cfg)
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
@@ -230,7 +256,7 @@ def validate(
 
 
 def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
-    model = build_sparse_classifier(cfg)
+    model, mode = build_model(cfg)
     if params is None:
         init_parameters(model, cfg.run.seed)
         model.to(dev)
@@ -242,25 +268,26 @@ def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     model.eval()
     dtype = feature_dtype(cfg)
     grid = dataset.batch_grid()
-    cap0 = model.encoder.capacities[0]
+    cap0 = input_capacity(model, mode)
     opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
     scheme = opt_cfg.loss_balance_scheme
     class_weights = class_weights_of(scheme, dev)
     output_file = getattr(cfg.mode, "output_file", "")
-    planner = planner_for(cfg, model.encoder, grid)
+    planner = run_planner(cfg, grid)
 
     batches = shard_batches(len(dataset), cfg.run.minibatch_size)
     per_batch = []
     outputs = {k: [] for k in OUTPUT_SHAPE}
     for indices in batches:
         batch = dataset.batch(indices)
-        st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
+        x, labels = prepare_batch(batch, grid, cap0, dtype, dev, mode,
+                                  max_points(cfg))
         with torch.no_grad():
             plans = None
             if planner is not None:
                 plans = planner.plans(
-                    st, planner.to_device(planner.build(batch["image"]), dev))
-            logits, dropped = model(st, plans=plans)
+                    x, planner.to_device(planner.build(batch["image"]), dev))
+            logits, dropped = model(x, plans=plans)
             m = mesh.reduce_metrics(
                 eval_metrics(logits, labels, dropped, scheme, class_weights))
         per_batch.append({k: float(v) for k, v in m.items()})
@@ -290,9 +317,7 @@ def _validate_task(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
     from .tasks import LOADER_PLANS, build_task
 
     grid = tuple(dataset.batch_grid())
-    planner = None
-    if cfg.name in LOADER_PLANS:
-        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, grid)
+    planner = run_planner(cfg, grid) if cfg.name in LOADER_PLANS else None
     task = build_task(cfg, dataset, grid, 1, params, dev, planner)
     if params is None:
         restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),

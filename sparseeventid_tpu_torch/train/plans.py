@@ -21,9 +21,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config.schema import ConvRepresentation, SparseEventIDConfig
+from ..config.schema import SparseEventIDConfig
 from ..io.hostio import build_window_plans
 from ..io.plan_cache import PlanCache
+from ..models.build import SPARSE, build_sparse_classifier, model_family
 from ..ops.engine import WINDOW, host_list_width
 from ..ops.host_plans import EncoderPlans, encoder_plans_from_host
 from ..ops.sparse_tensor import SparseTensor
@@ -35,11 +36,12 @@ HOST_PLANS_ENV = "SEID_HOST_PLANS"
 
 def plans_enabled(cfg: SparseEventIDConfig) -> bool:
     """Whether the run builds its window plans on the host: the window
-    backend's sparse encoder, 2D or 3D, unless SEID_HOST_PLANS=0."""
+    backend's sparse encoder, 2D or 3D, unless SEID_HOST_PLANS=0 (the
+    dense and point-cloud families have no plans)."""
     return (
         os.environ.get(HOST_PLANS_ENV, "1") != "0"
         and cfg.framework.sparse_backend == WINDOW
-        and isinstance(cfg.encoder, ConvRepresentation)
+        and model_family(cfg) == SPARSE
         and cfg.data.dimension in (2, 3)
     )
 
@@ -201,3 +203,13 @@ def planner_for(cfg: SparseEventIDConfig, encoder, grid: Sequence[int],
         return None
     return HostPlanner(encoder, grid,
                        cfg.framework.plan_cache_mb if cache else 0)
+
+
+def run_planner(cfg: SparseEventIDConfig, grid: Sequence[int],
+                cache: bool = False) -> Optional[HostPlanner]:
+    """The planner of the config's sparse classifier on ``grid`` (the
+    geometry of every sparse task's encoder but SimCLR's views), or None
+    when its plans are built on the device or it has none."""
+    if not plans_enabled(cfg):
+        return None
+    return planner_for(cfg, build_sparse_classifier(cfg).encoder, grid, cache)

@@ -59,10 +59,12 @@ class RepresentationModel(nn.Module):
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
         sync_bn: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.encoder = Encoder(encoder_cfg, dimension, capacities,
-                               backend=backend, tuning=tuning, sync_bn=sync_bn)
+                               backend=backend, tuning=tuning, sync_bn=sync_bn,
+                               remat=remat)
         self.projector = ProjectionHead(encoder_cfg.n_output_filters,
                                         out=projection_dim)
 

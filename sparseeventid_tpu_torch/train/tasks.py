@@ -22,8 +22,14 @@ thread and through its cache; for SimCLR in ``prepare``, one uncached plan
 dict a view at the views' capacities (their coordinates change with every
 draw).
 
-With ``run.distributed`` every model's batch norms are sync batch norms and
-SimCLR's loss gathers the views of every rank (``parallel/mesh.py``).  Each
+The supervised task trains every model family (``models.build.build_model``:
+sparse, dense or point-cloud input); the other three build the sparse
+encoder only and raise for a dense or point-cloud config (``task_check``).
+
+With ``framework.remat`` every task's sparse encoder recomputes its block
+series in the backward.  With ``run.distributed`` every sparse model's batch
+norms are sync batch norms (the dense and point-cloud ones take each rank's
+own statistics, as in JAX) and SimCLR's loss gathers the views of every rank (``parallel/mesh.py``).  Each
 rank builds from the same seed, fits ``unsupervised_eventID``'s window to
 the whole split it is given (never to its shard, so every rank labels
 alike) and augments its own events with views seeded ``run.seed + 101``.
@@ -46,14 +52,23 @@ from ..config.schema import (
 )
 from ..io.augment import augment_larcv_batch
 from ..models import (
+    build_model,
     build_sparse_classifier,
     capacity_schedule,
     init_parameters,
     model_family,
+    require_sparse,
 )
 from ..ops.window.query import WindowTuning
 from ..utils.checkpoint import encoder_freeze_names, transfers_encoder
-from .evaluate import class_weights_of, feature_dtype, prepare_batch, to_input
+from .evaluate import (
+    class_weights_of,
+    feature_dtype,
+    input_capacity,
+    max_points,
+    prepare_batch,
+    to_input,
+)
 from .optimizers import build_optimizer
 from .plans import HostPlanner, planner_for
 from .representation import (
@@ -94,6 +109,17 @@ def check_task(name: str) -> None:
     if name not in TASKS:
         raise ValueError(f"unknown task name {name!r}; expected one of "
                          f"{sorted(TASKS)} (reference bin/exec.py:280-301)")
+
+
+def task_check(cfg: SparseEventIDConfig) -> None:
+    """Raise for a task the config cannot run: an unknown name, or a dense
+    or point-cloud model under simclr, yolo or unsupervised_eventID, whose
+    models are built on the sparse encoder alone.  (The JAX trainer builds
+    their sparse models there too and then fails on the dense or
+    point-cloud input, or on the point-cloud encoder's missing depth.)"""
+    check_task(cfg.name)
+    if cfg.name != "supervised_eventID":
+        require_sparse(cfg, f"the {cfg.name} task")
 
 
 def host_plans_of(planner: HostPlanner | None, batch, device):
@@ -147,10 +173,10 @@ def step_count(cfg: SparseEventIDConfig, epoch_length: int) -> int:
 def build_training(cfg: SparseEventIDConfig, epoch_length: int,
                    params: Mapping[str, torch.Tensor] | None,
                    device: torch.device, planner: HostPlanner | None = None):
-    """-> (state, train_step, n_steps) of the supervised task; with a
-    ``planner`` the step takes the batch's host plans (``host_plans=``, a
-    dict on the device)."""
-    model = build_sparse_classifier(cfg, sync_bn=cfg.run.distributed)
+    """-> (state, train_step, n_steps) of the supervised task, any model
+    family; with a ``planner`` the step takes the batch's host plans
+    (``host_plans=``, a dict on the device)."""
+    model, _ = build_model(cfg, sync_bn=cfg.run.distributed)
     state, lr_schedule = new_state(cfg, model, epoch_length, params, device)
     opt_cfg = optimizer_config(cfg)
     scheme = opt_cfg.loss_balance_scheme
@@ -167,11 +193,10 @@ def _plans_builder(planner):
 
 
 def _encoder_kwargs(cfg: SparseEventIDConfig, capacities):
-    model_family(cfg)
     return dict(encoder_cfg=cfg.encoder, dimension=cfg.data.dimension,
                 capacities=capacities, backend=cfg.framework.sparse_backend,
                 tuning=WindowTuning.from_config(cfg.framework.tuning),
-                sync_bn=cfg.run.distributed)
+                sync_bn=cfg.run.distributed, remat=cfg.framework.remat)
 
 
 def task_capacities(cfg: SparseEventIDConfig, max_voxels: int | None = None):
@@ -194,11 +219,13 @@ def _supervised(cfg, dataset, grid, epoch_length, params, dev, planner):
     eval_step = make_eval_step(state.model, scheme,
                                class_weights_of(scheme, dev),
                                plans_builder=_plans_builder(planner))
-    cap0, dtype = state.model.encoder.capacities[0], feature_dtype(cfg)
+    mode = model_family(cfg)
+    cap0, dtype = input_capacity(state.model, mode), feature_dtype(cfg)
 
     def prepare(batch):
-        st, labels = prepare_batch(batch, grid, cap0, dtype, dev)
-        return st, labels, host_plans_of(planner, batch, dev)
+        x, labels = prepare_batch(batch, grid, cap0, dtype, dev, mode,
+                                  max_points(cfg))
+        return x, labels, host_plans_of(planner, batch, dev)
 
     return Training(state, lambda a, gen: step(a[0], a[1], gen, a[2]),
                     lambda a: eval_step(*a), n_steps, prepare)
@@ -353,6 +380,6 @@ def build_task(cfg: SparseEventIDConfig, dataset, grid, epoch_length: int,
     is the split whose energies place the weak-label window; ``planner``
     the loader's (its batches carry their plans), used by every task but
     SimCLR."""
-    check_task(cfg.name)
+    task_check(cfg)
     return BUILDERS[cfg.name](cfg, dataset, grid, epoch_length, params,
                               device, planner)

@@ -46,20 +46,19 @@ import torch
 
 from ..config.schema import OUTPUT_SHAPE, SparseEventIDConfig
 from ..io.dataset import BatchLoader
-from ..models import build_sparse_classifier
 from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
 from .evaluate import build_dataset, close_datasets, resolve_device, run_dir
-from .plans import planner_for
+from .plans import run_planner
 from .state import TrainState, param_count
 from .tasks import (  # noqa: F401  (build_training, host_plans_of: callers)
     LOADER_PLANS,
     build_task,
     build_training,
-    check_task,
     host_plans_of,
+    task_check,
 )
 
 logger = logging.getLogger(__name__)
@@ -110,7 +109,7 @@ def train(
     validates on nothing.  ``params`` is a ``state_dict`` to start from;
     without it the run starts from a seeded random initialisation and then
     restores."""
-    check_task(cfg.name)
+    task_check(cfg)
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
@@ -123,10 +122,8 @@ def train(
             datasets = {"train": dataset}
         # one plan geometry for every split, the train split's grid
         grid = tuple(datasets["train"].batch_grid())
-        planner = None
-        if cfg.name in LOADER_PLANS:
-            planner = planner_for(cfg, build_sparse_classifier(cfg).encoder,
-                                  grid, cache=True)
+        planner = (run_planner(cfg, grid, cache=True)
+                   if cfg.name in LOADER_PLANS else None)
         loaders = {}
         try:
             for split, ds in datasets.items():
@@ -239,10 +236,9 @@ def iotest(cfg: SparseEventIDConfig) -> Dict[str, Dict[str, float]]:
     iterations = getattr(cfg.mode, "iterations", 25) or 25
     results = {}
     with process_log(run_dir(cfg) / "process.log"):
-        encoder = build_sparse_classifier(cfg).encoder
         for split in cfg.data.active or ("train",):
             dataset = build_dataset(cfg, split)
-            planner = planner_for(cfg, encoder, dataset.batch_grid(), cache=True)
+            planner = run_planner(cfg, dataset.batch_grid(), cache=True)
             loader = make_loader(
                 cfg, dataset,
                 planner.transform(split) if planner is not None else None)

@@ -70,10 +70,12 @@ class VertexModel(nn.Module):
         backend: str = "xla",
         tuning: WindowTuning = WindowTuning(),
         sync_bn: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.encoder = Encoder(encoder_cfg, dimension, capacities,
-                               backend=backend, tuning=tuning, sync_bn=sync_bn)
+                               backend=backend, tuning=tuning, sync_bn=sync_bn,
+                               remat=remat)
         self.head = VertexHead(encoder_cfg.n_output_filters, n_event_classes)
 
     def forward(self, st: SparseTensor, plans=None):

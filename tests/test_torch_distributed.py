@@ -313,6 +313,32 @@ def test_dp_softmax_file_equals_the_one_process_file(entry_points, tmp_path):
         np.testing.assert_allclose(dp[k], single[k], rtol=1e-6, atol=1e-7)
 
 
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("families")
+    return W.run_ranks(W.families_job, 2, tmp / "ranks", str(tmp / "out"))
+
+
+@pytest.mark.parametrize("family", list(W.FAMILIES))
+def test_dp_trains_and_serves_the_dense_and_point_cloud_families(families, family):
+    """Two supervised steps and inference of each family under two ranks:
+    the same finite losses and validation metrics and the same parameter
+    bits on both (the gradients' mean is the same on both ranks).  The
+    running statistics differ: each rank's batch norms take its own
+    statistics, as the JAX family's norms, which have no ``axis_name``."""
+    r0, r1 = (r[family] for r in families)
+    assert len(r0["history"]) == len(r1["history"]) == 2
+    for a, b in zip(r0["history"], r1["history"]):
+        assert a["loss/loss"] == b["loss/loss"] and np.isfinite(a["loss/loss"])
+        assert a["overflow/dropped"] == 0
+    assert r0["validation"] == r1["validation"]
+    assert np.isfinite(r0["validation"]["loss/loss"])
+    assert len(r0["params"]) > 10
+    for a, b in zip(r0["params"], r1["params"]):
+        assert torch.equal(a, b)
+    assert any(not torch.equal(a, b) for a, b in zip(r0["buffers"], r1["buffers"]))
+
+
 # ---- (g) the bootstrap
 
 def _free_port():

@@ -280,6 +280,37 @@ def entry_points_job(rank, world, out_dir):
     )
 
 
+FAMILIES = {
+    "dense": ["framework.mode=dense"],
+    "pointnet": ["encoder=pointnet", "encoder.max_points=64"],
+    "dgcnn": ["encoder=dgcnn", "encoder.max_points=64", "encoder.k=4",
+              "encoder.emb_dims=64"],
+}
+
+
+def families_job(rank, world, out_dir):
+    """Two supervised steps and inference of the dense and point-cloud
+    families with run.distributed=true: the metrics of every step and of
+    validation, and the final parameters and buffers."""
+    from sparseeventid_tpu_torch.config import load_config
+    from sparseeventid_tpu_torch.train import trainer
+    from sparseeventid_tpu_torch.train.evaluate import validate
+
+    out = {}
+    for family, extra in FAMILIES.items():
+        common = TINY + ["run.distributed=true", f"output_dir={out_dir}",
+                         f"run.id={family}", "data.synthetic_events=8", *extra]
+        run = trainer.train(load_config("synthetic", common + [
+            "mode=train", "mode.iterations=2"]))
+        val = validate(load_config("synthetic", common + ["mode=inference"]))
+        model = run.state.model
+        out[family] = dict(
+            history=run.history, validation=val,
+            params=[p.detach().clone() for p in model.parameters()],
+            buffers=[b.clone() for b in model.buffers()])
+    return out
+
+
 def pair_job(rank, world, state_path):
     """(a)-(d) in one group of two."""
     return {**stats_and_nt_xent_job(rank, world),
