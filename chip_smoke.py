@@ -191,11 +191,30 @@ Phases, one JSON line each; any failure exits non-zero:
               B=8, training DENSE_TRAIN_BATCH_2D; 3D at DENSE_GRID_3D; the
               card against the CPU on small inputs, eval mode).  The dense
               and point-cloud phases launch no kernel of csrc/
- 16. the total wall time, the {"kernels": [...]} line (window_plan's
+ 16. sparse_efficiency  the port's sparse-vs-dense sweep tool
+              (sparseeventid_tpu_torch/scripts/sparse_efficiency.py) at its
+              full default through sparse_efficiency.sweep: 2-D and 3-D
+              grids of 256 a side, kernels 1, 3 and 5, six sparsities of
+              uniformly random sites at a capacity of 65536, fp32 at 8 -> 8
+              channels, 36 rows (sparse ms, dense ms, speedup, the overflow
+              list's width, walked entries and real pairs).  Every row with
+              K > 1: 0 dropped, and the window output at the live sites
+              within 1e-4 of its scale of the xla rulebook backend and of
+              cuDNN's dense conv with the same weights as a dense kernel
+              (TF32 off); the run's launches exactly a window_plan a row of
+              K > 1 and a window_conv_apply and an overflow_apply_batched a
+              timed call and its warm-up.  Then window_plan,
+              window_conv_apply and overflow_apply_batched at the densest
+              2-D K = 25 and 3-D K = 125 rows bit-equal to their plain
+              versions on integer fp32 data (the sidecar on the plan's list
+              and on a hand-made list as wide), timed in the kernel rows.
+              It runs last: it turns TF32 off for the process
+ 17. the total wall time, the {"kernels": [...]} line (window_plan's
      launches from main_device; launches_simclr, _yolo, _unsupervised of
      the task runs; launches_dp and launches_dp_two_ranks of the DP runs;
      launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
-     of the model runs), then {"ok": true, "device": {...}} last.
+     of the model runs; launches_sparse_efficiency of the sweep), then
+     {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -228,9 +247,11 @@ GRID_2D = (3, 1536, 1024)
 MAX_VOXELS_2D = 20000  # a plane
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
+# and float32 FLOP/s outside the tensor cores (the fp32 kernels' route)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
 REPLACES = {
     "window_plan": "sparseeventid_tpu/ops/pallas/window_conv.py:607",
@@ -362,9 +383,15 @@ def timed_ms(fn, iters: int = 10, warmup: int = 2, graph: bool = True) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype=None):
+    """The card's least time for the bytes and the operations: fp32 at the
+    CUDA cores' peak (the fp32 kernels' route), else bf16 at the tensor
+    cores'."""
+    import torch
+
+    rate = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOPS_PER_S * 1e3
+    tf = flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -700,14 +727,63 @@ def _conv_row(label, keys, plan, start, q_active, n_tab, n_q, live_tiles,
     # queries' meta, the live tiles' starts, W; writes: the output in
     # full (rows past the live ones are defined as 0)
     b_ms, b_by = bound(
-        (4 + 2 * c) * n_tab + 4 * plan.qmeta.shape[1] * n_q
+        (4 + x_real.element_size() * c) * n_tab
+        + 4 * plan.qmeta.shape[1] * n_q
         + 4 * k * live_tiles + nbytes(q_active, w_real, out),
-        2.0 * pairs_in * c * co,
+        2.0 * pairs_in * c * co, x_real.dtype,
     )
     row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                parent_ms=parent_ms, pairs_in_window=pairs_in, out_scale=scale)
     return row, out
+
+
+def _sidecar_row(label, entry, base, x, w, lst, q_cap, t_cap) -> dict:
+    """An overflow sidecar entry (``kernels.overflow_apply`` or
+    ``sidecar.overflow_apply_batched``) on one list (src, dst, kk, valid,
+    n_bound) at real-valued features: its largest difference from its plain
+    version, its time beside the plain version's, the bmm + index_add_
+    yardstick over the walked valid entries, and the card's least time.
+    ``q_cap`` / ``t_cap``: the output's and the table's capacity."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    src, dst, kk, valid, nb = lst
+    c, co = w.shape[1:]
+    ok = valid & (torch.arange(src.shape[1], device=src.device)[None, :]
+                  < nb[:, None])
+    bi, si = torch.nonzero(ok, as_tuple=True)
+    n_ov = int(bi.numel())
+    err = (entry(base.clone(), x, w, *lst).float()
+           - K.overflow_apply_plain(base.clone(), x, w, *lst).float()
+           ).abs().max().item()
+    scratch = base.clone()
+    ms = timed_ms(lambda: entry(scratch, x, w, *lst))
+    plain_ms = timed_ms(lambda: K.overflow_apply_plain(scratch, x, w, *lst),
+                        iters=3, warmup=1, graph=False)
+    target = bi * q_cap + dst[bi, si].long()
+    source = bi * t_cap + src[bi, si].long()
+    rows = x[bi, src[bi, si].long()]
+    wk = w[kk[bi, si].long()]
+    flat = scratch.view(-1, co)
+
+    def library():
+        flat.index_add_(0, target, torch.bmm(rows[:, None, :], wk)[:, 0])
+
+    lib_ms = timed_ms(library)
+    # reads: the valid flags of the walked prefix, (src, dst, k) of the
+    # valid entries, each distinct source row once, W; each distinct output
+    # row is read and written once (in place)
+    esize = x.element_size()
+    b_ms, b_by = bound(
+        int(nb.sum()) + 12 * n_ov + nbytes(nb, w)
+        + esize * c * int(torch.unique(source).numel())
+        + 2 * esize * co * int(torch.unique(target).numel()),
+        2.0 * n_ov * c * co, x.dtype)
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                entries=n_ov, walked=int(nb.sum()), list_width=src.shape[1])
 
 
 def phase_dense_tile():
@@ -936,14 +1012,11 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             require(K.overflow_dst_ordered(dst, nb),
                     f"the overflow list's dst is out of order at {label}")
             plan_list = (src, dst, kk, valid, nb)
+            entry = K.overflow_apply if c == 1 else overflow_apply_batched
 
             def side(base, x, w, kernel=True, lst=plan_list):
-                sargs = (base, x, w, *lst)
-                if not kernel:
-                    return K.overflow_apply_plain(*sargs)
-                if c == 1:
-                    return K.overflow_apply(*sargs)
-                return overflow_apply_batched(*sargs)
+                f = entry if kernel else K.overflow_apply_plain
+                return f(base, x, w, *lst)
 
             hand = _handmade_lists(qst.n_active.tolist(), tab.n_active.tolist(),
                                    k, src.shape[1], SEED + c)
@@ -967,39 +1040,9 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                       < hand[4][:, None])
             occupancy["handmade_entries"] = int((hand[3] & walked).sum())
             base_r = K.window_conv_apply(*rargs, window_r=r)
-            err = (side(base_r.clone(), x_real, w_real).float()
-                   - side(base_r.clone(), x_real, w_real, kernel=False).float()
-                   ).abs().max().item()
-            scratch = base_r.clone()
-            ms = timed_ms(lambda: side(scratch, x_real, w_real))
-            plain_ms = timed_ms(lambda: side(scratch, x_real, w_real, False),
-                                iters=3, warmup=1, graph=False)
-            bi, si = torch.nonzero(valid, as_tuple=True)
-            target = bi * qst.capacity + dst[bi, si].long()
-            source = bi * tab.capacity + src[bi, si].long()
-            rows = x_real[bi, src[bi, si].long()]
-            wk = w_real[kk[bi, si].long()]
-            flat = scratch.view(-1, co)
-
-            def library():
-                contrib = torch.bmm(rows[:, None, :], wk)[:, 0]
-                flat.index_add_(0, target, contrib)
-
-            lib_ms = timed_ms(library)
-            # reads: the valid flags of the walked prefix, (src, dst, k) of
-            # the valid entries, each distinct source row once, W; each
-            # distinct output row is read and written once (in place)
-            b_ms, b_by = bound(
-                int(nb.sum()) + 12 * n_ov + nbytes(nb, w_real)
-                + 2 * c * int(torch.unique(source).numel())
-                + 2 * 2 * co * int(torch.unique(target).numel()),
-                2.0 * n_ov * c * co,
-            )
-            results[name].append(dict(
-                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                entries=n_ov, walked=int(nb.sum()),
-            ))
+            results[name].append(_sidecar_row(
+                label, entry, base_r, x_real, w_real, plan_list,
+                qst.capacity, tab.capacity))
         # ---- backward kernels.  gy lives on the OUTPUT sites (qst).
         gy_int = int_feats(qst, co)
         gy_real = real_feats(qst, co)
@@ -4317,6 +4360,167 @@ def phase_points(dataset, encoder):
     return launches
 
 
+SWEEP_TOL = 1e-4  # window output against the xla backend and cuDNN, of the scale
+
+
+def _sweep_check(row, run) -> dict:
+    """One row of the sweep with K > 1: no dropped pair, and the window
+    backend's output at the live sites against the ``xla`` rulebook backend
+    and against cuDNN's dense conv of the same sites with the same weights
+    laid out as a dense kernel (fp32, TF32 off) -> the errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparseeventid_tpu_torch.ops import engine as E
+    from sparseeventid_tpu_torch.ops import to_dense
+    from sparseeventid_tpu_torch.scripts import sparse_efficiency as S
+
+    dim, k = run.case.dim, run.kernel
+    ksz = (k,) * dim
+    label = f"sweep {dim}-D {_kname(ksz)} at {run.case.n} sites"
+    require(row["dropped"] == 0, f"{label}: {row['dropped']} pairs dropped")
+    live = run.st.row_mask()[0]
+    got = run.out[0][live]
+    rulebook = S.build_plan(run.st, ksz, E.XLA)
+    ref = E.apply_submanifold(run.st, rulebook, run.w).feats[0][live]
+    # the offsets in row-major order are the dense kernel's taps (cuDNN's
+    # cross-correlation, no flip): weight[co, c, *tap] = w[k(tap), c, co]
+    c, co = run.w.shape[1:]
+    wd = run.w.reshape(*ksz, c, co).permute(dim + 1, dim, *range(dim))
+    conv = F.conv2d if dim == 2 else F.conv3d
+    dense = conv(to_dense(run.st).movedim(-1, 1).contiguous(),
+                 wd.contiguous(), padding="same")
+    at = dense[0].movedim(0, -1)[tuple(run.st.coords[0][live].long().T)]
+    scale = float(ref.abs().max())
+    errs = dict(scale=scale, err_xla=float((got - ref).abs().max()),
+                err_dense=float((got - at).abs().max()))
+    for what in ("xla", "dense"):
+        require(errs[f"err_{what}"] <= SWEEP_TOL * scale,
+                f"{label}: the window output differs from the {what} conv by "
+                f"{errs[f'err_{what}']}, more than {SWEEP_TOL} of {scale}")
+    return errs
+
+
+def _sweep_kernel_rows(run) -> dict:
+    """Kernels 1-3 at one sweep row's shapes (fp32, C = CO = 8): each
+    bit-equal to its plain version on integer-valued fp32 data, window_plan
+    also to the row's plan, the batched sidecar on the plan's list and on a
+    hand-made list as wide as the plan's (rows of up to K entries); timed
+    on the row's real data -> {kernel: [row]}."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops import rulebook as rb
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+    from sparseeventid_tpu_torch.ops.window import query as Q
+    from sparseeventid_tpu_torch.ops.window.sidecar import overflow_apply_batched
+
+    st, plan, w = run.st, run.plan, run.w
+    dim, k = run.case.dim, run.kernel
+    ksz = (k,) * dim
+    label = f"sweep {dim}-D {_kname(ksz)} 8->8 fp32, {run.case.n} sites"
+    dev = st.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    offs = rb.kernel_offsets(ksz, centered=True)
+    keys = st.keys()
+    qkeys = Q.compute_query_keys(st, offs)
+    n_tab = n_q = int(st.n_active.sum())
+    live_tiles = int(((st.n_active + Q.TILE_T - 1) // Q.TILE_T).sum())
+    plan_row, start, _ = _plan_row(
+        label, (Q._padded_table(keys), qkeys, st.n_active), plan.window_r,
+        st.capacity, n_tab, n_q, keys, qkeys)
+    require(torch.equal(start, plan.start),
+            f"window_plan differs from the sweep's plan at {label}")
+    full = rb.build_submanifold_rulebook(st, ksz)
+    live = st.row_mask()[..., None]
+    x_int = (_int_like(st.feats.shape, gen, dev, torch.float32) * live
+             ).contiguous()
+    w_int = _int_like(w.shape, gen, dev, torch.float32)
+    conv_row, out_int = _conv_row(
+        label, keys, plan, start, st.n_active, n_tab, n_q, live_tiles,
+        full.neighbor_idx.long().reshape(1, -1), full.hit.reshape(1, -1, 1),
+        int(full.hit.sum()) - int(plan.ov_valid.sum()), x_int, w_int,
+        st.feats, w)
+    width = plan.ov_valid.shape[1]
+    lists = {
+        "plan's list": (plan.ov_src, plan.ov_dst, plan.ov_k, plan.ov_valid,
+                        K._ov_bound(plan.ov_valid)),
+        "hand-made list": _handmade_lists([n_q], [n_tab], len(offs), width,
+                                          SEED + 13),
+    }
+    base = K.window_conv_apply(keys, st.feats, plan.qmeta, start, w,
+                               st.n_active, plan.dkeys, window_r=plan.window_r)
+    side_rows = []
+    for what, lst in lists.items():
+        require(K.overflow_dst_ordered(lst[1], lst[4]),
+                f"the {what}'s dst is out of order at {label}")
+        got = overflow_apply_batched(out_int.clone(), x_int, w_int, *lst)
+        want = K.overflow_apply_plain(out_int.clone(), x_int, w_int, *lst)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"overflow_apply_batched differs from its plain version on "
+                f"the {what}, fp32, at {label}")
+        row = _sidecar_row(f"{label}, {what}", overflow_apply_batched, base,
+                           st.feats, w, lst, st.capacity, st.capacity)
+        require(row["entries"] == 0 or not torch.equal(got, out_int),
+                f"overflow_apply_batched changed nothing on the {what} at "
+                f"{label}")
+        side_rows.append(row)
+    require(side_rows[-1]["entries"] > 0, f"the hand-made list is empty at {label}")
+    rows = {"window_plan": [plan_row], "window_conv_apply": [conv_row],
+            "overflow_apply_batched": side_rows}
+    emit({"phase": "sweep_kernels", "shape": label, "rows": rows})
+    return rows
+
+
+def phase_sparse_efficiency():
+    """The port's sparse-vs-dense sweep (scripts/sparse_efficiency.py), its
+    full default: 2-D and 3-D grids of 256 a side, K = 1, 3, 5, six
+    sparsities, uniform random sites at a capacity of 65536, fp32 at 8 -> 8
+    channels, through ``sparse_efficiency.sweep`` on the card.  Every row
+    with K > 1: 0 dropped, the window output against the xla backend and
+    cuDNN (``_sweep_check``).  The launches of the run are required (a plan
+    a row of K > 1; a conv and a batched sidecar a timed call and its
+    warm-up; no plain version).  Then kernels 1-3 at the densest 2-D K = 25
+    and 3-D K = 125 rows against their plain versions, timed ->
+    (launches of every kernel, {kernel: rows})."""
+    from sparseeventid_tpu_torch.scripts import sparse_efficiency as S
+
+    t0 = time.perf_counter()
+    densest = {}
+
+    def on_row(row, run):
+        extra = {}
+        if run.kernel > 1:
+            extra = {**_sweep_check(row, run), **S.list_occupancy(run.plan)}
+            if run.kernel == 5:  # a later row of a dim is at least as dense
+                densest[run.case.dim] = run
+        emit({"phase": "sparse_efficiency", **row, **extra})
+
+    rows, launches, plain_calls, ops = _counted_dp(
+        lambda: S.sweep(on_row=on_row))
+    launches.update(ops)
+    require(len(rows) == 36, f"the sweep gave {len(rows)} rows, not 36")
+    require(all(r["dropped"] == 0 for r in rows), "the sweep dropped pairs")
+    require(not any(plain_calls.values()),
+            f"the sweep called plain versions: {plain_calls}")
+    n_plans = sum(r["kernel"] > 1 for r in rows)
+    want = {name: 0 for name in REPLACES}
+    want.update(window_plan=n_plans,
+                window_conv_apply=n_plans * (S.ITERS + 1),
+                overflow_apply_batched=n_plans * (S.ITERS + 1))
+    require(launches == want,
+            f"sweep launches {launches}, expected {want}")
+    sweep_s = time.perf_counter() - t0
+    kernel_rows = {}
+    for dim in sorted(densest):
+        for name, per in _sweep_kernel_rows(densest[dim]).items():
+            kernel_rows.setdefault(name, []).extend(per)
+    emit({"phase": "sparse_efficiency_total", "rows": len(rows),
+          "sweep_seconds": sweep_s, "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches, kernel_rows
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] not in ("--parent", "--dp-rank") or len(argv) != 2):
@@ -4404,6 +4608,10 @@ def main(argv) -> int:
         model_launches["dense"] = phase_dense(dataset_2d)
         models_s += time.perf_counter() - t_models
         emit({"phase": "models_total", "seconds": models_s})
+        del dataset_2d
+        # last: the sweep turns TF32 off for the process, as the dense
+        # family does
+        sweep_launches, sweep_rows = phase_sparse_efficiency()
         kernels = []
         for kname, per_shape in rows.items():
             require(per_shape, f"no measurement of {kname}")
@@ -4416,6 +4624,7 @@ def main(argv) -> int:
                     launches_dp_two_ranks=dp_two_rank_launches[kname],
                     **{f"launches_{m}": counts[kname]
                        for m, counts in model_launches.items()},
+                    launches_sparse_efficiency=sweep_launches[kname],
                     path="ops_path (ConvolutionUpsample backward; "
                     "gather_submanifold_conv forward and backward)",
                     max_abs_err=max(r["max_abs_err"] for r in per_shape),
@@ -4425,7 +4634,7 @@ def main(argv) -> int:
                     parent_ms=head.get("parent_ms"), shapes=per_shape,
                 ))
                 continue
-            per_shape = per_shape + rows_2d[kname]
+            per_shape = per_shape + rows_2d[kname] + sweep_rows.get(kname, [])
             # headline: the busiest conv level (level 0) where measured
             head = next(
                 (r for r in per_shape if r["shape"].startswith("L0 series")),
@@ -4458,6 +4667,7 @@ def main(argv) -> int:
                    for task, counts in task_launches.items()},
                 **{f"launches_{m}": counts[kname]
                    for m, counts in model_launches.items()},
+                launches_sparse_efficiency=sweep_launches[kname],
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

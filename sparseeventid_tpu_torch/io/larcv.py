@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import json
 import logging
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -103,6 +104,47 @@ def _read_extents(dataset) -> np.ndarray:
     out["first"] = raw[f].astype(np.uint64)
     out["n"] = raw[n].astype(np.uint32)
     return out
+
+
+@dataclass(frozen=True)
+class RawEvents:
+    """One image group and one particle group of a larcv file, whole: the
+    input of the preprocessing tools (``scripts/preprocess_fullres_*``),
+    whose particle groups hold every particle of an event."""
+
+    extents: np.ndarray  # (first, n) per event, into voxel_extents
+    voxel_extents: np.ndarray  # (first, n) per (event, projection)
+    voxels: np.ndarray  # (id, value)
+    particle_extents: np.ndarray  # (first, n) per event, into particles
+    particles: np.ndarray  # (pdg, energy_deposit, ...)
+
+    def __len__(self) -> int:
+        return len(self.extents)
+
+    def projection(self, event: int, p: int) -> np.ndarray:
+        """The voxels of projection ``p`` of ``event``."""
+        ve = self.voxel_extents[int(self.extents[event]["first"]) + p]
+        first = int(ve["first"])
+        return self.voxels[first: first + int(ve["n"])]
+
+    def event_particles(self, event: int) -> np.ndarray:
+        first, n = (int(v) for v in self.particle_extents[event])
+        return self.particles[first: first + n]
+
+
+def read_raw_events(path: str | Path, datatype: str, image_producer: str,
+                    particle_producer: str) -> RawEvents:
+    """The ``<datatype>_<image_producer>`` group (``sparse3d`` or
+    ``sparse2d``) and the ``particle_<particle_producer>`` group of a file."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        img = f[f"Data/{datatype}_{image_producer}_group"]
+        par = f[f"Data/particle_{particle_producer}_group"]
+        return RawEvents(_read_extents(img["extents"]),
+                         _read_extents(img["voxel_extents"]),
+                         img["voxels"][:], _read_extents(par["extents"]),
+                         par["particles"][:])
 
 
 def _particle_vertex(particles: np.ndarray) -> Optional[np.ndarray]:

@@ -89,7 +89,7 @@ def compute_query_keys(st: SparseTensor, offsets: np.ndarray) -> torch.Tensor:
     dkey = torch.as_tensor(_delta_keys(g, offs), device=st.device)
     qk = st.keys().long()[:, :, None] + dkey
     valid = st.row_mask()[:, :, None]
-    for d in range(3):
+    for d in range(offs.shape[1]):  # 2 on a plain 2-D grid
         cd = st.coords[..., d][:, :, None] + torch.as_tensor(
             offs[:, d], device=st.device
         )
@@ -118,7 +118,7 @@ def compute_strided_query_keys(
     dkey = torch.as_tensor(_delta_keys(g, offs), device=dev)
     qk = _strided_base(skeleton.coords, g, s)[:, :, None] + dkey
     valid = skeleton.row_mask()[:, :, None]
-    for d in range(3):
+    for d in range(offs.shape[1]):
         cd = skeleton.coords[..., d][:, :, None].long() * s[d] + torch.as_tensor(
             offs[:, d], device=dev
         )

@@ -1,6 +1,6 @@
 """The port stands alone: no module of it, nor its scripts chip_smoke.py and
 prefetch_ab.py, imports JAX,
-flax, optax or the JAX package; and its entry points refuse to fall back to
+flax, optax, the JAX package or the repository's bin/ and scripts/; and its entry points refuse to fall back to
 the CPU unless asked."""
 
 import ast
@@ -13,7 +13,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sparseeventid_tpu_torch").rglob("*.py")
 ) + ["chip_smoke.py", "prefetch_ab.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu")
+# the JAX stack, the JAX package and the repository's own tool folders (the
+# port's tools are its own copies, sparseeventid_tpu_torch/scripts/)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu", "scripts",
+             "bin")
 
 
 def _imported_modules(path: Path):
