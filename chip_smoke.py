@@ -191,7 +191,20 @@ Phases, one JSON line each; any failure exits non-zero:
               B=8, training DENSE_TRAIN_BATCH_2D; 3D at DENSE_GRID_3D; the
               card against the CPU on small inputs, eval mode).  The dense
               and point-cloud phases launch no kernel of csrc/
- 16. sparse_efficiency  the port's sparse-vs-dense sweep tool
+ 16. bench    the port's benchmark drivers (scripts/bench.py,
+              bench_e2e.py, bench_extra.py) through their main functions,
+              in this process, at their full default widths and reduced
+              counts (BENCH_ARGS, BENCH_E2E_ARGS, BENCH_EXTRA_ARGS): bench's
+              25k and 36k dune3d regimes (3 warm-up steps, blocks of 3, at
+              most 2 + 1 blocks), bench_e2e's cold, warm and device-only
+              loops on 32 events (1 warm epoch), bench_extra's seven
+              configs (2 warm-up steps, 2 blocks of 3); each JSON line
+              printed; every line 0 dropped and rates above 0, bench's
+              mfu_useful in (0, 1] against the card's own peak, the data
+              route "memory" where h5py does not import; host plans: no
+              window_plan launch, every other train-step kernel launched,
+              no plain version called
+ 17. sparse_efficiency  the port's sparse-vs-dense sweep tool
               (sparseeventid_tpu_torch/scripts/sparse_efficiency.py) at its
               full default through sparse_efficiency.sweep: 2-D and 3-D
               grids of 256 a side, kernels 1, 3 and 5, six sparsities of
@@ -209,12 +222,13 @@ Phases, one JSON line each; any failure exits non-zero:
               versions on integer fp32 data (the sidecar on the plan's list
               and on a hand-made list as wide), timed in the kernel rows.
               It runs last: it turns TF32 off for the process
- 17. the total wall time, the {"kernels": [...]} line (window_plan's
+ 18. the total wall time, the {"kernels": [...]} line (window_plan's
      launches from main_device; launches_simclr, _yolo, _unsupervised of
      the task runs; launches_dp and launches_dp_two_ranks of the DP runs;
      launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
-     of the model runs; launches_sparse_efficiency of the sweep), then
-     {"ok": true, "device": {...}} last.
+     of the model runs; launches_sparse_efficiency of the sweep;
+     launches_bench of the drivers), then {"ok": true, "device": {...}}
+     last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -2274,7 +2288,7 @@ def phase_host_plans(dataset, recipe="dune3d", grid=GRID, phase="host_plans"):
             f"{recipe}: 8 plan threads differ from 1")
     require(peak_1 == 1 and peak_8 > 1,
             f"{recipe}: plan pool peak concurrency {peak_1} / {peak_8}")
-    cache = PlanCache(planner._build, max_bytes=1 << 34)
+    cache = PlanCache(planner.build_coords, max_bytes=1 << 34)
     t0 = time.perf_counter()
     cache.plans_for("train", coords, batch["index"])
     miss_ms = (time.perf_counter() - t0) * 1e3
@@ -4521,6 +4535,68 @@ def phase_sparse_efficiency():
     return launches, kernel_rows
 
 
+# the bench phase's reduced counts (the drivers' defaults: bench 24 warm-up
+# steps, blocks of 10, 5 + 3 blocks; bench_e2e 128 events, 3 warm epochs;
+# bench_extra 6 warm-up steps, 3 blocks of 10)
+BENCH_ARGS = ["--warmup", "3", "--iters", "3", "--blocks", "2",
+              "--extra-blocks", "1"]
+BENCH_E2E_ARGS = ["--events", "32", "--warm-epochs", "1"]
+BENCH_EXTRA_ARGS = ["--warmup", "2", "--iters", "3", "--blocks", "2"]
+
+
+def phase_bench():
+    """The port's three benchmark drivers (scripts/bench.py, bench_e2e.py,
+    bench_extra.py) in this process, through their ``main`` at their
+    default widths and reduced counts: both regimes of bench, bench_e2e's
+    cold, warm and device-only loops on 32 events, all seven configs of
+    bench_extra.  Every line: 0 dropped, rates above 0; bench's
+    ``mfu_useful`` in (0, 1]; the data route "memory" where h5py does not
+    import.  Host plans everywhere: no window_plan launch, every other
+    kernel of the train step launched, no plain version called ->
+    launches by kernel."""
+    from sparseeventid_tpu_torch.scripts import bench, bench_e2e, bench_extra
+
+    t0 = time.perf_counter()
+    route = bench.data_route()
+
+    def run_all():
+        lines = [bench.main(BENCH_ARGS)]
+        lines.append(bench_e2e.main(
+            BENCH_E2E_ARGS + ["--out", str(RUN_DIR / "bench_e2e.json")]))
+        lines.extend(bench_extra.main(BENCH_EXTRA_ARGS))
+        return lines
+
+    lines, launches, plain_calls, ops = _counted_dp(run_all)
+    launches.update(ops)
+    head = lines[0]
+    require(0 < head["mfu_useful"] <= 1,
+            f"bench: mfu_useful {head['mfu_useful']} outside (0, 1]")
+    require(head["peak_tflops"] == bench.PEAK_BF16_TFLOPS.get(head["device"]),
+            f"bench: peak {head['peak_tflops']} is not the card's own")
+    rows = [head, head["regime_36k"], *lines[1:]]
+    for row in rows:
+        require(row["overflow_dropped"] == 0, f"bench: dropped pairs {row}")
+        rates = [row["value"], *row.get("blocks", []),
+                 *row.get("warm_epoch_blocks", []),
+                 *row.get("device_only_blocks", [])]
+        require(min(rates) > 0, f"bench: a rate is not above 0: {row}")
+    for row in lines[1:]:
+        require(row["data"] == route,
+                f"bench: data {row['data']}, expected {route}")
+    require(len(lines) == 2 + len(bench_extra.CONFIGS),
+            f"bench: {len(lines)} lines")
+    require(not any(plain_calls.values()),
+            f"bench called plain versions: {plain_calls}")
+    require(launches["window_plan"] == 0,
+            f"bench: window_plan launched on host plans: {launches}")
+    require(all(launches[k] > 0 for k in LAUNCHES_PER_TRAIN_STEP
+                if k != "window_plan"),
+            f"bench: a kernel of the train step never launched: {launches}")
+    emit({"phase": "bench_total", "seconds": time.perf_counter() - t0,
+          "data": route, "launches": launches})
+    return launches
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] not in ("--parent", "--dp-rank") or len(argv) != 2):
@@ -4609,6 +4685,7 @@ def main(argv) -> int:
         models_s += time.perf_counter() - t_models
         emit({"phase": "models_total", "seconds": models_s})
         del dataset_2d
+        bench_launches = phase_bench()
         # last: the sweep turns TF32 off for the process, as the dense
         # family does
         sweep_launches, sweep_rows = phase_sparse_efficiency()
@@ -4625,6 +4702,7 @@ def main(argv) -> int:
                     **{f"launches_{m}": counts[kname]
                        for m, counts in model_launches.items()},
                     launches_sparse_efficiency=sweep_launches[kname],
+                    launches_bench=bench_launches[kname],
                     path="ops_path (ConvolutionUpsample backward; "
                     "gather_submanifold_conv forward and backward)",
                     max_abs_err=max(r["max_abs_err"] for r in per_shape),
@@ -4668,6 +4746,7 @@ def main(argv) -> int:
                 **{f"launches_{m}": counts[kname]
                    for m, counts in model_launches.items()},
                 launches_sparse_efficiency=sweep_launches[kname],
+                launches_bench=bench_launches[kname],
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -280,6 +280,8 @@ class LarcvDataset:
     and 3D batches are assembled by the native assembler.  ``native=False``
     reads through h5py and assembles with numpy, the plain versions.  The
     route is logged once, at construction (``read_route``).
+    ``LarcvDataset.from_events`` serves events held in memory (no file, no
+    h5py) through the same batch assembly.
     """
 
     def __init__(
@@ -295,18 +297,14 @@ class LarcvDataset:
     ):
         import h5py
 
-        self.path = str(path)
-        self.f = h5py.File(self.path, "r")
+        path = str(path)
+        self.f = h5py.File(path, "r")
         self.image_key = image_key
-        self.dimension = dimension
-        self.max_voxels = max_voxels
-        self.normalize = normalize
-        self.native = native
         data = self.f["Data"]
         gname = f"sparse{dimension}d_{image_key}_group"
         if gname not in data:
             raise KeyError(
-                f"{gname} not in {self.path}; groups: {list(data.keys())}"
+                f"{gname} not in {path}; groups: {list(data.keys())}"
             )
         g = data[gname]
         self._voxel_dataset = f"/Data/{gname}/voxels"
@@ -314,7 +312,6 @@ class LarcvDataset:
         self.voxel_extents = _read_extents(g["voxel_extents"])
         self.voxels = g["voxels"]  # lazy: potentially huge
         self.meta = _parse_group_meta(g)
-        self.n_projections = int(self.extents["n"][0]) if len(self.extents) else 1
 
         def first_particle_rows(pg) -> tuple:
             """(particles, per-event first-row index).  Real larcv3 maps
@@ -329,47 +326,92 @@ class LarcvDataset:
                 rows = np.arange(len(particles), dtype=np.int64)
             return particles, rows
 
-        self.labels: Dict[str, np.ndarray] = {}
+        labels: Dict[str, np.ndarray] = {}
         if read_labels:
             for key in LABEL_PRODUCERS:
                 pg_name = f"particle_{key}_group"
                 if pg_name in data:
                     particles, rows = first_particle_rows(data[pg_name])
-                    self.labels[f"label{key}"] = (
+                    labels[f"label{key}"] = (
                         particles["pdg"][rows].astype(np.int32)
                     )
-        self.energy = None
-        self.vertex = None
+        energy = vertex = None
         if "particle_event_group" in data:
             particles, rows = first_particle_rows(data["particle_event_group"])
-            self.energy = particles["energy_deposit"][rows].astype(np.float64)
+            energy = particles["energy_deposit"][rows].astype(np.float64)
             vtx = _particle_vertex(particles)
             if vtx is not None:
                 # yolo-task regression target (voxel units here; the
                 # reference builds it from particle data,
                 # vertex_finding.py:294-359)
-                self.vertex = vtx[rows]
+                vertex = vtx[rows]
 
         if self.meta is not None:
             # in-file meta wins when present (our writer emits it; golden
             # files may be smaller than the detector grid)
-            self._grid = tuple(int(v) for v in np.ravel(self.meta["n_voxels"]))
+            grid = np.ravel(self.meta["n_voxels"])
         elif image_size is not None:
             # fallback for real larcv3 files, which carry no meta the
             # reference reads — it hard-codes the grid per detector
             # (larcv_fetcher.py:16-57) and so do we (config DETECTOR_META)
-            self._grid = tuple(int(v) for v in image_size)
+            grid = image_size
         else:
             raise ValueError(
-                f"{self.path}: no parseable meta in {gname} — pass "
+                f"{path}: no parseable meta in {gname} — pass "
                 f"image_size= (the detector grid, DETECTOR_META in config)"
             )
-        self._hdf5 = hostio.hdf5_library() if native else None
-        self.read_route = f"native ({self._hdf5})" if self._hdf5 else "h5py"
+        n_projections = int(self.extents["n"][0]) if len(self.extents) else 1
+        self._serve(path, dimension, grid, n_projections, labels, energy,
+                    vertex, max_voxels, normalize, native)
+
+    @classmethod
+    def from_events(cls, events: Sequence[List[Tuple[np.ndarray, np.ndarray]]],
+                    grid: Sequence[int], dimension: int = 3,
+                    labels: Optional[Dict[str, np.ndarray]] = None,
+                    energy: Optional[np.ndarray] = None,
+                    vertex: Optional[np.ndarray] = None,
+                    max_voxels: int = 50000, normalize: bool = True,
+                    native: bool = True, name: str = "memory"):
+        """A dataset over events held in memory, no file: ``events[i]`` is
+        event i's projections, each (linear ids in ``grid``, values), as
+        the file's voxel slabs; ``labels`` (``label<producer>`` -> i32[n]),
+        ``energy`` f8[n] and ``vertex`` f32[n, 3] per event.  Its batches
+        are those of a file holding the same (``write_synthetic_larcv_
+        file`` and ``synthetic_larcv_event`` make one of each)."""
+        self = cls.__new__(cls)
+        self.f = None
+        self._serve(name, dimension, grid, len(events[0]) if events else 1,
+                    labels or {}, energy, vertex, max_voxels, normalize,
+                    native, events)
+        return self
+
+    def _serve(self, path: str, dimension: int, grid, n_projections: int,
+               labels, energy, vertex, max_voxels: int, normalize: bool,
+               native: bool, events=None) -> None:
+        """Set what ``batch`` reads, for both constructors; ``events`` (in
+        memory) take the place of the file's voxel slabs."""
+        self.path = path
+        self.dimension = dimension
+        self._grid = tuple(int(v) for v in grid)
+        self.n_projections = n_projections
+        self.labels: Dict[str, np.ndarray] = labels
+        self.energy = energy
+        self.vertex = vertex
+        self.max_voxels = max_voxels
+        self.normalize = normalize
+        self.native = native
+        self._events = events
+        self._hdf5 = (hostio.hdf5_library() if native and events is None
+                      else None)
+        self.read_route = ("memory" if events is not None
+                           else f"native ({self._hdf5})" if self._hdf5
+                           else "h5py")
         logger.info("%s: %d events, reads %s", self.path, len(self),
                     self.read_route)
 
     def __len__(self) -> int:
+        if self._events is not None:
+            return len(self._events)
         return len(self.extents)
 
     def image_size(self) -> Tuple[int, ...]:
@@ -382,7 +424,8 @@ class LarcvDataset:
         return self.image_size()
 
     def close(self) -> None:
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
 
     def _event_voxels(self, index: int) -> List[Tuple[np.ndarray, np.ndarray]]:
         first, n = self.extents[index]["first"], self.extents[index]["n"]
@@ -427,6 +470,8 @@ class LarcvDataset:
 
     def _voxels_of(self, indices, projections: Optional[int] = None):
         """Per event, its projections' (ids, values)."""
+        if self._events is not None:
+            return [self._events[int(i)][:projections] for i in indices]
         if self._hdf5:
             return self._native_projection_voxels(indices, projections)
         return [self._event_voxels(int(idx))[:projections] for idx in indices]
@@ -478,6 +523,59 @@ class LarcvDataset:
         return out
 
 
+def synthetic_larcv_grid(image_size: Sequence[int],
+                         planes: bool = False) -> Tuple[int, ...]:
+    """The grid a synthetic larcv file's voxel ids are linear in (its
+    ``meta`` ``n_voxels``): ``image_size``, or (H, W) for ``planes``."""
+    return tuple(int(v) for v in (image_size[1:] if planes else image_size))
+
+
+def synthetic_larcv_event(index: int, image_size: Sequence[int], seed: int,
+                          mean_tracks: float, steps_per_track: int,
+                          max_voxels: int, planes: bool = False):
+    """Event ``index`` of a synthetic larcv file -> (projections, a list of
+    (linear ids u64[n], values f32[n]), labels, aux): the events of
+    ``SyntheticDataset(..., seed=seed).event(index)``, unnormalized.
+
+    Without ``planes`` the one projection holds the event's voxels, their
+    ids linear in ``image_size`` (the JAX writer's layout).  With
+    ``planes`` ``image_size`` is (P, H, W): the tracks are generated on
+    (H, H, W), as the synthetic 2D split generates them, and projection p
+    projects out axis p % 3, keeps the pixels inside (H, W) and sums the
+    charge of the voxels that share a pixel, ids linear in (H, W) (the
+    layout the 2D reader reads as P wire planes)."""
+    from .synthetic import SyntheticEventConfig, generate_event
+
+    size = tuple(int(v) for v in image_size)
+    gen_size = (size[1],) + size[1:] if planes else size
+    cfg = SyntheticEventConfig(
+        image_size=gen_size,
+        normalize=False,
+        mean_tracks=mean_tracks,
+        steps_per_track=steps_per_track,
+        max_voxels=max_voxels,
+    )
+    coords, vals, labels, aux = generate_event(
+        np.random.default_rng((seed, index)), cfg)
+    if not planes:
+        lin = coords[:, 0].astype(np.int64)
+        for dd in range(1, len(size)):
+            lin = lin * size[dd] + coords[:, dd]
+        return [(lin.astype(np.uint64), vals)], labels, aux
+    h, w = size[1:]
+    projections = []
+    for p in range(size[0]):
+        keep = [a for a in range(3) if a != p % 3]
+        c2 = coords[:, keep].astype(np.int64)
+        inside = (c2[:, 0] < h) & (c2[:, 1] < w)
+        ids, inv = np.unique(c2[inside, 0] * w + c2[inside, 1],
+                             return_inverse=True)
+        summed = np.zeros(len(ids), np.float32)
+        np.add.at(summed, inv, vals[inside])
+        projections.append((ids.astype(np.uint64), summed))
+    return projections, labels, aux
+
+
 def write_synthetic_larcv_file(
     path: str | Path,
     n_events: int,
@@ -488,6 +586,7 @@ def write_synthetic_larcv_file(
     mean_tracks: float = 3.0,
     steps_per_track: int = 200,
     max_voxels: int = 2048,
+    planes: bool = False,
 ):
     """Golden-test helper: a larcv3-schema file of synthetic events.
 
@@ -495,27 +594,20 @@ def write_synthetic_larcv_file(
     steps_per_track≈625, max_voxels≈50000 for dune3d-occupancy events
     (~25k active voxels, the bench distribution).  Event i is the event
     ``SyntheticDataset(..., seed=seed).event(i)`` with the same settings,
-    unnormalized."""
-    from .synthetic import SyntheticEventConfig, generate_event
-
-    cfg = SyntheticEventConfig(
-        image_size=image_size,
-        normalize=False,
-        mean_tracks=mean_tracks,
-        steps_per_track=steps_per_track,
-        max_voxels=max_voxels,
-    )
-    meta = dict(n_voxels=list(image_size))
-    writer = LarcvWriter(path, image_producer, 1, meta, dimension=dimension)
-    grid = np.array(image_size)
+    unnormalized.  ``planes`` (2D, ``image_size`` (P, H, W)) writes each
+    event as P wire-plane projections (``synthetic_larcv_event``); without
+    it the file is the JAX writer's, one projection of ids linear in
+    ``image_size``."""
+    grid = synthetic_larcv_grid(image_size, planes)
+    n_projections = image_size[0] if planes else 1
+    writer = LarcvWriter(path, image_producer, n_projections,
+                         dict(n_voxels=list(grid)), dimension=dimension)
     for i in range(n_events):
-        rng = np.random.default_rng((seed, i))
-        coords, vals, labels, aux = generate_event(rng, cfg)
-        lin = coords[:, 0].astype(np.int64)
-        for dd in range(1, len(image_size)):
-            lin = lin * image_size[dd] + coords[:, dd]
+        projections, labels, aux = synthetic_larcv_event(
+            i, image_size, seed, mean_tracks, steps_per_track, max_voxels,
+            planes)
         writer.write_event(
-            [(lin.astype(np.uint64), vals)],
+            projections,
             labels=labels,
             energy=float(aux["energy"]),
             vertex=tuple(float(v) for v in aux["vertex"]),

@@ -131,23 +131,28 @@ class HostPlanner:
 
     The lists have the JAX package's widths (``ops.engine.host_list_width``)
     unless a batch has more pairs: then it is built again with those lists
-    widened to hold them (``grown_widths``), so no pair is ever dropped."""
+    widened to hold them (``grown_widths``), so no pair is ever dropped;
+    ``widened`` counts those builds."""
 
     def __init__(self, encoder, grid: Sequence[int], cache_mb: int = 0):
         self.geometry = plan_geometry(encoder, grid)
+        self.widened = 0
         self.depth = encoder.params.depth
         self.tuning = encoder.tuning
         self.q_bound_frac = encoder.params.query_bound_frac
         self.q_bound_growth = encoder.params.query_bound_growth
         self.cache: Optional[PlanCache] = None
         if cache_mb > 0:
-            self.cache = PlanCache(self._build, max_bytes=int(cache_mb) << 20)
+            self.cache = PlanCache(self.build_coords,
+                                   max_bytes=int(cache_mb) << 20)
 
-    def _build(self, coords: np.ndarray) -> Dict[str, np.ndarray]:
+    def build_coords(self, coords: np.ndarray) -> Dict[str, np.ndarray]:
+        """The plan dict of level-0 coordinates i32[B, N, 3] (-1: no site)."""
         host = build_window_plans(coords, **self.geometry)
         grown = grown_widths(host, self.geometry)
         if grown is None:
             return host
+        self.widened += 1
         logger.info("host plan lists widened to hold every pair: %s",
                     {k: grown[k] for k in WIDTH_KEYS})
         return build_window_plans(coords, **grown)
@@ -159,7 +164,7 @@ class HostPlanner:
         coords = plan_coords(image, self.geometry["grid"])
         if indices is not None and self.cache is not None:
             return self.cache.plans_for(split, coords, indices)
-        return self._build(coords)
+        return self.build_coords(coords)
 
     def transform(self, split: str):
         """A ``BatchLoader`` transform that adds the batch's plans as

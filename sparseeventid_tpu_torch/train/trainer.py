@@ -14,6 +14,9 @@ end, keeping 5.  As in the JAX package, a resumed run's data stream starts
 again at its beginning.  Logs go to the run's ``process.log`` and, with
 tensorboardX, to ``tb/``; with ``run.profile`` the loop runs under
 ``torch.profiler`` and leaves a Chrome trace under ``profile/``.
+``train_session`` hands a caller that drives the steps itself (the
+benchmark drivers of ``scripts/``) the same task, loader and planner
+(``split_loaders``, ``open_task``), with no restore and no checkpoint.
 
 The window plans of every batch are built on the host, in the loader's
 thread, through a per-event plan cache whose line goes to the log once an
@@ -39,7 +42,7 @@ import dataclasses
 import logging
 import time
 from pathlib import Path
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -51,10 +54,11 @@ from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
 from .evaluate import build_dataset, close_datasets, resolve_device, run_dir
-from .plans import run_planner
+from .plans import HostPlanner, run_planner
 from .state import TrainState, param_count
 from .tasks import (  # noqa: F401  (build_training, host_plans_of: callers)
     LOADER_PLANS,
+    Training,
     build_task,
     build_training,
     host_plans_of,
@@ -120,25 +124,84 @@ def train(
             datasets = dict(zip(splits, owned))
         else:
             datasets = {"train": dataset}
-        # one plan geometry for every split, the train split's grid
-        grid = tuple(datasets["train"].batch_grid())
-        planner = (run_planner(cfg, grid, cache=True)
-                   if cfg.name in LOADER_PLANS else None)
-        loaders = {}
         try:
-            for split, ds in datasets.items():
-                if tuple(ds.batch_grid()) != grid:
-                    raise ValueError(f"split {split} has grid "
-                                     f"{ds.batch_grid()}, train has {grid}")
-                loaders[split] = make_loader(
-                    cfg, ds, planner.transform(split) if planner else None)
-            with _profiled(cfg, out_dir, dev):
-                return _train(cfg, datasets["train"], grid, loaders, planner,
-                              params, dev, out_dir)
+            with split_loaders(cfg, datasets) as (grid, planner, loaders):
+                with _profiled(cfg, out_dir, dev):
+                    return _train(cfg, datasets["train"], grid, loaders,
+                                  planner, params, dev, out_dir)
         finally:
-            for loader in loaders.values():
-                loader.stop()
             close_datasets(owned)
+
+
+@contextlib.contextmanager
+def split_loaders(cfg: SparseEventIDConfig, datasets: Mapping[str, object]):
+    """-> (grid, planner, loaders): the train split's grid, the one plan
+    geometry of every split; the run's ``HostPlanner`` with its plan cache
+    for the tasks whose loaders build the plans (else None); a prefetching
+    loader a split, each building its batches' plans in its thread.  The
+    loaders stop on exit."""
+    grid = tuple(datasets["train"].batch_grid())
+    planner = (run_planner(cfg, grid, cache=True)
+               if cfg.name in LOADER_PLANS else None)
+    loaders = {}
+    try:
+        for split, ds in datasets.items():
+            if tuple(ds.batch_grid()) != grid:
+                raise ValueError(f"split {split} has grid "
+                                 f"{ds.batch_grid()}, train has {grid}")
+            loaders[split] = make_loader(
+                cfg, ds, planner.transform(split) if planner else None)
+        yield grid, planner, loaders
+    finally:
+        for loader in loaders.values():
+            loader.stop()
+
+
+def open_task(cfg: SparseEventIDConfig, dataset, grid, loader: BatchLoader,
+              params, dev: torch.device, planner) -> Training:
+    """The run's ``Training`` (state and step) for batches of ``loader``:
+    one step count on every rank, since a rank that stepped once more
+    would wait in a collective for ever."""
+    epoch_length = mesh.min_across(len(loader))
+    return build_task(cfg, dataset, grid, epoch_length, params, dev, planner)
+
+
+@dataclasses.dataclass
+class TrainSession:
+    """A train run's pieces for a caller that drives the steps itself (the
+    benchmark drivers, ``scripts/bench_e2e.py`` and ``bench_extra.py``):
+    the task, the train split's loader and planner, as ``train`` builds
+    them."""
+
+    cfg: SparseEventIDConfig
+    task: Training
+    loader: BatchLoader
+    planner: Optional[HostPlanner]
+    device: torch.device
+
+    def next_args(self):
+        """The loader's next batch, prepared on the device."""
+        return self.task.prepare(next(self.loader))
+
+    def step(self, args, i: int) -> Dict[str, torch.Tensor]:
+        """Train step ``i`` on prepared ``args`` (the dropout generator of
+        step ``i``, as in ``train``)."""
+        return self.task.train_step(
+            args, step_generator(self.cfg.run.seed, i, self.device))
+
+
+@contextlib.contextmanager
+def train_session(cfg: SparseEventIDConfig, dataset,
+                  device: torch.device | str | None = None):
+    """A ``TrainSession`` of ``cfg`` on ``dataset`` from the run's seeded
+    initialisation (no restore, no checkpoint, no log file); its loader
+    stops on exit."""
+    task_check(cfg)
+    dev = resolve_device(cfg, device)
+    with split_loaders(cfg, {"train": dataset}) as (grid, planner, loaders):
+        task = open_task(cfg, dataset, grid, loaders["train"], None, dev,
+                         planner)
+        yield TrainSession(cfg, task, loaders["train"], planner, dev)
 
 
 @contextlib.contextmanager
@@ -165,10 +228,7 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
 
 def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainRun:
     loader, val_loader = loaders["train"], loaders.get("val")
-    # one step count on every rank: a rank that stepped once more would
-    # wait in a collective for ever
-    epoch_length = mesh.min_across(len(loader))
-    task = build_task(cfg, dataset, grid, epoch_length, params, dev, planner)
+    task = open_task(cfg, dataset, grid, loader, params, dev, planner)
     state = task.state
     logger.info("Model parameters: %s", f"{param_count(state.model):,}")
     logger.info("window plans built on the %s",

@@ -351,7 +351,7 @@ def test_planner_widens_lists_rather_than_drop():
     coords = _events(7, 3, 1024, (48, 48, 48), 900)
     narrow = hostio.build_window_plans(coords, **geo)
     assert grown_widths(narrow, geo) is not None
-    got = planner._build(coords)
+    got = planner.build_coords(coords)
     wide = hostio.build_window_plans(coords, **_kwargs_like(geo, 1024 * 125))
     assert not any(got[k].any() for k in got if k.endswith("ov_dropped"))
     for prefix in _prefixes(got):

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of it, nor its scripts chip_smoke.py and
-prefetch_ab.py, imports JAX,
+"""The port stands alone: no module of it, nor its scripts chip_smoke.py,
+prefetch_ab.py and fence_ab.py, imports JAX,
 flax, optax, the JAX package or the repository's bin/ and scripts/; and its entry points refuse to fall back to
 the CPU unless asked."""
 
@@ -12,7 +12,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sparseeventid_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py", "prefetch_ab.py"]
+) + ["chip_smoke.py", "prefetch_ab.py", "fence_ab.py"]
 # the JAX stack, the JAX package and the repository's own tool folders (the
 # port's tools are its own copies, sparseeventid_tpu_torch/scripts/)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu", "scripts",
@@ -157,3 +157,19 @@ def test_kernel_wrappers_refuse_other_devices():
                                            device="meta"),
                             torch.zeros((1,), dtype=torch.int32, device="meta"),
                             window_r=160)
+
+
+def test_benchmark_drivers_stand_alone_and_need_cuda_unless_asked(monkeypatch):
+    """The three benchmark drivers and the in-memory events are port
+    modules (so test_no_jax_imports covers them); each driver raises on a
+    host without a card unless given --device cpu."""
+    from sparseeventid_tpu_torch.scripts import bench, bench_e2e, bench_extra
+
+    for rel in ("scripts/bench.py", "scripts/bench_e2e.py",
+                "scripts/bench_extra.py", "io/memory.py"):
+        assert f"sparseeventid_tpu_torch/{rel}" in PORT_FILES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: bench.main([]), lambda: bench_e2e.main([]),
+                lambda: bench_extra.main(["pointnet"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
