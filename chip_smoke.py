@@ -13,24 +13,28 @@ Phases, one JSON line each; any failure exits non-zero:
               version on the card, at the main path's shapes from one
               synthetic dune3d batch: bit-equal on integer-valued bf16 data
               (the sidecars, window_dw and the backward, both entries of
-              each, on fp32 too; the sidecar also on hand-made lists at the
-              real list width: a row of K entries across a span edge,
-              holes, an empty event, n_bound below the width), max abs
-              error on real-valued data (the conv and the backward's dx
-              within one bf16 ulp of the output scale, the backward's and
-              the sidecar's dw within 1e-4 of theirs), the backward and the
-              dW sidecar the same bits on two runs of real-valued bf16 and
-              fp32 data, and times (kernel, plain version, a PyTorch
-              yardstick) beside the card's least time;
+              each, on fp32 too; the sidecar at the initial conv and the
+              series of levels 0, 2, 4 and 5, and the backward's dX apply
+              (gy as the table, W transposed and mirrored) at levels 0 and
+              4, also on hand-made lists at the real list width: a row of
+              K entries across a chunk edge, a row longer than a task
+              loads at once, holes, an empty event, n_bound below the
+              width), max abs error on real-valued data (the conv, the
+              sidecar and the backward's dx within one bf16 ulp of the
+              output scale, the backward's, window_dw's and the sidecar's
+              dw within 1e-4 of theirs), the backward, the sidecar,
+              window_dw and the dW sidecar the same bits on two runs of
+              real-valued data, and times (kernel, plain version, a
+              PyTorch yardstick) beside the card's least time;
               window_plan and window_conv_apply also at levels 2 and 4, the
               level-1 downsample (channel widths off the conv's 64-deep
               chunks) and a hand-made dense block where every query
               matches at every offset.  With --parent DIR (an earlier
-              commit's sparseeventid_tpu_torch/csrc) its plan, conv,
-              backward, dW sidecar, window_gather and gather_conv are built
-              and timed on the same inputs (parent_ms); the plan, conv,
-              backward, sidecar and window_gather must give the current
-              kernels' bits
+              commit's sparseeventid_tpu_torch/csrc) all its kernels are
+              built and timed on the same inputs (parent_ms); the plan,
+              conv, backward, dW sidecar, window_gather and gather_conv
+              must give the current kernels' bits, the sidecar and
+              window_dw theirs on integer data and the real-valued limits
   4. grad     conv-level gradients on integer-valued fp32 data: dX and dW
               of the window autograd Functions equal the plain rulebook
               backend's autograd exactly (level-0 series plan and level-0
@@ -528,20 +532,25 @@ def _int_like(shape, gen, device, dtype, lo=-2, hi=3):
     return torch.randint(lo, hi, shape, generator=gen, device=device).to(dtype)
 
 
-def _handmade_lists(n_q, n_t, k, width, seed):
+def _handmade_lists(n_q, n_t, k, width, seed, edge=None):
     """Overflow lists the engine rarely builds, at a real list's width, for
-    the sidecar kernel's row-aligned spans (32 entries at C * CO <= 1024,
-    csrc/overflow_apply.cu) -> (src, dst, kk, valid, n_bound) on the card.
-    Per event, rows ascend with 1..K entries each (distinct offsets) and 10%
-    of the prefix are invalid holes (dst kept in order); in event 0 a row of
-    all K offsets starts at entry max(0, 32 - K // 2), across a span edge;
-    every third event is empty (n_bound 0); past each prefix lie garbage
-    entries, half of them flagged valid, with indices out of every range,
-    and n_bound (< width) stops before them.  n_q, n_t: live output and
-    table rows per event."""
+    the sidecar kernel's row-aligned chunks (csrc/overflow_apply.cu: a task
+    owns the rows that start in its chunk of kernels._OV_SPAN entries of
+    one event's list) -> (src, dst, kk, valid, n_bound) on the card.  Per event, rows ascend with 1..K entries each (distinct
+    offsets) and 10% of the prefix are invalid holes (dst kept in order);
+    in event 0 a row of all K offsets starts at entry max(0, edge - K // 2),
+    across the chunk edge ``edge`` (default the first chunk's end); in
+    event 1 one row of 300 entries (offsets repeated, holes included) is
+    longer than a task loads at once; every third event is empty (n_bound
+    0); past each prefix lie garbage entries, half of them flagged valid,
+    with indices out of every range, and n_bound (< width) stops before
+    them.  n_q, n_t: live output and table rows per event."""
     import numpy as np
     import torch
 
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    edge = K._OV_SPAN if edge is None else edge
     rng = np.random.default_rng(seed)
     b = len(n_q)
     src = rng.integers(-9, 2**20, (b, width))
@@ -553,13 +562,19 @@ def _handmade_lists(n_q, n_t, k, width, seed):
         if e % 3 == 2:
             continue
         rows = np.sort(rng.choice(n_q[e], min(n_q[e], width // k), replace=False))
+        if rows.size == 0:
+            continue
         runs = rng.integers(1, k + 1, rows.size)
         if e == 0:
-            lead = max(0, 32 - k // 2)  # single-entry rows up to the K-row
-            runs[:lead], runs[lead] = 1, k
-        p = int(runs.sum())
-        dst[e, :p] = np.repeat(rows, runs)
-        kk[e, :p] = np.concatenate([rng.permutation(k)[:r] for r in runs])
+            lead = min(max(0, edge - k // 2), rows.size - 1)
+            runs[:lead], runs[lead] = 1, k  # single-entry rows up to the K-row
+        offs = [rng.permutation(k)[:r] for r in runs]
+        if e == 1 and rows.size > 2 and width >= 300 + rows.size:
+            runs[1] = 300
+            offs[1] = rng.integers(0, k, 300)
+        p = min(int(runs.sum()), width - 1)
+        dst[e, :p] = np.repeat(rows, runs)[:p]
+        kk[e, :p] = np.concatenate(offs)[:p]
         src[e, :p] = rng.integers(0, n_t[e], p)
         valid[e, :p] = rng.random(p) >= 0.1
         n_bound[e] = p
@@ -574,12 +589,13 @@ class ParentKernels:
     DIR``, DIR holding that commit's sparseeventid_tpu_torch/csrc) and run
     through the current wrappers, to time the earlier design beside the
     current one on the same inputs in the same run.  The earlier C entries
-    must take the current arguments, except the gather conv's, which takes
-    no cluster size.  Each call's result is checked against the current
-    kernel's."""
+    take the current arguments, or, for the sidecar and window_dw, those of
+    their design before the slab, grid and offset groups (read from the
+    earlier source; ``overflow_apply`` and ``window_dw`` below call either).
+    Each call's result is checked against the current kernel's."""
 
-    SOURCES = ("window_plan", "window_conv", "window_bwd", "overflow_dw",
-               "window_gather", "gather_conv")
+    SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
+               "window_dw", "overflow_dw", "window_gather", "gather_conv")
 
     def __init__(self, tree):
         import ctypes
@@ -604,10 +620,20 @@ class ParentKernels:
                 if hasattr(dll, fn):
                     getattr(dll, fn).argtypes = argtypes
                     getattr(dll, fn).restype = ctypes.c_int
-        # the earlier gather conv: the current arguments but the cluster size
-        self.gather_conv_fn = self.libs["gather_conv"].seid_gather_conv_bf16
-        sig = _native.SIGNATURES["seid_gather_conv_bf16"]
-        self.gather_conv_fn.argtypes = sig[:-2] + sig[-1:]
+        # a sidecar without slab and grid, a window_dw without offset
+        # groups (it adds onto a zeroed dw)
+        self.older = {
+            "overflow_apply": "int slab" not in (csrc / "overflow_apply.cu").read_text(),
+            "window_dw": "int groups" not in (csrc / "window_dw.cu").read_text(),
+        }
+        for kname, drop in (("overflow_apply", slice(-3, -1)),
+                            ("window_dw", slice(-2, -1))):
+            if not self.older[kname]:
+                continue
+            for dt in ("f32", "bf16"):
+                sig = list(_native.SIGNATURES[f"seid_{kname}_{dt}"])
+                del sig[drop]
+                getattr(self.libs[kname], f"seid_{kname}_{dt}").argtypes = sig
 
     def run(self, fn, *args, **kwargs):
         """``fn`` (a wrapper of the current package, or a function that
@@ -627,18 +653,63 @@ class ParentKernels:
                     else:
                         _native._libs[name] = dll
 
-    def gather_conv(self, feats, idx, w):
+    @staticmethod
+    def _suffix(t) -> str:
         import torch
 
-        b, n, c = feats.shape
-        k, co = w.shape[0], w.shape[2]
-        m = idx.shape[1]
-        out = torch.empty((b, m, co), dtype=feats.dtype, device=feats.device)
-        err = self.gather_conv_fn(feats.data_ptr(), n, c, idx.data_ptr(), m, k,
-                                  w.data_ptr(), co, out.data_ptr(), b,
-                                  torch.cuda.current_stream().cuda_stream)
-        require(err == 0, f"parent gather_conv: CUDA error {err}")
-        return out
+        return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+    def overflow_apply(self, base, table, w, src, dst, kk, valid, n_bound):
+        """The earlier sidecar kernel, in place on ``base``."""
+        import torch
+
+        from sparseeventid_tpu_torch.ops.window import kernels as K
+
+        if not self.older["overflow_apply"]:
+            return self.run(K.launch_overflow_kernel, base, table, w, src, dst,
+                            kk, valid, n_bound)
+        b, m, co = base.shape
+        k, c, _ = w.shape
+        fn = getattr(self.libs["overflow_apply"],
+                     f"seid_overflow_apply_{self._suffix(table)}")
+        err = fn(base.data_ptr(), m, co, table.data_ptr(), table.shape[1], c,
+                 w.data_ptr(), k, src.data_ptr(), dst.data_ptr(),
+                 kk.data_ptr(), valid.data_ptr(), n_bound.data_ptr(),
+                 src.shape[1], b, torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent overflow_apply: CUDA error {err}")
+        return base
+
+    def window_dw(self, keys, feats, qmeta, start, gy, q_active, dkeys, *,
+                  window_r):
+        """The earlier window_dw kernel (one without offset groups with its
+        own count of parts: four blocks an SM over its pieces, no more than
+        tiles)."""
+        import torch
+
+        from sparseeventid_tpu_torch.ops.window import kernels as K
+
+        if not self.older["window_dw"]:
+            return self.run(K.window_dw, keys, feats, qmeta, start, gy,
+                            q_active, dkeys, window_r=window_r)
+        b, nw1, m = qmeta.shape
+        n_in, c = feats.shape[1], feats.shape[2]
+        co = gy.shape[2]
+        k, dk, cols = K._offset_args(dkeys, None)
+        sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
+        pieces = 1 if c == 1 and co <= 32 else k * -(-c // 32) * -(-co // 32)
+        n_parts = max(1, min(b * -(-m // K.TILE_T), -(-4 * sms // pieces)))
+        dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
+        part = torch.empty((n_parts, k * c * co), dtype=torch.float32,
+                           device=feats.device)
+        fn = getattr(self.libs["window_dw"],
+                     f"seid_window_dw_{self._suffix(feats)}")
+        err = fn(keys.data_ptr(), n_in, feats.data_ptr(), c, qmeta.data_ptr(),
+                 nw1 - 1, m, start.data_ptr(), start.shape[1], k, gy.data_ptr(),
+                 co, q_active.data_ptr(), m, int(window_r), dw.data_ptr(), dk,
+                 cols, b, part.data_ptr(), n_parts,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"parent window_dw: CUDA error {err}")
+        return dw
 
 
 PARENT: ParentKernels | None = None  # set by --parent
@@ -755,9 +826,11 @@ def _conv_row(label, keys, plan, start, q_active, n_tab, n_q, live_tiles,
 def _sidecar_row(label, entry, base, x, w, lst, q_cap, t_cap) -> dict:
     """An overflow sidecar entry (``kernels.overflow_apply`` or
     ``sidecar.overflow_apply_batched``) on one list (src, dst, kk, valid,
-    n_bound) at real-valued features: its largest difference from its plain
-    version, its time beside the plain version's, the bmm + index_add_
-    yardstick over the walked valid entries, and the card's least time.
+    n_bound) at real-valued features: within one bf16 ulp of the output
+    scale of its plain version (fp32: 1e-5 of the scale), the same bits on
+    two runs, its time beside the plain version's, the bmm + index_add_
+    yardstick over the walked valid entries, the card's least time and,
+    with --parent, the earlier kernel's time (within the same limit).
     ``q_cap`` / ``t_cap``: the output's and the table's capacity."""
     import torch
 
@@ -769,13 +842,26 @@ def _sidecar_row(label, entry, base, x, w, lst, q_cap, t_cap) -> dict:
                   < nb[:, None])
     bi, si = torch.nonzero(ok, as_tuple=True)
     n_ov = int(bi.numel())
-    err = (entry(base.clone(), x, w, *lst).float()
-           - K.overflow_apply_plain(base.clone(), x, w, *lst).float()
-           ).abs().max().item()
+    got, again = entry(base.clone(), x, w, *lst), entry(base.clone(), x, w, *lst)
+    want = K.overflow_apply_plain(base.clone(), x, w, *lst).float()
+    torch.cuda.synchronize()
+    require(torch.equal(got, again),
+            f"the sidecar is not the same bits on two runs at {label}")
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = _bf16_ulp(scale) if x.dtype == torch.bfloat16 else 1e-5 * scale
+    require(err <= tol, f"the sidecar differs by {err} at {label}, more than "
+            f"{tol} (output scale {scale})")
     scratch = base.clone()
     ms = timed_ms(lambda: entry(scratch, x, w, *lst))
     plain_ms = timed_ms(lambda: K.overflow_apply_plain(scratch, x, w, *lst),
                         iters=3, warmup=1, graph=False)
+    parent_ms = None
+    if PARENT is not None:
+        e_p = (PARENT.overflow_apply(base.clone(), x, w, *lst).float()
+               - want).abs().max().item()
+        require(e_p <= tol, f"the earlier sidecar differs by {e_p} at {label}")
+        parent_ms = timed_ms(lambda: PARENT.overflow_apply(scratch, x, w, *lst))
     target = bi * q_cap + dst[bi, si].long()
     source = bi * t_cap + src[bi, si].long()
     rows = x[bi, src[bi, si].long()]
@@ -795,9 +881,85 @@ def _sidecar_row(label, entry, base, x, w, lst, q_cap, t_cap) -> dict:
         + esize * c * int(torch.unique(source).numel())
         + 2 * esize * co * int(torch.unique(target).numel()),
         2.0 * n_ov * c * co, x.dtype)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tc = K._ov_tensor_cores(x.dtype, c, co)
+    slab, grid = K._ov_geometry(sms, src.shape[0], src.shape[1], c, co, tc)
     return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                entries=n_ov, walked=int(nb.sum()), list_width=src.shape[1])
+                parent_ms=parent_ms, entries=n_ov, walked=int(nb.sum()),
+                list_width=src.shape[1], out_scale=scale,
+                route="tensor cores" if tc else "CUDA cores", slab=slab,
+                blocks=grid, repeats_bit_for_bit=True)
+
+
+def _sidecar_checks(label, entry, lists, ints, reals, q_cap, t_cap) -> dict:
+    """An overflow sidecar entry bit-equal to its plain version on
+    integer-valued data in bf16 and fp32 on every list of ``lists`` ({what:
+    (src, dst, kk, valid, n_bound)}; with --parent the earlier kernel too),
+    then timed on real-valued data on the first list (``_sidecar_row``).
+    ``ints`` / ``reals``: (base, table, w)."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    for what, lst in lists.items():
+        src, _, _, valid, nb = lst
+        walked = torch.arange(src.shape[1], device=src.device)[None, :] < nb[:, None]
+        n_valid = int((valid & walked).sum())
+        for dt in (torch.bfloat16, torch.float32):
+            base, x, w = (a.to(dt) for a in ints)
+            got = entry(base.clone(), x, w, *lst)
+            want = K.overflow_apply_plain(base.clone(), x, w, *lst)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"the sidecar differs from its plain version on {what}, "
+                    f"{dt}, at {label}")
+            require(n_valid == 0 or not torch.equal(got, base),
+                    f"the sidecar changed nothing on {what} at {label}")
+            if PARENT is not None:
+                require(torch.equal(PARENT.overflow_apply(base.clone(), x, w,
+                                                          *lst), want),
+                        f"the earlier sidecar differs on {what}, {dt}, at "
+                        f"{label}")
+    what, lst = next(iter(lists.items()))
+    suffix = "" if what == "the plan's list" else f", {what}"
+    return _sidecar_row(label + suffix, entry, *reals, lst, q_cap, t_cap)
+
+
+def _dw_checks(label, int_args, real_args, window_r):
+    """window_dw beyond its bit-equality on integer data: on real-valued
+    data the same bits on two runs and within 1e-4 of the scale of its
+    plain version; with --parent the earlier kernel bit-equal on the
+    integer data (bf16 and fp32) and within 1e-4 of the scale on the
+    real-valued data -> (max abs error, parent ms or None).  ``*_args``:
+    (keys, feats, qmeta, start, gy, q_active, dkeys)."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.window import kernels as K
+
+    got = K.window_dw(*real_args, window_r=window_r)
+    again = K.window_dw(*real_args, window_r=window_r)
+    want = K.window_dw_plain(*real_args, window_r=window_r)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again),
+            f"window_dw is not the same bits on two runs at {label}")
+    err = (got - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    require(err <= tol, f"window_dw differs by {err} at {label}, limit {tol}")
+    if PARENT is None:
+        return err, None
+    for dt in (torch.bfloat16, torch.float32):
+        args = [a.to(dt) if a.is_floating_point() else a for a in int_args[:6]]
+        require(torch.equal(PARENT.window_dw(*args, int_args[6],
+                                             window_r=window_r),
+                            K.window_dw(*args, int_args[6], window_r=window_r)),
+                f"the earlier window_dw differs on integer data, {dt}, at "
+                f"{label}")
+    e_p = (PARENT.window_dw(*real_args, window_r=window_r) - want
+           ).abs().max().item()
+    require(e_p <= tol, f"the earlier window_dw differs by {e_p} at {label}")
+    return err, timed_ms(lambda: PARENT.window_dw(*real_args,
+                                                  window_r=window_r))
 
 
 def phase_dense_tile():
@@ -931,29 +1093,34 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
     k_init, k_ser = geo["initial"], geo["series"]
     # (label, table st, ksz, query capacity of a downsample, window_r, C,
     # CO, sidecars): the overflow sidecars are held against their plain
-    # versions on the lists of the initial conv (the C == 1 entries) and of
-    # the level-0 series (the batched entries); both lists must be
-    # non-empty.  Levels 2 and 4 and the level-1 downsample give the conv
-    # channel widths that are not multiples of its 64-channel chunk.
+    # versions on the plan's list (and hand-made lists) of each case that
+    # names them: "apply" the forward sidecar (the C == 1 entry at the
+    # initial conv, the batched one elsewhere; the lists of the initial conv
+    # and of the level-0 series must be non-empty, the deeper levels' may
+    # be empty, as dune2d's levels 4 and 5 are), "dx" also the backward's dX
+    # apply (the same list, gy as the table, W transposed and mirrored),
+    # "dw" the dW sidecar.  Levels 2 and 4 and the level-1 downsample give
+    # the conv channel widths that are not multiples of its 64-channel
+    # chunk.
     cases = [
         (f"{pre}initial {_kname(k_init)} 1->32", st0, k_init, None,
-         tuning.window_r_initial, 1, 32, True),
+         tuning.window_r_initial, 1, 32, {"apply", "dw"}),
         (f"{pre}L0 series {_kname(k_ser)} 32->32", st0, k_ser, None,
-         tuning.for_level(0), 32, 32, True),
+         tuning.for_level(0), 32, 32, {"apply", "dx", "dw"}),
         (f"{pre}L2 series {_kname(k_ser)} 96->96", levels[2], k_ser, None,
-         tuning.for_level(2), 96, 96, False),
+         tuning.for_level(2), 96, 96, {"apply"}),
         (f"{pre}L4 series {_kname(k_ser)} 160->160", levels[4], k_ser, None,
-         tuning.for_level(4), 160, 160, False),
+         tuning.for_level(4), 160, 160, {"apply", "dx"}),
         (f"{pre}L5 series {_kname(k_ser)} 192->192", levels[5], k_ser, None,
-         tuning.for_level(5), 192, 192, False),
+         tuning.for_level(5), 192, 192, {"apply"}),
         (f"{pre}L0 downsample {_kname(stride)} 32->64", st0, stride, caps[1],
-         tuning.window_r_strided, 32, 64, False),
+         tuning.window_r_strided, 32, 64, set()),
         (f"{pre}L1->L2 downsample {_kname(stride)} 64->96", levels[1], stride,
-         caps[2], tuning.window_r_strided, 64, 96, False),
+         caps[2], tuning.window_r_strided, 64, 96, set()),
     ]
 
     if "cases" in geo:  # a geometry of a few shapes (the SimCLR views)
-        cases = [(*case[:-1], case[-1] and geo.get("sidecars", True))
+        cases = [(*case[:-1], case[-1] if geo.get("sidecars", True) else set())
                  for case in cases
                  if case[0][len(pre):].startswith(geo["cases"])]
     results = {n: [] for n in REPLACES if n not in OPS_KERNELS}
@@ -1017,46 +1184,46 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         rargs = (keys, x_real, plan.qmeta, start, w_real, qst.n_active,
                  plan.dkeys)
 
-        # ---- sidecar on this plan's overflow list (C == 1: serial entry)
+        # ---- sidecar on this plan's overflow list (C == 1: serial entry),
+        # and on hand-made lists as wide
         name = "overflow_apply" if c == 1 else "overflow_apply_batched"
-        if sidecars:
-            require(n_ov > 0, f"the overflow list is empty at {label}")
+        if "apply" in sidecars:
+            require(n_ov > 0 or not sidecars & {"dw"},
+                    f"the overflow list is empty at {label}")
             nb = K._ov_bound(valid)
             # the kernel's precondition (csrc/overflow_apply.cu)
             require(K.overflow_dst_ordered(dst, nb),
                     f"the overflow list's dst is out of order at {label}")
-            plan_list = (src, dst, kk, valid, nb)
             entry = K.overflow_apply if c == 1 else overflow_apply_batched
-
-            def side(base, x, w, kernel=True, lst=plan_list):
-                f = entry if kernel else K.overflow_apply_plain
-                return f(base, x, w, *lst)
-
             hand = _handmade_lists(qst.n_active.tolist(), tab.n_active.tolist(),
                                    k, src.shape[1], SEED + c)
             require(K.overflow_dst_ordered(hand[1], hand[4])
                     and int(hand[4].max()) < src.shape[1],
                     f"hand-made lists are not as meant at {label}")
-            for what, lst in (("the plan's list", plan_list),
-                              ("hand-made lists", hand)):
-                for dt in (bf16, torch.float32):
-                    args_dt = (out.to(dt), x_int.to(dt), w_int.to(dt))
-                    got = side(args_dt[0].clone(), *args_dt[1:], lst=lst)
-                    want = side(args_dt[0].clone(), *args_dt[1:], kernel=False,
-                                lst=lst)
-                    torch.cuda.synchronize()
-                    require(torch.equal(got, want),
-                            f"{name} differs from its plain version on {what}, "
-                            f"{dt}, at {label}")
-                    require(not torch.equal(got, args_dt[0]),
-                            f"{name} changed nothing on {what} at {label}")
+            lists = {"hand-made lists": hand}
+            if n_ov > 0:
+                lists = {"the plan's list": (src, dst, kk, valid, nb), **lists}
             walked = (torch.arange(src.shape[1], device=dev)[None, :]
                       < hand[4][:, None])
             occupancy["handmade_entries"] = int((hand[3] & walked).sum())
             base_r = K.window_conv_apply(*rargs, window_r=r)
-            results[name].append(_sidecar_row(
-                label, entry, base_r, x_real, w_real, plan_list,
-                qst.capacity, tab.capacity))
+            results[name].append(_sidecar_checks(
+                label, entry, lists, (out, x_int, w_int),
+                (base_r, x_real, w_real), qst.capacity, tab.capacity))
+            if "dx" in sidecars:
+                # the submanifold backward's dX apply
+                # (engine._SubmWindowConv.backward): the forward list as it
+                # is, gy as the table, W transposed and mirrored
+                perm_t = torch.as_tensor(_mirror_perm(plan.offsets), device=dev)
+
+                def w_dx(w):
+                    return w.transpose(1, 2)[perm_t].contiguous()
+
+                results[name].append(_sidecar_checks(
+                    f"{label} dX", entry, lists,
+                    (int_feats(tab, c), int_feats(qst, co), w_dx(w_int)),
+                    (real_feats(tab, c), real_feats(qst, co), w_dx(w_real)),
+                    tab.capacity, qst.capacity))
         # ---- backward kernels.  gy lives on the OUTPUT sites (qst).
         gy_int = int_feats(qst, co)
         gy_real = real_feats(qst, co)
@@ -1190,7 +1357,9 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         else:
             # kernel 6: window_dw over the forward plan (the initial conv)
             # the persistent grid must stride: more live tiles than blocks
-            parts = K._dw_parts(dev, tab.batch_size, qst.capacity, k, c, co)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            parts, groups = K._dw_parts(sms, tab.batch_size, qst.capacity, k,
+                                        c, co)
             # (a view of 3000 voxels has no more live tiles than blocks)
             require(live_tiles > parts or "cases" in geo,
                     f"{live_tiles} live tiles, {parts} window_dw blocks at {label}")
@@ -1205,8 +1374,9 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                 require(float(got.abs().sum()) > 0, f"dw is all 0 at {label}")
             rargs_dw = (keys, x_real, plan.qmeta, start, gy_real, qst.n_active,
                         plan.dkeys)
-            err = (K.window_dw(*rargs_dw, window_r=r)
-                   - K.window_dw_plain(*rargs_dw, window_r=r)).abs().max().item()
+            err, parent_ms = _dw_checks(
+                label, (keys, x_int, plan.qmeta, start, gy_int, qst.n_active,
+                        plan.dkeys), rargs_dw, r)
             ms = timed_ms(lambda: K.window_dw(*rargs_dw, window_r=r))
             plain_ms = timed_ms(lambda: K.window_dw_plain(*rargs_dw, window_r=r),
                                 iters=2, warmup=1, graph=False)
@@ -1221,14 +1391,16 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             results["window_dw"].append(dict(
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                pairs_in_window=pairs_in, live_tiles=live_tiles, blocks=parts,
+                parent_ms=parent_ms, pairs_in_window=pairs_in,
+                live_tiles=live_tiles, blocks=parts, offset_groups=groups,
+                repeats_bit_for_bit=True,
             ))
 
         # ---- dW sidecar on the list the backward walks: the forward list
         # with src and dst swapped for the fused submanifold backward, the
         # forward list as it is for C == 1
         dname = "overflow_dw" if c == 1 else "overflow_dw_batched"
-        if sidecars:
+        if "dw" in sidecars:
             nb = K._ov_bound(valid)
             s_, d_ = (src, dst) if c == 1 else (dst, src)
 
@@ -1311,8 +1483,10 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
               "table_rows_per_event": [int(tab.n_active.min()),
                                        int(tab.n_active.max())],
               "pairs": pairs_total, "overflow_entries": n_ov, **occupancy,
-              "rows": {n: v[-1] for n, v in results.items()
-                       if v and v[-1]["shape"] == label}})
+              "rows": {n: rs[0] if len(rs) == 1 else rs
+                       for n, v in results.items()
+                       for rs in [[r for r in v
+                                   if r["shape"].startswith(label)]] if rs}})
     return results
 
 
@@ -1645,15 +1819,22 @@ def phase_gather_kernels(dataset):
                 (4 + 2 * c) * int(tab.n_active.sum())
                 + (4 * plan.qmeta.shape[1] + 2 * 32) * n_q + 4 * k * live_tiles
                 + nbytes(plan.q_active, b), 2.0 * pairs_in * c * 32)
+            dw_label = f"deconv L1->L0 2^3 {c}->32"
+            dw_err, dw_parent_ms = _dw_checks(
+                dw_label, (keys, x_int, plan.qmeta, plan.start, gy_int,
+                           plan.q_active, plan.dkeys),
+                (keys, x, plan.qmeta, plan.start, gy, plan.q_active,
+                 plan.dkeys), plan.window_r)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             results["window_dw"].append(dict(
-                shape=f"deconv L1->L0 2^3 {c}->32", max_abs_err=float(
-                    (fused() - plain_dw()).abs().max()),
-                ms=timed_ms(fused),
+                shape=dw_label, max_abs_err=dw_err, ms=timed_ms(fused),
                 plain_ms=timed_ms(plain_dw, iters=2, warmup=1, graph=False),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=timed_ms(library_dw, iters=3, warmup=1),
-                pairs_in_window=pairs_in, live_tiles=live_tiles,
-                blocks=K._dw_parts(dev, qst.batch_size, qst.capacity, k, c, 32)))
+                parent_ms=dw_parent_ms, pairs_in_window=pairs_in,
+                live_tiles=live_tiles, repeats_bit_for_bit=True,
+                blocks=K._dw_parts(sms, qst.batch_size, qst.capacity, k, c,
+                                   32)[0]))
             row["window_dw"] = results["window_dw"][-1]
             del book, nbr_up, hit_up, x_int, gy_int
         emit({"phase": "gather_kernel", "shape": label,
@@ -1728,10 +1909,10 @@ def phase_gather_kernels(dataset):
         lib_ms = timed_ms(library)
         parent_ms = None
         if PARENT is not None:
-            require(torch.equal(PARENT.gather_conv(x_int, idx, w_int),
+            require(torch.equal(PARENT.run(GC.gather_conv, x_int, idx, w_int),
                                 GC.gather_conv(x_int, idx, w_int)),
                     f"the earlier gather_conv differs at {label}")
-            parent_ms = timed_ms(lambda: PARENT.gather_conv(x, idx, w))
+            parent_ms = timed_ms(lambda: PARENT.run(GC.gather_conv, x, idx, w))
         n_live = int(st.n_active.sum())
         # reads: the features of the active rows, the live rows' indices,
         # W; writes: the output in full; flops: the hit pairs only
@@ -4417,10 +4598,11 @@ def _sweep_check(row, run) -> dict:
 
 def _sweep_kernel_rows(run) -> dict:
     """Kernels 1-3 at one sweep row's shapes (fp32, C = CO = 8): each
-    bit-equal to its plain version on integer-valued fp32 data, window_plan
-    also to the row's plan, the batched sidecar on the plan's list and on a
-    hand-made list as wide as the plan's (rows of up to K entries); timed
-    on the row's real data -> {kernel: [row]}."""
+    bit-equal to its plain version on integer-valued fp32 data (the
+    sidecar in bf16 too), window_plan also to the row's plan, the batched
+    sidecar on the plan's list and on a hand-made list as wide as the
+    plan's (rows of up to K entries); timed on the row's real data ->
+    {kernel: [row]}."""
     import torch
 
     from sparseeventid_tpu_torch.ops import rulebook as rb
@@ -4467,18 +4649,9 @@ def _sweep_kernel_rows(run) -> dict:
     for what, lst in lists.items():
         require(K.overflow_dst_ordered(lst[1], lst[4]),
                 f"the {what}'s dst is out of order at {label}")
-        got = overflow_apply_batched(out_int.clone(), x_int, w_int, *lst)
-        want = K.overflow_apply_plain(out_int.clone(), x_int, w_int, *lst)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"overflow_apply_batched differs from its plain version on "
-                f"the {what}, fp32, at {label}")
-        row = _sidecar_row(f"{label}, {what}", overflow_apply_batched, base,
-                           st.feats, w, lst, st.capacity, st.capacity)
-        require(row["entries"] == 0 or not torch.equal(got, out_int),
-                f"overflow_apply_batched changed nothing on the {what} at "
-                f"{label}")
-        side_rows.append(row)
+        side_rows.append(_sidecar_checks(
+            label, overflow_apply_batched, {what: lst}, (out_int, x_int, w_int),
+            (base, st.feats, w), st.capacity, st.capacity))
     require(side_rows[-1]["entries"] > 0, f"the hand-made list is empty at {label}")
     rows = {"window_plan": [plan_row], "window_conv_apply": [conv_row],
             "overflow_apply_batched": side_rows}

@@ -181,7 +181,6 @@ overflow_dw_kernel(float* __restrict__ out, int K,
   const long long beg = total * blockIdx.x / gridDim.x;
   const long long fin = total * (blockIdx.x + 1) / gridDim.x;
   for (long long base = beg; base < fin; base += kBatch) {
-    for (int i = t; i < kWarps * n_keys; i += kThreads) hist[i] = 0;
     // this round's entries of the piece
     const long long n = base + t;
     int kl = -1;
@@ -205,35 +204,8 @@ overflow_dw_kernel(float* __restrict__ out, int K,
     // a stable counting sort by key: the rows of a key follow those of the
     // keys before it, in list order
     const int key = kl >= 0 ? ((kl & (n_groups - 1)) * kpg + (kl >> lg)) : -1;
-    const unsigned peers = __match_any_sync(kFull, key);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    __syncthreads();  // hist is zero
-    if (key >= 0 && rank == 0) hist[warp * n_keys + key] = __popc(peers);
-    __syncthreads();
-    int tot = 0;  // key t's entries; hist becomes the warps' prefix
-    if (t < n_keys)
-      for (int w = 0; w < kWarps; ++w) {
-        const int cnt = hist[w * n_keys + t];
-        hist[w * n_keys + t] = tot;
-        tot += cnt;
-      }
-    if (warp * 32 < n_keys) {  // inclusive scan of tot over the keys
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(kFull, tot, d);
-        if (lane >= d) tot += v;
-      }
-      if (lane == 31) wsum[warp] = tot;
-    }
-    __syncthreads();
-    if (t < n_keys) {
-      for (int w = 0; w < warp; ++w) tot += wsum[w];
-      kstart[t + 1] = tot;
-    }
-    if (t == 0) kstart[0] = 0;
-    __syncthreads();
-    if (key >= 0) {
-      const int i = kstart[key] + hist[warp * n_keys + key] + rank;
+    const int i = bucket_place(key, n_keys, hist, kstart, wsum);
+    if (i >= 0) {
       e_k[i] = kl;
       e_x[i] = xr;
       e_g[i] = gr;

@@ -1,6 +1,6 @@
 // Windowed sparse convolution, weight gradient over the in-window pairs of
 // a plan:
-//   dw[k, c, o] += sum_b sum_t feats[b, n(b, t, k), c] * gy[b, t, o]
+//   dw[k, c, o] = sum_b sum_t feats[b, n(b, t, k), c] * gy[b, t, o]
 // where n(b, t, k) is the table row matched by query row t at query column
 // k' = kmap[k] inside the plan window (window_match.cuh: the same pair set
 // as the forward conv, whose complement is the plan's overflow list).
@@ -15,133 +15,158 @@
 // the work is the 125 window searches per query, so the kernel is bound by
 // the matching's latency.
 // Design: the live query tiles of all events are shared out among n_parts
-// persistent blocks (block p takes tiles p, p + n_parts, ...); each block
-// sums its tiles on chip and writes its partial dW once, to row p of a
-// float32 scratch [n_parts, K * C * CO]; a second pass adds the rows up in
-// order p = 0, 1, ... per element.  No atomics anywhere, so dw is the same
-// bit for bit from run to run for a given n_parts.
-// The searches dominate, and a search that walks device memory is a chain
-// of dependent L2 loads (the 125 windows of a tile do not stay in L1), so
-// each (tile, offset) window's keys are first copied to shared memory with
-// coalesced loads and searched there (find_keys_staged: the pair set
-// of match_row), a lane's searches interleaved.
-//   C == 1, CO <= 32 (dw_c1_kernel): each warp owns the offsets k = warp,
-//   warp + 8, ...  and each lane the output channel o = lane, with its
-//   partial dw[k, 0, o] in registers.  Per tile the block stages the
-//   tile's gy rows and query meta in shared memory once; per offset the
-//   warp copies its window's keys and feats values, then per group of 32
-//   queries the lanes search, a ballot names the matched ones and a
-//   shuffle hands each matched value to every lane, which adds value *
-//   gy[query, o].  No block barrier per offset, no staging of unused
-//   channels.
+// persistent block columns (column p takes tiles p, p + n_parts, ...); each
+// block sums its tiles on chip and writes its partial dW once, to row p of a
+// float32 scratch [n_parts, K * C * CO]; ordered_sum_kernel
+// (window_match.cuh) adds the rows up in order p = 0, 1, ... per element
+// and writes dw.  No atomics anywhere, so dw is the same bit for bit from
+// run to run for a given n_parts (kernels._dw_parts).
+//   C == 1, CO <= 32 (dw_c1_kernel, the forward's C == 1 machinery of
+//   window_tc.cuh run backwards): a block takes a group of kg of the K
+//   offsets (groups of them split K where the live tiles are too few to
+//   fill the card, as in a SimCLR view), and per tile it stages the query
+//   meta (stage_queries) and the tile's gy rows (cp.async), searches its
+//   offsets' plan windows (search_slots: each warp's windows staged by
+//   cp.async, the next two in flight while it searches; match_row's pair
+//   set), turns the matches into a [kg x 128] value tile (c1_gather) and
+//   adds the partial dW = values x gy_tile ([kg x 128] x [128 x 32]) to its
+//   registers: bf16 on the tensor cores (mma.sync m16n8k16, the values by
+//   ldmatrix, gy by ldmatrix.trans), fp32 as a lane per output summing the
+//   tile's rows in order on the CUDA cores.
 //   Otherwise (dw_tile_kernel): a block owns one (k, 32-channel, 32-output)
 //   piece of dw and keeps it in registers over its tiles: per tile it
 //   copies the window, matches the 128 queries for its offset, compacts
 //   the matched ones (a strided plan matches a query at one offset of K),
 //   stages their table rows and gy rows (32 channels each) and adds their
 //   outer product (tile_outer_acc over the matched rows only).
-// Four blocks an SM (launch bounds) is what the wrapper's n_parts assumes.
 
-#include "window_match.cuh"
+#include "window_tc.cuh"
 
 namespace {
 
 using namespace seid;
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlots = kMaxK / kWarps;  // offsets a warp owns, at most
-constexpr int kGroups = kTile / 32;     // queries a lane takes in a tile
-constexpr unsigned kFull = 0xffffffffu;
-
+// The C == 1 route: block (p, g) takes live tiles p, p + n_parts, ... and
+// the offsets k0 = g * kg .. k0 + kg; per tile the search of window_tc.cuh
+// gives the [Kp x 128] values of its slots, and warp w adds the product of
+// slot rows 16 w .. 16 w + 15 (if any) with the tile's gy rows to acc.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, 3)
 dw_c1_kernel(const int* __restrict__ keys, int n_in,
              const T* __restrict__ feats,
              const int* __restrict__ qmeta, int nw, int M,
              const int* __restrict__ start, int n_tiles, int K,
              const T* __restrict__ gy, int CO,
              const int* __restrict__ q_active, int m_bound, int window_r,
-             float* __restrict__ part, Offsets offs, int B) {
-  extern __shared__ float smem[];
+             float* __restrict__ part, Offsets offs, int B, int kg, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_dw[];
+  const int kp = C1Smem<T>::rows(kg);
+  const int kt = kp * kValPitch;
+  short* pos = reinterpret_cast<short*>(smem_dw);
+  T* val = C1Smem<T>::kInPlace
+      ? reinterpret_cast<T*>(smem_dw)
+      : reinterpret_cast<T*>(smem_dw + (size_t)kt * sizeof(short));
+  T* gs = val + kt;  // [kTile][kWsPitch] the tile's gy rows, 0 past CO
+  int* qm = reinterpret_cast<int*>(gs + kTile * kWsPitch);
+  int* st = qm + (1 + nw) * kTile;
+  unsigned* hits = reinterpret_cast<unsigned*>(st + kg);
+  int* wbuf = reinterpret_cast<int*>(hits + kg * kQ);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  // the tile's gy rows; its query meta (base, then the validity words; 0
-  // for rows past M or m_bound); each warp's copy of one plan window
-  float (*gs)[32] = reinterpret_cast<float (*)[32]>(smem);
-  int* qm = reinterpret_cast<int*>(smem + kTile * 32);
-  int* wkey = qm + (1 + nw) * kTile + warp * window_r;
-  float* wx = reinterpret_cast<float*>(qm + (1 + nw) * kTile
-                                       + kWarps * window_r) + warp * window_r;
+  const int k0 = blockIdx.y * kg;
+  const int nk = min(kg, K - k0);
   const int m_tiles = (M + kTile - 1) / kTile;
-  float acc[kSlots];  // dw[warp + kWarps * i, 0, lane]
+  constexpr bool kMma = sizeof(T) == 2;
+  // bf16: the warp's 16 slot rows x 32 outputs in 4 mma tiles (acc[4 nj ..]:
+  // rows lane / 4 (+ 8), columns 8 nj + 2 (lane % 4) (+ 1)); fp32: slot row
+  // 16 warp + i, output lane
+  float acc[16];
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
 
   const int n_live = count_live(q_active, B, m_bound, m_tiles);
-  for (int g = blockIdx.x; g < n_live; g += gridDim.x) {
+  for (int g = blockIdx.x; g < n_live && nk > 0; g += gridDim.x) {
     int b, tile;
     live_tile(q_active, m_bound, m_tiles, g, b, tile);
     const long long m0 = (long long)tile * kTile;
-    const int* meta_b = qmeta + (long long)b * (1 + nw) * M;
-    __syncthreads();  // the previous tile's gs and qm are read
-    for (int idx = t; idx < kTile * 32; idx += kThreads) {
-      const int r = idx / 32;
-      const int o = idx - r * 32;
-      const long long m = m0 + r;
-      gs[r][o] = (o < CO && m < M && m < m_bound)
-          ? to_f(gy[((long long)b * M + m) * CO + o]) : 0.f;
-    }
-    for (int idx = t; idx < (1 + nw) * kTile; idx += kThreads) {
-      const int w = idx / kTile;
-      const long long m = m0 + (idx - w * kTile);
-      qm[idx] = (m < M && m < m_bound) ? meta_b[(long long)w * M + m] : 0;
-    }
-    __syncthreads();
-    const int* keys_b = keys + (long long)b * n_in;
-    const int* start_t = start + ((long long)b * n_tiles + tile) * K;
-    const T* feats_b = feats + (long long)b * n_in;
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int k = warp + kWarps * i;
-      if (k >= K) break;  // warp-uniform
-      const int col = offs.col[k];
-      long long lo, end;
-      window_rows(start_t[col], window_r, n_in, lo, end);
-      const int n_win = end > lo ? (int)(end - lo) : 0;
-      __syncwarp();  // the previous offset's window is read
-      for (int j = lane; j < n_win; j += 32) {
-        wkey[j] = keys_b[lo + j];
-        wx[j] = to_f(feats_b[lo + j]);
+    __syncthreads();  // the previous tile's values and gy rows are read
+    stage_queries(qmeta + (long long)b * (1 + nw) * M, nw, M, m0, m_bound,
+                  start + ((long long)b * n_tiles + tile) * K, offs, k0, nk,
+                  qm, st);
+    const T* gy_t = gy + ((long long)b * M + m0) * CO;
+    if (kMma && vec) {  // 16-byte copies, zero-filled past M, m_bound and CO
+      for (int idx = t; idx < kTile * 4; idx += kThreads) {
+        const int r = idx >> 2;
+        const int o = (idx & 3) << 3;
+        const bool on = m0 + r < M && m0 + r < m_bound && o < CO;
+        cp_async16(gs + r * kWsPitch + o, on ? gy_t + r * CO + o : gy,
+                   on ? 16 : 0);
       }
-      __syncwarp();
-      // the lane's four queries (rows lane, lane + 32, ...) searched together
-      const int* bits = qm + (1 + (col >> 5)) * kTile;
-      const long long dkey = offs.dkey[col];
-      long long q[kGroups];
-      int pos[kGroups];
+      cp_async_commit();
+    } else {
+      for (int idx = t; idx < kTile * 32; idx += kThreads) {
+        const int r = idx >> 5;
+        const int o = idx & 31;
+        gs[r * kWsPitch + o] = (m0 + r < M && m0 + r < m_bound && o < CO)
+            ? gy_t[r * CO + o] : from_f<T>(0.f);
+      }
+    }
+    for (int idx = nk * kValPitch + t; idx < kt; idx += kThreads) pos[idx] = -1;
+    __syncthreads();
+    search_slots(keys + (long long)b * n_in, n_in, qm, st, offs, k0, nk,
+                 window_r, wbuf, pos, kValPitch, hits);
+    __syncthreads();
+    c1_gather(pos, val, st, feats + (long long)b * n_in, kt);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp * 16 < kp) {  // warp-uniform
+      if constexpr (kMma) {
 #pragma unroll
-      for (int gq = 0; gq < kGroups; ++gq)
-        q[gq] = (long long)qm[32 * gq + lane] + dkey;
-      find_keys_staged(wkey, n_win, q, pos);
+        for (int r0 = 0; r0 < kTile; r0 += 16) {
+          unsigned a[4];
+          ldsm_x4(a, val + (warp * 16 + (lane & 15)) * kValPitch + r0
+                         + ((lane >> 4) << 3));
 #pragma unroll
-      for (int gq = 0; gq < kGroups; ++gq) {
-        if (!((bits[32 * gq + lane] >> (col & 31)) & 1)) pos[gq] = -1;
-        const float x = pos[gq] >= 0 ? wx[pos[gq]] : 0.f;
-        for (unsigned hit = __ballot_sync(kFull, pos[gq] >= 0); hit;
-             hit &= hit - 1) {
-          const int qr = __ffs(hit) - 1;
-          acc[i] += __shfl_sync(kFull, x, qr) * gs[32 * gq + qr][lane];
+          for (int np = 0; np < 2; ++np) {
+            unsigned bb[4];
+            ldsm_x4_t(bb, gs + (r0 + (lane & 15)) * kWsPitch + np * 16
+                              + ((lane >> 4) << 3));
+            mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * np), a, bb[0],
+                     bb[1]);
+            mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * np + 4), a,
+                     bb[2], bb[3]);
+          }
+        }
+      } else {
+        const T* v = val + warp * 16 * kValPitch;
+        for (int r = 0; r < kTile; ++r) {
+          const float gv = to_f(gs[r * kWsPitch + lane]);
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            acc[i] = fmaf(to_f(v[i * kValPitch + r]), gv, acc[i]);
         }
       }
     }
   }
+  if (warp * 16 >= nk) return;  // no slot of this block in the warp's rows
   float* part_p = part + (long long)blockIdx.x * K * CO;
+  if constexpr (kMma) {
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) {
-    const int k = warp + kWarps * i;
-    if (k >= K) break;
-    if (lane < CO) part_p[(long long)k * CO + lane] = acc[i];
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = warp * 16 + (lane >> 2) + ((e >> 1) << 3);
+        const int o = nj * 8 + ((lane & 3) << 1) + (e & 1);
+        if (k < nk && o < CO) part_p[(long long)(k0 + k) * CO + o] = acc[4 * nj + e];
+      }
+  } else {
+    if (lane >= CO) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int k = warp * 16 + i;
+      if (k < nk) part_p[(long long)(k0 + k) * CO + lane] = acc[i];
+    }
   }
 }
 
@@ -251,53 +276,32 @@ dw_tile_kernel(const int* __restrict__ keys, int n_in,
             s[i][j];
 }
 
-// dw[e] += sum over p = 0, 1, ... of part[p, e]: the fixed-order reduction
-// of the blocks' partials.
-__global__ void dw_reduce_kernel(float* __restrict__ dw,
-                                 const float* __restrict__ part, int n_parts,
-                                 long long n) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float sum = 0.f;
-  for (int p = 0; p < n_parts; ++p) sum += part[(long long)p * n + e];
-  dw[e] += sum;
-}
-
-// Opt a kernel in to `smem` bytes of dynamic shared memory beside `fixed`
-// static bytes; an error where the card has not that much.
-template <typename F>
-cudaError_t fit_smem(F* kernel, size_t smem, size_t fixed) {
-  if (smem + fixed <= 48 * 1024) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem + fixed > (size_t)optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <typename T>
 int launch(const void* keys, int n_in, const void* feats, int C,
            const void* qmeta, int nw, int M, const void* start, int n_tiles,
            int K, const void* gy, int CO, const void* q_active, int m_bound,
            int window_r, void* dw, const int* dkeys, const int* cols, int B,
-           void* part, int n_parts, void* stream) {
-  if (K > kMaxK || n_parts < 1 || window_r < 0) return (int)cudaErrorInvalidValue;
+           void* part, int n_parts, int groups, void* stream) {
+  if (K > kMaxK || n_parts < 1 || groups < 1 || window_r < 0)
+    return (int)cudaErrorInvalidValue;
   Offsets offs;
   fill_offsets(offs, dkeys, cols, K);
   const long long n = (long long)K * C * CO;
-  if (M <= 0 || B <= 0 || n <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (M <= 0 || B <= 0)  // no pairs: dw is 0
+    return (int)cudaMemsetAsync(dw, 0, sizeof(float) * n, st);
   cudaError_t err;
   if (C == 1 && CO <= 32) {
-    const size_t smem = sizeof(float) * ((size_t)kTile * 32
-        + (size_t)(1 + nw) * kTile + 2 * (size_t)kWarps * window_r);
-    err = fit_smem(dw_c1_kernel<T>, smem, 0);
+    const int kg = (K + groups - 1) / groups;
+    const size_t smem = C1Smem<T>::bytes(kg, nw, window_r, kTile);
+    err = fit_smem(dw_c1_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    dw_c1_kernel<T><<<n_parts, kThreads, smem, st>>>(
+    const bool vec = sizeof(T) == 2 && CO % 8 == 0 && ((uintptr_t)gy & 15) == 0;
+    dw_c1_kernel<T><<<dim3(n_parts, (K + kg - 1) / kg), kThreads, smem, st>>>(
         (const int*)keys, n_in, (const T*)feats, (const int*)qmeta, nw, M,
         (const int*)start, n_tiles, K, (const T*)gy, CO, (const int*)q_active,
-        m_bound, window_r, (float*)part, offs, B);
+        m_bound, window_r, (float*)part, offs, B, kg, vec);
     err = cudaGetLastError();
   } else {
     const int pieces = K * ((C + kChunk - 1) / kChunk)
@@ -315,29 +319,29 @@ int launch(const void* keys, int n_in, const void* feats, int C,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  dw_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     st>>>((float*)dw, (const float*)part, n_parts, n);
-  return (int)cudaGetLastError();
+  return (int)ordered_sum((float*)dw, (const float*)part, n_parts, n, st);
 }
 
 }  // namespace
 
 // keys i32[B, n_in] sorted; feats T[B, n_in, C]; qmeta i32[B, 1+nw, M];
 // start i32[B, n_tiles, K'] (K' >= every cols[k] + 1); gy T[B, M, CO];
-// q_active i32[B]; dw f32[K, C, CO], ZEROED by the caller (the kernel adds
-// onto it); part f32[n_parts, K * C * CO] scratch, n_parts >= 1 blocks
-// sharing out the query tiles (its contents are overwritten).  dkeys and
-// cols are HOST arrays of K ints.  Returns the launches' cudaError_t.
+// q_active i32[B]; dw f32[K, C, CO], fully written; part f32[n_parts,
+// K * C * CO] scratch, n_parts >= 1 block columns sharing out the query
+// tiles (its contents are overwritten); groups >= 1: the C == 1 route
+// splits the K offsets among that many blocks a column (the other route
+// takes 1).  dkeys and cols are HOST arrays of K ints.  Returns the
+// launches' cudaError_t.
 #define SEID_DW_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* keys, int n_in, const void* feats, int C,   \
                       const void* qmeta, int nw, int M, const void* start,    \
                       int n_tiles, int K, const void* gy, int CO,             \
                       const void* q_active, int m_bound, int window_r,        \
                       void* dw, const int* dkeys, const int* cols, int B,     \
-                      void* part, int n_parts, void* stream) {                \
+                      void* part, int n_parts, int groups, void* stream) {    \
     return launch<T>(keys, n_in, feats, C, qmeta, nw, M, start, n_tiles, K,   \
                      gy, CO, q_active, m_bound, window_r, dw, dkeys, cols, B, \
-                     part, n_parts, stream);                                  \
+                     part, n_parts, groups, stream);                          \
   }
 
 SEID_DW_ENTRY(seid_window_dw_f32, float)

@@ -181,6 +181,50 @@ __device__ __forceinline__ void tile_outer_acc(
   }
 }
 
+// A stable counting sort of the block's kThreads items by key, key in
+// [0, n_keys) (n_keys <= kThreads), key < 0 left out: returns the item's
+// place in key order, list (thread) order within a key, or -1, and leaves in
+// start[0 .. n_keys] the first place of each key and their end.  hist:
+// kThreads / 32 * n_keys ints, wsum: kThreads / 32 ints, both scratch.
+// Every thread calls it; start is visible to all on return.  No atomics:
+// each warp's count of a key comes from __match_any_sync.
+__device__ __forceinline__ int bucket_place(int key, int n_keys, int* hist,
+                                            int* start, int* wsum) {
+  constexpr int kW = kThreads / 32;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  for (int i = t; i < kW * n_keys; i += kThreads) hist[i] = 0;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  __syncthreads();  // hist is zero
+  if (key >= 0 && rank == 0) hist[warp * n_keys + key] = __popc(peers);
+  __syncthreads();
+  int tot = 0;  // key t's items; hist becomes the warps' prefix
+  if (t < n_keys)
+    for (int w = 0; w < kW; ++w) {
+      const int cnt = hist[w * n_keys + t];
+      hist[w * n_keys + t] = tot;
+      tot += cnt;
+    }
+  if (warp * 32 < n_keys) {  // inclusive scan of tot over the keys
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, tot, d);
+      if (lane >= d) tot += v;
+    }
+    if (lane == 31) wsum[warp] = tot;
+  }
+  __syncthreads();
+  if (t < n_keys) {
+    for (int w = 0; w < warp; ++w) tot += wsum[w];
+    start[t + 1] = tot;
+  }
+  if (t == 0) start[0] = 0;
+  __syncthreads();
+  return key >= 0 ? start[key] + hist[warp * n_keys + key] + rank : -1;
+}
+
 // The four row groups' partial sums reduced by shuffles: lane group 0
 // holds the tile's sums afterwards.  Whole warps call it.
 __device__ __forceinline__ void tile_outer_reduce(float (&s)[4][4]) {

@@ -180,22 +180,56 @@ constexpr int kGatherBatch = 8;
 constexpr int kValPitch = kTile + 8;  // 16 * odd bytes a bf16 row: ldmatrix
 constexpr int kWsPitch = 32 + 8;      // is free of bank conflicts
 
-// Shared memory of conv_c1_kernel: [Kp][kValPitch] window positions, then
-// their values (in place where T is 2 bytes wide), W as [Kp][kWsPitch]
-// (Kp = K rounded up to 16, the rows past K zero), the query meta, the
-// slots' window starts, the ballots and the warps' windows.
+// Shared memory of the C == 1 kernels (conv_c1_kernel here, dw_c1_kernel in
+// window_dw.cu): [Kp][kValPitch] window positions of K slots, then their
+// values (in place where T is 2 bytes wide), the product's other operand as
+// [b_rows][kWsPitch] (the conv's W: Kp rows, those past K zero; the dW's gy
+// tile: kTile rows), the query meta, the slots' window starts, the ballots
+// and the warps' windows.  Kp = K rounded up to 16.
 template <typename T>
 struct C1Smem {
   static constexpr bool kInPlace = sizeof(T) == sizeof(short);
   __host__ __device__ static int rows(int K) { return (K + 15) / 16 * 16; }
-  static size_t bytes(int K, int nw, int window_r) {
+  static size_t bytes(int K, int nw, int window_r, int b_rows) {
     const size_t kt = (size_t)rows(K) * kValPitch;
     return kt * sizeof(short) + (kInPlace ? 0 : kt * sizeof(T))
-        + (size_t)rows(K) * kWsPitch * sizeof(T)
+        + (size_t)b_rows * kWsPitch * sizeof(T)
         + sizeof(int) * ((size_t)(1 + nw) * kTile + K + (size_t)K * kQ
                          + (size_t)kWarps * kWinBufs * window_r);
   }
 };
+
+// The tile's window positions pos [Kp][kValPitch] (search_slots' output,
+// slot k's window starting at table row max(st[k], 0)) turned into the
+// matched table values val (0 where unmatched and in the pitch's padding),
+// kGatherBatch loads in flight a thread; in place where T is 2 bytes wide,
+// each thread rewriting the entries it read.  kt = Kp * kValPitch.  All
+// threads; the caller synchronises before and after.
+template <typename T>
+__device__ __forceinline__ void c1_gather(const short* pos, T* val,
+                                          const int* st,
+                                          const T* __restrict__ feats_b,
+                                          int kt) {
+  for (int base = threadIdx.x; base < kt; base += kThreads * kGatherBatch) {
+    long long row[kGatherBatch];
+    T x[kGatherBatch];
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const int idx = base + u * kThreads;
+      const int k = idx / kValPitch;
+      const int p = (idx < kt && idx - k * kValPitch < kTile) ? pos[idx] : -1;
+      row[u] = p >= 0 ? (long long)max(st[k], 0) + p : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u)
+      x[u] = row[u] >= 0 ? feats_b[row[u]] : from_f<T>(0.f);
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const int idx = base + u * kThreads;
+      if (idx < kt) val[idx] = x[u];
+    }
+  }
+}
 
 template <class Role, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -246,28 +280,7 @@ conv_c1_kernel(const int* __restrict__ keys, int n_in,
     search_slots(keys + (long long)b * n_in, n_in, qm, st, offs, 0, K,
                  window_r, wbuf, pos, kValPitch, hits);
     __syncthreads();
-    // window positions -> values, kGatherBatch loads in flight a thread;
-    // in place, each thread rewriting the entries it read
-    const T* feats_b = feats + (long long)b * n_in;
-    for (int base = t; base < kt; base += kThreads * kGatherBatch) {
-      long long row[kGatherBatch];
-      T x[kGatherBatch];
-#pragma unroll
-      for (int u = 0; u < kGatherBatch; ++u) {
-        const int idx = base + u * kThreads;
-        const int k = idx / kValPitch;
-        const int p = (idx < kt && idx - k * kValPitch < kTile) ? pos[idx] : -1;
-        row[u] = p >= 0 ? (long long)max(st[k], 0) + p : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < kGatherBatch; ++u)
-        x[u] = row[u] >= 0 ? feats_b[row[u]] : from_f<T>(0.f);
-#pragma unroll
-      for (int u = 0; u < kGatherBatch; ++u) {
-        const int idx = base + u * kThreads;
-        if (idx < kt) val[idx] = x[u];
-      }
-    }
+    c1_gather(pos, val, st, feats + (long long)b * n_in, kt);
     __syncthreads();
     if constexpr (kMma) {
       for (int k0 = 0; k0 < kp; k0 += 16) {
@@ -780,15 +793,15 @@ conv_f32_kernel(const int* __restrict__ keys, int n_in,
 
 // ---- launch ---------------------------------------------------------------
 
-// Opt a kernel in to `smem` bytes of dynamic shared memory; an error where
-// the card has not that much.
+// Opt a kernel in to `smem` bytes of dynamic shared memory beside `fixed`
+// static bytes; an error where the card has not that much.
 template <typename F>
-cudaError_t fit_smem(F* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+cudaError_t fit_smem(F* kernel, size_t smem, size_t fixed = 0) {
+  if (smem + fixed <= 48 * 1024) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  if (smem + fixed > (size_t)optin) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
@@ -881,7 +894,8 @@ template <class Role, typename T>
 int conv_launch(const Args& a, const Offsets& offs, cudaStream_t st) {
   const int m_tiles = (a.M + kTile - 1) / kTile;
   if (a.C == 1 && a.CO <= 32) {
-    const size_t smem = C1Smem<T>::bytes(a.K, a.nw, a.window_r);
+    const size_t smem = C1Smem<T>::bytes(a.K, a.nw, a.window_r,
+                                         C1Smem<T>::rows(a.K));
     const cudaError_t err = fit_smem(conv_c1_kernel<Role, T>, smem);
     if (err != cudaSuccess) return (int)err;
     conv_c1_kernel<Role, T><<<dim3(m_tiles, a.B), kThreads, smem, st>>>(

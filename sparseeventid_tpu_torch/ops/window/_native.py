@@ -42,8 +42,9 @@ SIGNATURES = {
                          _P],
     # then the offset groups and the stream
     "seid_window_conv_f32": _WINDOW + [_I, _P],
+    # then the slab (output columns a task takes), the grid and the stream
     "seid_overflow_apply_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
-                                _P, _P, _I, _I, _P],
+                                _P, _P, _I, _I, _I, _I, _P],
     # then the dX offset groups, the dW scratch, its parts and the stream
     "seid_window_bwd_f32": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I,
                             _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I,
@@ -57,8 +58,8 @@ SIGNATURES = {
     "seid_gather_conv_f32": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P],
 }
 # window_dw takes gy where the conv takes w and dw for out, then its
-# partials' scratch, their count and the stream
-SIGNATURES["seid_window_dw_f32"] = _WINDOW + [_P, _I, _P]
+# partials' scratch, their count, the offset groups and the stream
+SIGNATURES["seid_window_dw_f32"] = _WINDOW + [_P, _I, _I, _P]
 for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
 

@@ -519,16 +519,23 @@ def window_dw_plain(
 window_dw_plain.calls = 0
 
 
-def _dw_parts(device, b: int, m: int, k: int, c: int, co: int) -> int:
-    """Blocks that share out the query tiles in :func:`window_dw`, each
-    summing its tiles into one row of partials: about four blocks an SM in
-    all (the C == 1 route runs one block a part, the tiled route one a part
-    and (offset, 32 channels, 32 outputs) piece of dw), and no more parts
-    than tiles.  The count sets the kernel's summation order, so dw repeats
-    bit for bit on one card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    pieces = 1 if c == 1 and co <= 32 else k * _cdiv(c, 32) * _cdiv(co, 32)
-    return max(1, min(b * _cdiv(m, TILE_T), _cdiv(4 * sms, pieces)))
+def _dw_parts(sms: int, b: int, m: int, k: int, c: int, co: int
+              ) -> Tuple[int, int]:
+    """-> (parts, groups) of :func:`window_dw`'s grid.  Parts: block columns
+    that share out the query tiles, each summing its tiles into one row of
+    partials that ``ordered_sum`` then adds in order; no more parts than
+    tiles.  The C == 1 route (three blocks an SM) splits the K offsets
+    among ``groups`` blocks of a column where the tiles alone would leave
+    SMs idle (a SimCLR view's few tiles), at most 8; the tiled route (four
+    blocks an SM over its (offset, 32 channels, 32 outputs) pieces) takes
+    one group.  The parts set the summation order, so dw repeats bit for
+    bit on one card."""
+    tiles = b * _cdiv(m, TILE_T)
+    if c == 1 and co <= 32:
+        groups = max(1, min(8, (3 * sms) // max(1, tiles)))
+        return max(1, min(tiles, _cdiv(3 * sms, groups))), groups
+    pieces = k * _cdiv(c, 32) * _cdiv(co, 32)
+    return max(1, min(tiles, _cdiv(4 * sms, pieces))), 1
 
 
 def window_dw(
@@ -566,8 +573,9 @@ def window_dw(
         raise ValueError("window_dw: inconsistent shapes")
     if start.shape[2] != k or start.shape[1] < _cdiv(m, TILE_T):
         raise ValueError(f"start {tuple(start.shape)} does not fit M={m}, K={k}")
-    dw = torch.zeros((k, c, co), dtype=torch.float32, device=feats.device)
-    n_parts = _dw_parts(feats.device, b, m, k, c, co)
+    dw = torch.empty((k, c, co), dtype=torch.float32, device=feats.device)
+    sms = torch.cuda.get_device_properties(feats.device).multi_processor_count
+    n_parts, groups = _dw_parts(sms, b, m, k, c, co)
     part = torch.empty((n_parts, k * c * co), dtype=torch.float32,
                        device=feats.device)
     name = "seid_window_dw_bf16" if dtype == torch.bfloat16 else "seid_window_dw_f32"
@@ -575,7 +583,7 @@ def window_dw(
     err = fn(_ptr(keys), n_in, _ptr(feats), c, _ptr(qmeta), nw1 - 1, m,
              _ptr(start), start.shape[1], k, _ptr(gy), co, _ptr(q_active),
              _query_rows_bound(m, q_bound), int(window_r), _ptr(dw), dk, cols,
-             b, _ptr(part), n_parts, _stream(feats))
+             b, _ptr(part), n_parts, groups, _stream(feats))
     window_dw.launches += 1
     _native.check(err, "window_dw")
     return dw
@@ -715,6 +723,42 @@ def overflow_apply_plain(base, table, w, src, dst, kk, valid, n_bound=None):
 overflow_apply_plain.calls = 0
 
 
+_OV_SPAN = 128  # list entries whose rows a task of the sidecar owns
+
+
+def _ov_tensor_cores(dtype: torch.dtype, c: int, co: int) -> bool:
+    """Whether the sidecar kernel takes its tensor-core route: bf16 with C a
+    multiple of 16 and CO of 8 (csrc/overflow_apply.cu checks the same, and
+    that the table starts on 4 bytes and W on 16, as torch allocates)."""
+    return dtype == torch.bfloat16 and c % 16 == 0 and co % 8 == 0
+
+
+def _ov_slab(c: int, co: int, tensor_cores: bool) -> int:
+    """Output columns a task of the sidecar takes.  Tensor cores: 8, 16 or
+    32 (its mma tiles of 8 columns), the narrower the deeper the product
+    (C), so that a short list at the deep levels still spreads over the
+    card, and no more tiles than CO needs.  CUDA cores: CO, at most 32."""
+    if not tensor_cores:
+        return max(1, min(co, 32))
+    nt = 4 if c <= 64 else 2 if c <= 128 else 1
+    while nt > 1 and 8 * nt > co:
+        nt //= 2
+    return 8 * nt
+
+
+def _ov_geometry(sms: int, b: int, s: int, c: int, co: int,
+                 tensor_cores: bool) -> Tuple[int, int]:
+    """-> (slab, blocks) of the sidecar kernel: its tasks are chunks of
+    ``_OV_SPAN`` entries of one event's list times slabs of columns, as
+    many as the list's capacity (B lists of S) holds; a persistent grid of
+    two blocks an SM (the kernel's launch bounds), never more blocks than
+    tasks, strides over them.  It depends on the shapes only, never on the
+    list."""
+    slab = _ov_slab(c, co, tensor_cores)
+    tasks = b * _cdiv(s, _OV_SPAN) * _cdiv(co, slab)
+    return slab, max(1, min(tasks, 2 * sms))
+
+
 def launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound):
     """The sidecar kernel (csrc/overflow_apply.cu), in place on ``base``."""
     b, m, co = base.shape
@@ -733,9 +777,11 @@ def launch_overflow_kernel(base, table, w, src, dst, kk, valid, n_bound):
         "seid_overflow_apply_bf16" if dtype == torch.bfloat16
         else "seid_overflow_apply_f32"
     )
+    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
+    slab, grid = _ov_geometry(sms, b, s, c, co, _ov_tensor_cores(dtype, c, co))
     fn = getattr(_native.lib("overflow_apply"), name)
     err = fn(_ptr(base), m, co, _ptr(table), n, c, _ptr(w), k, _ptr(src),
-             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b,
+             _ptr(dst), _ptr(kk), _ptr(valid), _ptr(n_bound), s, b, slab, grid,
              _stream(base))
     _native.check(err, "overflow_apply")
     return base

@@ -4,7 +4,7 @@
 On the TPU the batched sidecars are their own one-hot GEMM kernels for
 C > 1, while the serial walks serve C == 1.  On this card the two entry
 points of each sidecar share one kernel (``csrc/overflow_apply.cu``, which
-spreads each event's list over blocks aligned to output rows and applies a
+cuts the walked lists into chunks aligned to output rows and applies a
 row's entries in list order; ``csrc/overflow_dw.cu``, which splits the
 walked entries into a fixed number of runs and sums each element of dw
 over them in list order, then over the runs in order); they keep separate

@@ -204,6 +204,35 @@ def test_bwd_launch_geometry(label, m, k, c, co, groups, parts):
     assert p * pieces >= 24 * 132
 
 
+# (label, B, M, K, C, CO, parts, groups) of window_dw on 132 SMs: both
+# recipes' initial convs, a SimCLR view's, the deconv's shape (the tiled
+# route) and a single tile
+DW_SHAPES = [
+    ("initial 5^3", 8, 50176, 125, 1, 32, 396, 1),
+    ("2d initial", 8, 60416, 25, 1, 32, 396, 1),
+    ("SimCLR view initial", 8, 3072, 125, 1, 32, 192, 2),
+    ("one tile", 1, 100, 125, 1, 32, 1, 8),
+    ("deconv L1->L0", 8, 50176, 8, 64, 32, 33, 1),
+]
+
+
+@pytest.mark.parametrize("label,b,m,k,c,co,parts,groups", DW_SHAPES)
+def test_window_dw_geometry(label, b, m, k, c, co, parts, groups):
+    """window_dw's grid: the C == 1 route (three blocks an SM) shares the
+    query tiles among at most as many parts as tiles and splits the
+    offsets into groups (at most 8) where the tiles are too few to fill the
+    card; the tiled route takes one group and about four blocks an SM over
+    its pieces.  ordered_sum then reads parts rows of K * C * CO partials,
+    a scratch far within the dW kernels' 64 MB."""
+    got = tk._dw_parts(132, b, m, k, c, co)
+    assert got == (parts, groups)
+    tiles = b * -(-m // 128)
+    assert 1 <= parts <= tiles and 1 <= groups <= 8
+    if c == 1:
+        assert parts * groups <= 3 * 132 + groups
+    assert parts * k * c * co * 4 <= tk._SCRATCH_BYTES
+
+
 @pytest.mark.parametrize("name,ksz,c,co,mirror", [
     ("initial_k125_c1", (5, 5, 5), 1, 32, False),
     ("k27_c16_kmap", (3, 3, 3), 16, 16, True),

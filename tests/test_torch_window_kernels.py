@@ -457,6 +457,116 @@ def test_overflow_apply_plain_on_handmade_lists(case, entry):
     assert not np.array_equal(np.asarray(want)[1], base[1])
 
 
+def _deep_list(k, m, s, seed):
+    """(src, dst, kk, valid) of three events at a deep level's width: event
+    0 holds rows of 1..K entries (distinct offsets), one of them with all K
+    offsets across the first chunk edge of the sidecar kernel's tasks
+    (``kernels._OV_SPAN`` entries), 10% of the prefix invalid holes (dst
+    kept in order); event 1 is empty; event 2 holds a few rows; past each
+    prefix lie garbage entries, half of them flagged valid, with indices out
+    of every range."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-9, 3 * m, (3, s)).astype(np.int32)
+    dst = rng.integers(-9, 3 * m, (3, s)).astype(np.int32)
+    kk = rng.integers(-3, 2 * k, (3, s)).astype(np.int32)
+    valid = rng.random((3, s)) < 0.5
+    for e, n_rows in ((0, 70), (2, 5)):
+        rows = np.sort(rng.choice(m, n_rows, replace=False))
+        runs = rng.integers(1, 5, n_rows)
+        if e == 0:
+            lead = tk._OV_SPAN - k // 2  # entries before the K-row
+            runs[: lead // 2] = 2
+            runs[lead // 2] = k
+            rows = rows[: lead // 2 + 2]
+            runs = runs[: lead // 2 + 2]
+        offs = [rng.permutation(k)[:r] for r in runs]
+        p = int(runs.sum())
+        dst[e, :p] = np.repeat(rows, runs)
+        kk[e, :p] = np.concatenate(offs)
+        src[e, :p] = rng.integers(0, m, p)
+        valid[e, :p] = rng.random(p) >= 0.1
+        valid[e, p - 1] = True
+        valid[e, p:] = False
+        if e == 0:
+            starts = np.concatenate([[0], np.cumsum(runs)[:-1]])
+            assert starts[lead // 2] < tk._OV_SPAN < starts[lead // 2] + k
+    valid[1] = False
+    return src, dst, kk, valid
+
+
+@pytest.mark.parametrize("c,dx", [(160, False), (192, False), (160, True),
+                                  (192, True)])
+def test_overflow_apply_plain_deep_levels(c, dx):
+    """The batched sidecar's plain version against the Pallas kernel in
+    interpret mode at the deep levels' widths (C = CO = 160 and 192, where
+    the sidecar kernel takes its tensor-core route), integer data, bit for
+    bit, on a hand-made list (a row of K entries across a chunk edge,
+    holes, an empty event, garbage past n_bound): the forward apply and the
+    backward's dX apply, which walks the same list with gy as the table and
+    W transposed and mirrored, w_t[perm] (engine._SubmWindowConv.backward)."""
+    k, m, s = 27, 160, 256
+    rng = np.random.default_rng(c + dx)
+    base = rng.integers(-4, 5, (3, m, c)).astype(np.float32)
+    table = rng.integers(-3, 4, (3, m, c)).astype(np.float32)
+    w = int_weights(3, (k, c, c))
+    if dx:
+        perm = twe._mirror_perm(kernel_offsets((3, 3, 3), centered=True).tolist())
+        w = np.ascontiguousarray(w.transpose(0, 2, 1)[list(perm)])
+    src, dst, kk, valid = _deep_list(k, m, s, seed=c)
+    nb = jwc._ov_bound(jnp.asarray(valid))
+    want = jws.overflow_apply_batched(
+        jnp.asarray(base), jnp.asarray(table), jnp.asarray(w), src, dst, kk,
+        valid, nb, interpret=True)
+    nb_t = tk._ov_bound(torch.from_numpy(valid))
+    assert_equal(nb_t, nb)
+    assert int(nb_t[1]) == 0 and int(nb_t[0]) > tk._OV_SPAN
+    assert tk.overflow_dst_ordered(torch.from_numpy(dst), nb_t)
+    got = overflow_apply_batched(
+        torch.from_numpy(base.copy()), torch.from_numpy(table),
+        torch.from_numpy(w), torch.from_numpy(src), torch.from_numpy(dst),
+        torch.from_numpy(kk), torch.from_numpy(valid), nb_t)
+    assert_equal(got, want)
+    assert not np.array_equal(np.asarray(want)[0], base[0])
+
+
+# (label, dtype, B, list width S, C, CO, tensor cores, slab, blocks) of the
+# sidecar kernel on 132 SMs: both recipes' lists, the sweep's, a near-empty
+# list and the shapes off the tensor-core route's tiles
+OV_APPLY_SHAPES = [
+    ("initial 5^3", torch.bfloat16, 8, 50176, 1, 32, False, 32, 264),
+    ("L0 series", torch.bfloat16, 8, 50176, 32, 32, True, 32, 264),
+    ("L0 downsample", torch.bfloat16, 8, 50176, 32, 64, True, 32, 264),
+    ("L2 series", torch.bfloat16, 8, 12800, 96, 96, True, 16, 264),
+    ("L4 series", torch.bfloat16, 8, 3584, 160, 160, True, 8, 264),
+    ("L5 series", torch.bfloat16, 8, 2048, 192, 192, True, 8, 264),
+    ("2d L5 series", torch.bfloat16, 8, 2048, 192, 192, True, 8, 264),
+    ("L0 series fp32", torch.float32, 8, 50176, 32, 32, False, 32, 264),
+    ("sweep 2-D K=25 fp32", torch.float32, 1, 51800, 8, 8, False, 8, 264),
+    ("near-empty", torch.float32, 1, 100, 8, 8, False, 8, 1),
+    ("CO 24", torch.bfloat16, 2, 256, 32, 24, True, 16, 8),
+    ("C 8 bf16", torch.bfloat16, 2, 256, 8, 16, False, 16, 4),
+    ("CO 12 bf16", torch.bfloat16, 2, 256, 16, 12, False, 12, 4),
+]
+
+
+@pytest.mark.parametrize("label,dtype,b,s,c,co,tc,slab,blocks",
+                         OV_APPLY_SHAPES)
+def test_overflow_apply_geometry(label, dtype, b, s, c, co, tc, slab, blocks):
+    """The sidecar kernel's route, slab and grid: tensor cores for bf16 with
+    C % 16 == 0 and CO % 8 == 0 (slabs of 8, 16 or 32 columns, narrower as
+    C grows, no wider than CO needs), CUDA cores otherwise (CO, at most 32
+    columns); a persistent grid of two blocks an SM, never more than the
+    tasks that the list's capacity allows (chunks of _OV_SPAN entries of
+    every event's list times slabs).  They depend on the shapes only, never on
+    the list."""
+    assert tk._ov_tensor_cores(dtype, c, co) == tc
+    got_slab, got_blocks = tk._ov_geometry(132, b, s, c, co, tc)
+    assert (got_slab, got_blocks) == (slab, blocks)
+    assert got_slab in ((8, 16, 32) if tc else range(1, 33))
+    tasks = b * -(-s // tk._OV_SPAN) * -(-co // got_slab)
+    assert 1 <= got_blocks <= min(tasks, 2 * 132)
+
+
 # (K, C, CO, piece (offsets, channels), parts) of every dW sidecar list of
 # both recipes: the initial convs, the series convs, the downsamples
 OV_SHAPES = [
