@@ -16,10 +16,11 @@ Phases, one JSON line each; any failure exits non-zero:
               each, on fp32 too; the sidecar at the initial conv and the
               series of levels 0, 2, 4 and 5, and the backward's dX apply
               (gy as the table, W transposed and mirrored) at levels 0 and
-              4, also on hand-made lists at the real list width: a row of
-              K entries across a chunk edge, a row longer than a task
-              loads at once, holes, an empty event, n_bound below the
-              width), max abs error on real-valued data (the conv, the
+              4, and the dW sidecar at the initial conv and level 0, also
+              on hand-made lists at the real list width: a row of K
+              entries across a chunk edge, a row longer than a task loads
+              at once, holes, an empty event, n_bound below the width),
+              max abs error on real-valued data (the conv, the
               sidecar and the backward's dx within one bf16 ulp of the
               output scale, the backward's, window_dw's and the sidecar's
               dw within 1e-4 of theirs), the backward, the sidecar,
@@ -208,7 +209,23 @@ Phases, one JSON line each; any failure exits non-zero:
               route "memory" where h5py does not import; host plans: no
               window_plan launch, every other train-step kernel launched,
               no plain version called
- 17. sparse_efficiency  the port's sparse-vs-dense sweep tool
+ 17. accuracy  the kernel phase's checks at the small preset's shapes (one
+              batch of its synthetic events on the 64^3 grid, capacities
+              6144/3072/1536/768, widths 16 -> 64: the initial 125x1->16,
+              the series at 16, 48 and 64 channels, the three downsamples;
+              the sidecars, the dW sidecar too, at C = 16 on the plan's
+              lists and hand-made lists and at C = 48 and 64 on hand-made
+              lists; rows labelled "small ..."), then the
+              convergence run (sparseeventid_tpu_torch/scripts/
+              accuracy_run.py) through its main in this process at the
+              small preset and reduced counts (ACCURACY_ARGS: 100 window
+              steps, 50 xla and 50 matched window steps, resume 20 -> 40):
+              0 dropped pairs in every run, finite losses, the resume pair,
+              the window and xla step-0 losses within 0.01, each window
+              run's launches exactly LAUNCHES_PER_SMALL_STEP a step and
+              LAUNCHES_PER_SMALL_FORWARD a validation batch, no plain
+              version, no port kernel in the xla run
+ 18. sparse_efficiency  the port's sparse-vs-dense sweep tool
               (sparseeventid_tpu_torch/scripts/sparse_efficiency.py) at its
               full default through sparse_efficiency.sweep: 2-D and 3-D
               grids of 256 a side, kernels 1, 3 and 5, six sparsities of
@@ -226,12 +243,13 @@ Phases, one JSON line each; any failure exits non-zero:
               versions on integer fp32 data (the sidecar on the plan's list
               and on a hand-made list as wide), timed in the kernel rows.
               It runs last: it turns TF32 off for the process
- 18. the total wall time, the {"kernels": [...]} line (window_plan's
+ 19. the total wall time, the {"kernels": [...]} line (window_plan's
      launches from main_device; launches_simclr, _yolo, _unsupervised of
      the task runs; launches_dp and launches_dp_two_ranks of the DP runs;
      launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
      of the model runs; launches_sparse_efficiency of the sweep;
-     launches_bench of the drivers), then {"ok": true, "device": {...}}
+     launches_bench of the drivers; launches_accuracy of the long window
+     run of the accuracy phase), then {"ok": true, "device": {...}}
      last.
 
 It needs the repository around it and a CUDA device: without either it
@@ -509,6 +527,12 @@ def make_dataset_2d():
     batches = {i: ds.batch(list(range(i, i + BATCH))) for i in range(0, n, BATCH)}
     return CachedDataset(GRID_2D, batches, n)
 
+
+# the recipes' filters by level, and the series levels the kernel phase
+# holds with the sidecars it checks there
+WIDTHS_RECIPE = (32, 64, 96, 128, 160, 192)
+SERIES_LEVELS_RECIPE = ((0, ("apply", "dx", "dw")), (2, ("apply",)),
+                        (4, ("apply", "dx")), (5, ("apply",)))
 
 # the two geometries of the kernel phase
 # (prefix: put before the labels of the rows)
@@ -1061,7 +1085,9 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    caps = capacity_schedule(geo["rows"], 5, 0.5, 1024)
+    widths = geo.get("widths", WIDTHS_RECIPE)
+    caps = capacity_schedule(geo["rows"], len(widths) - 1, 0.5,
+                             geo.get("min_capacity", 1024))
     bf16 = torch.bfloat16
     stride, pre = geo["stride"], geo["prefix"]
     st0 = getattr(port_io, geo["to_sparse"])(
@@ -1099,25 +1125,23 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
     # and of the level-0 series must be non-empty, the deeper levels' may
     # be empty, as dune2d's levels 4 and 5 are), "dx" also the backward's dX
     # apply (the same list, gy as the table, W transposed and mirrored),
-    # "dw" the dW sidecar.  Levels 2 and 4 and the level-1 downsample give
-    # the conv channel widths that are not multiples of its 64-channel
-    # chunk.
-    cases = [
-        (f"{pre}initial {_kname(k_init)} 1->32", st0, k_init, None,
-         tuning.window_r_initial, 1, 32, {"apply", "dw"}),
-        (f"{pre}L0 series {_kname(k_ser)} 32->32", st0, k_ser, None,
-         tuning.for_level(0), 32, 32, {"apply", "dx", "dw"}),
-        (f"{pre}L2 series {_kname(k_ser)} 96->96", levels[2], k_ser, None,
-         tuning.for_level(2), 96, 96, {"apply"}),
-        (f"{pre}L4 series {_kname(k_ser)} 160->160", levels[4], k_ser, None,
-         tuning.for_level(4), 160, 160, {"apply", "dx"}),
-        (f"{pre}L5 series {_kname(k_ser)} 192->192", levels[5], k_ser, None,
-         tuning.for_level(5), 192, 192, {"apply"}),
-        (f"{pre}L0 downsample {_kname(stride)} 32->64", st0, stride, caps[1],
-         tuning.window_r_strided, 32, 64, set()),
-        (f"{pre}L1->L2 downsample {_kname(stride)} 64->96", levels[1], stride,
-         caps[2], tuning.window_r_strided, 64, 96, set()),
-    ]
+    # "dw" the dW sidecar.  At the recipes' widths levels 2 and 4 and the
+    # level-1 downsample give the conv channel widths that are not
+    # multiples of its 64-channel chunk; the small preset's (16 -> 64)
+    # reach the one- and three-slab tensor-core routes.
+    w = widths
+    cases = [(f"{pre}initial {_kname(k_init)} 1->{w[0]}", levels[0], k_init,
+              None, tuning.window_r_initial, 1, w[0], {"apply", "dw"})]
+    for lv, sidecars in geo.get("series_levels", SERIES_LEVELS_RECIPE):
+        cases.append((f"{pre}L{lv} series {_kname(k_ser)} {w[lv]}->{w[lv]}",
+                       levels[lv], k_ser, None, tuning.for_level(lv), w[lv],
+                       w[lv], set(sidecars)))
+    for lv in geo.get("downsample_levels", (0, 1)):
+        name = "L0" if lv == 0 else f"L{lv}->L{lv + 1}"
+        cases.append((f"{pre}{name} downsample {_kname(stride)} "
+                      f"{w[lv]}->{w[lv + 1]}", levels[lv], stride,
+                      caps[lv + 1], tuning.window_r_strided, w[lv],
+                      w[lv + 1], set()))
 
     if "cases" in geo:  # a geometry of a few shapes (the SimCLR views)
         cases = [(*case[:-1], case[-1] if geo.get("sidecars", True) else set())
@@ -1187,14 +1211,11 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
         # ---- sidecar on this plan's overflow list (C == 1: serial entry),
         # and on hand-made lists as wide
         name = "overflow_apply" if c == 1 else "overflow_apply_batched"
-        if "apply" in sidecars:
-            require(n_ov > 0 or not sidecars & {"dw"},
+        if sidecars:
+            # the lists of the initial conv and of the level-0 series
+            require(n_ov > 0 or tab is not levels[0],
                     f"the overflow list is empty at {label}")
             nb = K._ov_bound(valid)
-            # the kernel's precondition (csrc/overflow_apply.cu)
-            require(K.overflow_dst_ordered(dst, nb),
-                    f"the overflow list's dst is out of order at {label}")
-            entry = K.overflow_apply if c == 1 else overflow_apply_batched
             hand = _handmade_lists(qst.n_active.tolist(), tab.n_active.tolist(),
                                    k, src.shape[1], SEED + c)
             require(K.overflow_dst_ordered(hand[1], hand[4])
@@ -1206,6 +1227,11 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             walked = (torch.arange(src.shape[1], device=dev)[None, :]
                       < hand[4][:, None])
             occupancy["handmade_entries"] = int((hand[3] & walked).sum())
+        if "apply" in sidecars:
+            # the kernel's precondition (csrc/overflow_apply.cu)
+            require(K.overflow_dst_ordered(dst, nb),
+                    f"the overflow list's dst is out of order at {label}")
+            entry = K.overflow_apply if c == 1 else overflow_apply_batched
             base_r = K.window_conv_apply(*rargs, window_r=r)
             results[name].append(_sidecar_checks(
                 label, entry, lists, (out, x_int, w_int),
@@ -1360,7 +1386,8 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             parts, groups = K._dw_parts(sms, tab.batch_size, qst.capacity, k,
                                         c, co)
-            # (a view of 3000 voxels has no more live tiles than blocks)
+            # (a view of 3000 voxels, or a batch of the small preset's
+            # events, has no more live tiles than blocks)
             require(live_tiles > parts or "cases" in geo,
                     f"{live_tiles} live tiles, {parts} window_dw blocks at {label}")
             for dt in (bf16, torch.float32):
@@ -1396,16 +1423,17 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
                 repeats_bit_for_bit=True,
             ))
 
-        # ---- dW sidecar on the list the backward walks: the forward list
-        # with src and dst swapped for the fused submanifold backward, the
-        # forward list as it is for C == 1
+        # ---- dW sidecar on the lists the backward walks: each list with
+        # src and dst swapped for the fused submanifold backward, as it is
+        # for C == 1 (the plan's list where it is non-empty, and the
+        # hand-made lists)
         dname = "overflow_dw" if c == 1 else "overflow_dw_batched"
         if "dw" in sidecars:
-            nb = K._ov_bound(valid)
-            s_, d_ = (src, dst) if c == 1 else (dst, src)
+            dw_lists = {what: lst if c == 1 else (lst[1], lst[0], *lst[2:])
+                        for what, lst in lists.items()}
 
-            def side_dw(x, gy, kernel=True, entry=dname):
-                sargs = (x, gy, k, s_, d_, kk, valid, nb)
+            def side_dw(x, gy, lst, kernel=True, entry=dname):
+                sargs = (x, gy, k, *lst)
                 if not kernel:
                     return K.overflow_dw_plain(*sargs)
                 if entry == "overflow_dw":
@@ -1416,44 +1444,51 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             # fp32; real-valued data within 1e-4 of the scale and the same
             # bits on two runs
             err = 0.0
-            for dt in (bf16, torch.float32):
-                ints = (x_int.to(dt), gy_int.to(dt))
-                reals = (x_real.to(dt), gy_real.to(dt))
-                want = side_dw(*ints, kernel=False)
-                rp = side_dw(*reals, kernel=False)
-                for entry in ("overflow_dw", "overflow_dw_batched"):
-                    got = side_dw(*ints, entry=entry)
-                    torch.cuda.synchronize()
-                    require(torch.equal(got, want),
-                            f"{entry} differs from its plain version, {dt}, "
-                            f"at {label}")
-                    require(float(got.abs().sum()) > 0,
-                            f"sidecar dw is all 0 at {label}")
-                    rk, again = (side_dw(*reals, entry=entry),
-                                 side_dw(*reals, entry=entry))
-                    torch.cuda.synchronize()
-                    require(torch.equal(rk, again),
-                            f"{entry} is not the same bits on two runs, {dt}, "
-                            f"at {label}")
-                    e_ = (rk - rp).abs().max().item()
-                    require(e_ <= 1e-4 * rp.abs().max().item(),
-                            f"{entry} {dt} off by {e_} at {label}")
-                    if dt == bf16:
-                        err = max(err, e_)
-            ms = timed_ms(lambda: side_dw(x_real, gy_real))
-            plain_ms = timed_ms(lambda: side_dw(x_real, gy_real, False),
+            for what, lst in dw_lists.items():
+                for dt in (bf16, torch.float32):
+                    ints = (x_int.to(dt), gy_int.to(dt))
+                    reals = (x_real.to(dt), gy_real.to(dt))
+                    want = side_dw(*ints, lst, kernel=False)
+                    rp = side_dw(*reals, lst, kernel=False)
+                    for entry in ("overflow_dw", "overflow_dw_batched"):
+                        got = side_dw(*ints, lst, entry=entry)
+                        torch.cuda.synchronize()
+                        require(torch.equal(got, want),
+                                f"{entry} differs from its plain version on "
+                                f"{what}, {dt}, at {label}")
+                        require(float(got.abs().sum()) > 0,
+                                f"sidecar dw is all 0 on {what} at {label}")
+                        rk, again = (side_dw(*reals, lst, entry=entry),
+                                     side_dw(*reals, lst, entry=entry))
+                        torch.cuda.synchronize()
+                        require(torch.equal(rk, again),
+                                f"{entry} is not the same bits on two runs on "
+                                f"{what}, {dt}, at {label}")
+                        e_ = (rk - rp).abs().max().item()
+                        require(e_ <= 1e-4 * rp.abs().max().item(),
+                                f"{entry} {dt} off by {e_} on {what} at {label}")
+                        if dt == bf16:
+                            err = max(err, e_)
+            # timed on the first list
+            what, lst = next(iter(dw_lists.items()))
+            s_, d_, kk_, valid_, nb_ = lst
+            ms = timed_ms(lambda: side_dw(x_real, gy_real, lst))
+            plain_ms = timed_ms(lambda: side_dw(x_real, gy_real, lst, False),
                                 iters=3, warmup=1, graph=False)
             parent_ms = None
             if PARENT is not None:
-                require(torch.equal(PARENT.run(side_dw, x_real, gy_real),
-                                    side_dw(x_real, gy_real)),
-                        f"the earlier overflow_dw differs at {label}")
+                require(torch.equal(PARENT.run(side_dw, x_real, gy_real, lst),
+                                    side_dw(x_real, gy_real, lst)),
+                        f"the earlier overflow_dw differs on {what} at {label}")
                 parent_ms = timed_ms(
-                    lambda: PARENT.run(side_dw, x_real, gy_real))
-            bi, si = torch.nonzero(valid, as_tuple=True)
+                    lambda: PARENT.run(side_dw, x_real, gy_real, lst))
+            ok = valid_ & (torch.arange(s_.shape[1], device=dev)[None, :]
+                           < nb_[:, None])
+            n_e = int(ok.sum())
+            bi, si = torch.nonzero(ok, as_tuple=True)
             xs = x_real[bi, s_[bi, si].long()]
             gs = gy_real[bi, d_[bi, si].long()]
-            kidx = kk[bi, si].long()
+            kidx = kk_[bi, si].long()
             acc = torch.zeros((k, c, co), dtype=torch.float32, device=dev)
 
             def library_dw():
@@ -1465,16 +1500,17 @@ def phase_kernels(dataset, geo=GEOMETRY_3D):
             # reads: the valid flags of the walked prefix, (src, dst, k) of
             # the valid entries, each distinct x and gy row once; writes dw
             b_ms, b_by = bound(
-                int(nb.sum()) + 12 * n_ov + nbytes(nb, got)
+                int(nb_.sum()) + 12 * n_e + nbytes(nb_, got)
                 + 2 * c * int(torch.unique(xrows).numel())
                 + 2 * co * int(torch.unique(grows).numel()),
-                2.0 * n_ov * c * co,
+                2.0 * n_e * c * co,
             )
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            suffix = "" if what == "the plan's list" else f", {what}"
             results[dname].append(dict(
-                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=label + suffix, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                parent_ms=parent_ms, entries=n_ov, walked=int(nb.sum()),
+                parent_ms=parent_ms, entries=n_e, walked=int(nb_.sum()),
                 parts=K._ov_dw_parts(sms, k, c, co),
                 piece=K._ov_dw_piece(k, c, co), repeats_bit_for_bit=True,
             ))
@@ -2773,8 +2809,8 @@ def phase_fp32_grad(dataset) -> None:
 
     from sparseeventid_tpu_torch.models import build_sparse_classifier, init_parameters
     from sparseeventid_tpu_torch.ops.window import engine as WE
-    from sparseeventid_tpu_torch.train.evaluate import prepare_batch
-    from sparseeventid_tpu_torch.train.losses import multi_head_loss
+    from sparseeventid_tpu_torch.scripts import grad_gap
+    from sparseeventid_tpu_torch.train.plans import HostPlanner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2789,27 +2825,22 @@ def phase_fp32_grad(dataset) -> None:
 
     in_backward = {"on": False}  # read by the twin-list fault below
 
-    def gradients(cfg, model, what):
-        model.zero_grad(set_to_none=True)
-        st, labels = prepare_batch(batch, GRID, model.encoder.capacities[0],
-                                   torch.float32, dev)
-        # the window model on host plans, as the main path runs it
-        plans = (host_plans(model, batch["image"], GRID, st)
-                 if model.encoder.backend == "window" else None)
-        logits, dropped = model(st, plans=plans)
-        scheme = cfg.mode.optimizer.loss_balance_scheme
-        loss, _ = multi_head_loss(logits, labels, scheme)
+    def backward(loss):
         in_backward["on"] = True
         try:
             loss.backward()
         finally:
             in_backward["on"] = False
-        torch.cuda.synchronize()
-        require(int(dropped) == 0, f"{what}: dropped {int(dropped)}")
-        loss = float(loss.detach())
+
+    def gradients(cfg, model, what):
+        # the window model on host plans, as the main path runs it
+        planner = (HostPlanner(model.encoder, GRID)
+                   if model.encoder.backend == "window" else None)
+        loss, dropped, grads = grad_gap.step_gradients(
+            model, cfg, batch, GRID, dev, planner, backward)
+        require(dropped == 0, f"{what}: dropped {dropped}")
         require(np.isfinite(loss), f"{what}: loss {loss}")
-        return loss, {n: p.grad.detach().clone()
-                             for n, p in model.named_parameters()}
+        return loss, grads
 
     cfg_x, model_x = model_of("xla")
     ref_loss, ref = gradients(cfg_x, model_x, "xla")
@@ -2820,19 +2851,13 @@ def phase_fp32_grad(dataset) -> None:
             "a reference gradient is all 0")
 
     def compare(loss, grads):
-        worst, worst_name, worst_max = 0.0, "", 0.0
-        for name, g in grads.items():
-            if name.endswith(".b"):  # a conv bias ahead of a batch norm
-                continue
-            diff = g - ref[name]
-            rel = float(diff.norm()) / float(ref[name].norm())
-            if rel > worst:
-                worst, worst_name = rel, name
-            worst_max = max(worst_max, float(diff.abs().max())
-                            / float(ref[name].abs().max()))
-        return {"loss": loss, "worst_rel_l2": worst, "worst_tensor": worst_name,
-                "worst_rel_max_abs": worst_max,
-                "within": worst <= FP32_GRAD_LIMIT}
+        rel = grad_gap.rel_l2(grads, ref)
+        worst_name = max(rel, key=rel.get)
+        worst_max = max(float((grads[n] - ref[n]).abs().max())
+                        / float(ref[n].abs().max()) for n in rel)
+        return {"loss": loss, "worst_rel_l2": rel[worst_name],
+                "worst_tensor": worst_name, "worst_rel_max_abs": worst_max,
+                "within": rel[worst_name] <= FP32_GRAD_LIMIT}
 
     cfg_w, model_w = model_of("window")
     report = {"phase": "fp32_grad_compare", "plans": "host",
@@ -4770,6 +4795,127 @@ def phase_bench():
     return launches
 
 
+# the accuracy phase's reduced counts (the script's defaults: 1500 window
+# steps, 300 xla steps and 300 matched window steps, resume 120 -> 240)
+ACCURACY_ARGS = ["--steps", "100", "--xla-steps", "50"]
+ACCURACY_RESUME = (20, 40)
+ACCURACY_STEP0_DLOSS = 0.01  # window against xla at step 0: float order only
+# the small preset's model (depth 3, 2 blocks a level, filters 16 -> 64,
+# remat off): 11 plans (1 initial + 4 series + 3 x 2 strided), 20 convs
+# (1 + 4 x 2 x 2 + 3), 19 with C > 1
+LAUNCHES_PER_SMALL_FORWARD = {
+    "window_plan": 0, "window_conv_apply": 20, "overflow_apply_batched": 19,
+    "overflow_apply": 1, "window_bwd_strided": 0, "window_dw": 0,
+    "overflow_dw_batched": 0, "overflow_dw": 0,
+}
+LAUNCHES_PER_SMALL_STEP = {
+    **LAUNCHES_PER_SMALL_FORWARD, "overflow_apply_batched": 38,
+    "window_bwd_strided": 19, "window_dw": 1, "overflow_dw_batched": 19,
+    "overflow_dw": 1,
+}
+# the small preset's kernel rows: 64^3 events of at most 6144 voxels, the
+# widths 16 -> 64 (the one- and three-slab tensor-core routes, C = 16, 48
+# and 64 sidecars: the plans' lists of levels 2 and 3 are empty, so their
+# forward, dX and dW sidecars run on hand-made lists); labels "small ..."
+GEOMETRY_SMALL = dict(grid=(64, 64, 64), rows=6144, min_capacity=512,
+                      widths=(16, 32, 48, 64), stride=(2, 2, 2),
+                      to_sparse="larcv_batch_to_sparse_3d", prefix="small ",
+                      initial=(5, 5, 5), series=(3, 3, 3),
+                      series_levels=((0, ("apply", "dx", "dw")),
+                                     (2, ("apply", "dx", "dw")),
+                                     (3, ("apply", "dw"))),
+                      downsample_levels=(0, 1, 2),
+                      cases=("initial", "L0 series", "L2 series",
+                             "L3 series", "L0 downsample", "L1->L2",
+                             "L2->L3"))
+
+
+def make_dataset_small():
+    """Batch 0 of the small preset's train split (the accuracy run's
+    synthetic events, seeded as the run seeds them)."""
+    from sparseeventid_tpu_torch.scripts import accuracy_run as acc
+    from sparseeventid_tpu_torch.train.evaluate import build_dataset
+
+    ctx = acc.Context("small", None, RUN_DIR)
+    ds = build_dataset(acc.preset_config(ctx, "window", "kernels", 1), "train")
+    return CachedDataset(GEOMETRY_SMALL["grid"],
+                         {0: ds.batch(list(range(BATCH)))}, BATCH)
+
+
+def phase_accuracy():
+    """The convergence run (scripts/accuracy_run.py) through its ``main``
+    in this process at the small preset and reduced counts
+    (ACCURACY_ARGS, resume ACCURACY_RESUME): 0 dropped pairs at every
+    step of every run, finite losses, the resume pair, the window and xla
+    runs' step-0 losses within ACCURACY_STEP0_DLOSS (the same weights and
+    batch), each window run's launches exactly its steps' and validation
+    batches' (LAUNCHES_PER_SMALL_STEP, _FORWARD) and no plain version, no
+    port kernel in the xla run -> the long window run's launches."""
+    import math
+
+    from sparseeventid_tpu_torch.scripts import accuracy_run as acc
+
+    t0 = time.perf_counter()
+    counted = {}
+    real = acc.run_training
+
+    def run_training(ctx, backend, run_id, steps, params=None):
+        curves, launches, plain, ops = _counted_dp(
+            lambda: real(ctx, backend, run_id, steps, params))
+        counted[run_id] = (curves, launches, plain, ops)
+        return curves
+
+    acc.run_training = run_training
+    resume = acc.RESUME["small"]
+    acc.RESUME["small"] = ACCURACY_RESUME
+    out = RUN_DIR / "accuracy" / "ACCURACY_smoke.md"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        doc = acc.main(ACCURACY_ARGS + [
+            "--out", str(out), "--output-dir", str(RUN_DIR / "accuracy")])
+    finally:
+        acc.run_training = real
+        acc.RESUME["small"] = resume
+    require(doc["resume"] == {"resumed_at": ACCURACY_RESUME[0],
+                              "final_step": ACCURACY_RESUME[1]},
+            f"accuracy: resume {doc['resume']}")
+    for run_id, summary in doc["runs"].items():
+        require(summary["dropped"] == 0,
+                f"accuracy: {run_id} dropped {summary['dropped']}")
+    points = (doc["window_train"] + doc["window_val"] + doc["xla_train"]
+              + doc["window_short_train"])
+    require(all(math.isfinite(m["loss/loss"]) for m in points)
+            and math.isfinite(doc["window_final"]["loss/loss"]),
+            "accuracy: a loss is not finite")
+    dloss = abs(doc["window_short_train"][0]["loss/loss"]
+                - doc["xla_train"][0]["loss/loss"])
+    require(dloss <= ACCURACY_STEP0_DLOSS,
+            f"accuracy: step-0 |window - xla| loss {dloss}")
+    per_step = {}
+    for run_id in ("acc_window", "acc_window_short"):
+        curves, launches, plain, ops = counted[run_id]
+        want = {k: curves.steps * LAUNCHES_PER_SMALL_STEP[k]
+                + curves.eval_batches * LAUNCHES_PER_SMALL_FORWARD[k]
+                for k in LAUNCHES_PER_SMALL_STEP}
+        require(launches == want,
+                f"accuracy: {run_id} launched {launches}, expected {want}")
+        require(not any(plain.values()) and not any(ops.values()),
+                f"accuracy: {run_id} called plain versions {plain} or "
+                f"ops-path kernels {ops}")
+        per_step[run_id] = {k: v / curves.steps for k, v in launches.items()}
+    _, launches, plain, ops = counted["acc_xla"]
+    require(not any(launches.values()) and not any(ops.values()),
+            f"accuracy: the xla run launched port kernels {launches} {ops}")
+    final = doc["window_final"]
+    emit({"phase": "accuracy", "seconds": time.perf_counter() - t0,
+          "args": ACCURACY_ARGS, "resume": doc["resume"],
+          "step0_dloss": dloss, "runs": doc["runs"],
+          "final": {k: final[k] for k in sorted(final)},
+          "n_val_events": doc["n_val_events"],
+          "launches_per_step": per_step})
+    return {**counted["acc_window"][1], **counted["acc_window"][3]}
+
+
 def main(argv) -> int:
     global PARENT
     if argv and (argv[0] not in ("--parent", "--dp-rank") or len(argv) != 2):
@@ -4859,6 +5005,8 @@ def main(argv) -> int:
         emit({"phase": "models_total", "seconds": models_s})
         del dataset_2d
         bench_launches = phase_bench()
+        rows_small = phase_kernels(make_dataset_small(), GEOMETRY_SMALL)
+        accuracy_launches = phase_accuracy()
         # last: the sweep turns TF32 off for the process, as the dense
         # family does
         sweep_launches, sweep_rows = phase_sparse_efficiency()
@@ -4876,6 +5024,7 @@ def main(argv) -> int:
                        for m, counts in model_launches.items()},
                     launches_sparse_efficiency=sweep_launches[kname],
                     launches_bench=bench_launches[kname],
+                    launches_accuracy=accuracy_launches[kname],
                     path="ops_path (ConvolutionUpsample backward; "
                     "gather_submanifold_conv forward and backward)",
                     max_abs_err=max(r["max_abs_err"] for r in per_shape),
@@ -4885,7 +5034,8 @@ def main(argv) -> int:
                     parent_ms=head.get("parent_ms"), shapes=per_shape,
                 ))
                 continue
-            per_shape = per_shape + rows_2d[kname] + sweep_rows.get(kname, [])
+            per_shape = (per_shape + rows_2d[kname] + rows_small[kname]
+                         + sweep_rows.get(kname, []))
             # headline: the busiest conv level (level 0) where measured
             head = next(
                 (r for r in per_shape if r["shape"].startswith("L0 series")),
@@ -4920,6 +5070,7 @@ def main(argv) -> int:
                    for m, counts in model_launches.items()},
                 launches_sparse_efficiency=sweep_launches[kname],
                 launches_bench=bench_launches[kname],
+                launches_accuracy=accuracy_launches[kname],
                 max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

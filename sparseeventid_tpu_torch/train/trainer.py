@@ -14,9 +14,13 @@ end, keeping 5.  As in the JAX package, a resumed run's data stream starts
 again at its beginning.  Logs go to the run's ``process.log`` and, with
 tensorboardX, to ``tb/``; with ``run.profile`` the loop runs under
 ``torch.profiler`` and leaves a Chrome trace under ``profile/``.
-``train_session`` hands a caller that drives the steps itself (the
-benchmark drivers of ``scripts/``) the same task, loader and planner
-(``split_loaders``, ``open_task``), with no restore and no checkpoint.
+``open_run`` hands a caller that keeps its own schedule of validation
+and saves (the convergence run, ``scripts/accuracy_run.py``) the run
+``train`` drives, after its restore: a ``RunSession`` of the task, the
+loaders, the planner and the checkpoints.  ``train_session`` hands a
+caller that drives the steps itself (the benchmark drivers of
+``scripts/``) the same task, loader and planner (``split_loaders``,
+``open_task``), with no restore and no checkpoint.
 
 The window plans of every batch are built on the host, in the loader's
 thread, through a per-event plan cache whose line goes to the log once an
@@ -113,22 +117,100 @@ def train(
     validates on nothing.  ``params`` is a ``state_dict`` to start from;
     without it the run starts from a seeded random initialisation and then
     restores."""
+    datasets = None if dataset is None else {"train": dataset}
+    with open_run(cfg, datasets, params, device) as run:
+        with _profiled(cfg, run.out_dir, run.device):
+            return _train(run)
+
+
+@dataclasses.dataclass
+class TrainSession:
+    """A train run's pieces for a caller that drives the steps itself (the
+    benchmark drivers, ``scripts/bench_e2e.py`` and ``bench_extra.py``):
+    the task, the train split's loader and planner, as ``train`` builds
+    them."""
+
+    cfg: SparseEventIDConfig
+    task: Training
+    loader: BatchLoader
+    planner: Optional[HostPlanner]
+    device: torch.device
+
+    def next_args(self):
+        """The loader's next batch, prepared on the device."""
+        return self.task.prepare(next(self.loader))
+
+    def step(self, args, i: int) -> Dict[str, torch.Tensor]:
+        """Train step ``i`` on prepared ``args`` (the dropout generator of
+        step ``i``, as in ``train``)."""
+        return self.task.train_step(
+            args, step_generator(self.cfg.run.seed, i, self.device))
+
+
+@dataclasses.dataclass
+class RunSession(TrainSession):
+    """A train run's pieces after its restore (``open_run``): a
+    ``TrainSession`` (the task at the restored step, the train loader) with
+    a loader a split, the run's checkpoints and its directory.  ``train``
+    drives it, and so do callers that keep their own schedule of validation
+    and saves (the convergence run of ``scripts/accuracy_run.py``)."""
+
+    loaders: Dict[str, BatchLoader]
+    ckpt: CheckpointManager
+    out_dir: Path
+
+    @property
+    def state(self) -> TrainState:
+        return self.task.state
+
+    def evaluate(self, split: str = "val") -> Dict[str, float]:
+        """The metrics of the split's next batch, as floats."""
+        args = self.task.prepare(next(self.loaders[split]))
+        return {k: float(v) for k, v in self.task.eval_step(args).items()}
+
+    def save(self) -> Path:
+        return self.ckpt.save(self.task.state)
+
+
+@contextlib.contextmanager
+def open_run(cfg: SparseEventIDConfig, datasets: Mapping[str, object] | None = None,
+             params: Mapping[str, torch.Tensor] | None = None,
+             device: torch.device | str | None = None):
+    """-> a ``RunSession`` of ``cfg`` logging to the run's ``process.log``.
+    ``datasets`` (split -> dataset, "train" among them) replaces the
+    config's splits (default: train, and val where it is active).  With
+    ``params`` (a ``state_dict``) the run starts from them; else from the
+    seeded initialisation, then restored as ``restore_run`` says (an
+    encoder-only transfer, a full restore, or the newest checkpoint of the
+    run directory).  Under ``run.distributed`` rank 0's state is broadcast.
+    The loaders stop and the datasets this call opened close on exit."""
     task_check(cfg)
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
         owned = []
-        if dataset is None:
+        if datasets is None:
             splits = ["train"] + (["val"] if "val" in cfg.data.active else [])
             owned = [build_dataset(cfg, s) for s in splits]
             datasets = dict(zip(splits, owned))
-        else:
-            datasets = {"train": dataset}
         try:
             with split_loaders(cfg, datasets) as (grid, planner, loaders):
-                with _profiled(cfg, out_dir, dev):
-                    return _train(cfg, datasets["train"], grid, loaders,
-                                  planner, params, dev, out_dir)
+                task = open_task(cfg, datasets["train"], grid,
+                                 loaders["train"], params, dev, planner)
+                state = task.state
+                logger.info("Model parameters: %s",
+                            f"{param_count(state.model):,}")
+                logger.info("window plans built on the %s",
+                            "host" if planner is not None else "device")
+                ckpt = CheckpointManager(out_dir / "checkpoints")
+                if params is None:
+                    restored = restore_run(cfg.mode, ckpt, state.model, dev,
+                                           state.optimizer, state.scheduler)
+                    if restored is not None:
+                        state.step = restored
+                mesh.broadcast_module(state.model)
+                yield RunSession(cfg, task, loaders["train"], planner, dev,
+                                 loaders, ckpt, out_dir)
         finally:
             close_datasets(owned)
 
@@ -164,30 +246,6 @@ def open_task(cfg: SparseEventIDConfig, dataset, grid, loader: BatchLoader,
     would wait in a collective for ever."""
     epoch_length = mesh.min_across(len(loader))
     return build_task(cfg, dataset, grid, epoch_length, params, dev, planner)
-
-
-@dataclasses.dataclass
-class TrainSession:
-    """A train run's pieces for a caller that drives the steps itself (the
-    benchmark drivers, ``scripts/bench_e2e.py`` and ``bench_extra.py``):
-    the task, the train split's loader and planner, as ``train`` builds
-    them."""
-
-    cfg: SparseEventIDConfig
-    task: Training
-    loader: BatchLoader
-    planner: Optional[HostPlanner]
-    device: torch.device
-
-    def next_args(self):
-        """The loader's next batch, prepared on the device."""
-        return self.task.prepare(next(self.loader))
-
-    def step(self, args, i: int) -> Dict[str, torch.Tensor]:
-        """Train step ``i`` on prepared ``args`` (the dropout generator of
-        step ``i``, as in ``train``)."""
-        return self.task.train_step(
-            args, step_generator(self.cfg.run.seed, i, self.device))
 
 
 @contextlib.contextmanager
@@ -226,37 +284,26 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
     logger.info("wrote the profiler trace %s", path)
 
 
-def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainRun:
-    loader, val_loader = loaders["train"], loaders.get("val")
-    task = open_task(cfg, dataset, grid, loader, params, dev, planner)
-    state = task.state
-    logger.info("Model parameters: %s", f"{param_count(state.model):,}")
-    logger.info("window plans built on the %s",
-                "host" if planner is not None else "device")
-    ckpt = CheckpointManager(out_dir / "checkpoints")
-    if params is None:
-        restored = restore_run(cfg.mode, ckpt, state.model, dev,
-                               state.optimizer, state.scheduler)
-        if restored is not None:
-            state.step = restored
-    mesh.broadcast_module(state.model)
+def _train(run: RunSession) -> TrainRun:
+    cfg, task, dev, state = run.cfg, run.task, run.device, run.state
+    loader, val_loader = run.loaders["train"], run.loaders.get("val")
+    planner = run.planner
     bs = cfg.run.minibatch_size
     log_every = getattr(cfg.mode, "logging_iteration", 1) or 1
     ckpt_every = getattr(cfg.mode, "checkpoint_iteration", 50) or 50
-    writer = SummaryWriter(out_dir / "tb")
-    run = TrainRun([], state, first_step=state.step)
+    writer = SummaryWriter(run.out_dir / "tb")
+    result = TrainRun([], state, first_step=state.step)
     saved = None
     timer = StepTimer()
     for i in range(state.step, task.n_steps):
         if val_loader is not None and i % VAL_CHECK_INTERVAL == 0:
-            vm = {k: float(v) for k, v in
-                  task.eval_step(task.prepare(next(val_loader))).items()}
-            run.validation[i] = vm
+            vm = run.evaluate()
+            result.validation[i] = vm
             writer.write(vm, i, prefix="val/")
             logger.info(format_log_message(vm, bs, i, mode="val"))
-        args = task.prepare(next(loader))
+        args = run.next_args()
         timer.mark_io()
-        metrics = task.train_step(args, step_generator(cfg.run.seed, i, dev))
+        metrics = run.step(args, i)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timer.mark_step()
@@ -272,18 +319,18 @@ def _train(cfg, dataset, grid, loaders, planner, params, dev, out_dir) -> TrainR
         if i % log_every == 0:
             writer.write(metrics, i, prefix="train/")
             logger.info(format_log_message(metrics, bs, i, timer=timer))
-        run.history.append(metrics)
+        result.history.append(metrics)
         if (i + 1) % ckpt_every == 0:
-            ckpt.save(state)
+            run.save()
             saved = state.step
         if (planner is not None and planner.cache is not None
                 and (i + 1) % len(loader) == 0):
             # once an epoch: a full budget stops storing without a word
             logger.info(planner.cache.stats_line())
     if saved != state.step:
-        ckpt.save(state)
+        run.save()
     writer.close()
-    return run
+    return result
 
 
 def iotest(cfg: SparseEventIDConfig) -> Dict[str, Dict[str, float]]:

@@ -1,7 +1,8 @@
 """The port's benchmark drivers (sparseeventid_tpu_torch/scripts/bench*.py)
 against the JAX drivers of the repository root on the same numpy inputs:
 the useful-MAC count, the batch generators of both regimes, the straggler
-filter, the in-memory events against a larcv file the JAX writer wrote,
+filter, the in-memory events against a larcv file the JAX writer wrote
+(the convergence run's dune3d events among them),
 the single-plane dune2d classifier against flax, each driver's ``main`` on
 the CPU at a tiny size (its JSON keys against the JAX driver's source),
 and the bf16 peak table."""
@@ -35,7 +36,12 @@ from sparseeventid_tpu_torch.io.memory import (
 )
 from sparseeventid_tpu_torch.io.transforms import larcv_batch_to_sparse_2d as tbatch2d
 from sparseeventid_tpu_torch.models import build_sparse_classifier as tbuild
-from sparseeventid_tpu_torch.scripts import bench, bench_e2e, bench_extra
+from sparseeventid_tpu_torch.scripts import (
+    accuracy_run,
+    bench,
+    bench_e2e,
+    bench_extra,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 # a small sparse model for the drivers' CPU runs; every level holds 1024
@@ -220,18 +226,28 @@ def _assert_batches_equal(a, b):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("spec", [SPEC_3D, SPEC_2D], ids=["3d", "2d"])
-def test_memory_events_equal_a_jax_written_file(spec, tmp_path):
+# the first 3 events of the convergence run's dune3d files
+# (scripts/accuracy_run.py's, sparseeventid_tpu_torch.scripts.accuracy_run's
+# DUNE3D_TRAIN and DUNE3D_VAL), read whole
+ACC_TRAIN_3 = dataclasses.replace(accuracy_run.DUNE3D_TRAIN, n_events=3)
+ACC_VAL_3 = dataclasses.replace(accuracy_run.DUNE3D_VAL, n_events=3)
+
+
+@pytest.mark.parametrize("spec,max_voxels", [
+    (SPEC_3D, 500), (SPEC_2D, 500), (ACC_TRAIN_3, 50000), (ACC_VAL_3, 50000),
+], ids=["3d", "2d", "acc_dune3d_train", "acc_dune3d_val"])
+def test_memory_events_equal_a_jax_written_file(spec, max_voxels, tmp_path):
     path = tmp_path / "jax.h5"
     jwrite(path, **{k: v for k, v in dataclasses.asdict(spec).items()
                     if k != "planes"})
     f = LarcvDataset(path, "dunevoxels", dimension=spec.dimension,
-                     max_voxels=500)
-    m = synthetic_larcv_dataset(spec, max_voxels=500)
+                     max_voxels=max_voxels)
+    m = synthetic_larcv_dataset(spec, max_voxels=max_voxels)
+    n = spec.n_events
     try:
-        assert len(m) == len(f) == 4 and m.read_route == "memory"
+        assert len(m) == len(f) == n and m.read_route == "memory"
         assert m.image_size() == f.image_size() == m.batch_grid()
-        for idx in ([2, 0, 3], [1]):
+        for idx in ([n - 2, 0, n - 1], [1]):
             got, want = m.batch(idx), f.batch(idx)
             assert {"image", "index", "energy", "vertex",
                     *OUTPUT_SHAPE} == set(want)
