@@ -1,0 +1,7 @@
+"""Share of the traced window in which no operation ran on the device."""
+
+
+def read(record):
+    if "busy_s" not in record:
+        return None
+    return 100.0 * (1.0 - record["busy_s"] / record["window_s"])
