@@ -17,6 +17,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 
 from ..config.schema import AccessMode
+from ..utils import telemetry
 
 
 class _Failed:
@@ -92,17 +93,24 @@ class BatchLoader:
         return out
 
     def _put(self, item) -> None:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.5)
-                return
-            except queue.Full:
-                continue
+        try:
+            self._q.put_nowait(item)
+            return
+        except queue.Full:
+            pass
+        with telemetry.span("loader.put_blocked"):
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
 
     def _worker(self):
         while not self._stop.is_set():
             try:
-                batch = self.dataset.batch(self._next_indices())
+                with telemetry.span("loader.assemble"):
+                    batch = self.dataset.batch(self._next_indices())
                 if self.transform is not None:
                     batch = self.transform(batch)
             except Exception as e:  # handed to the consumer, which raises it
@@ -114,7 +122,8 @@ class BatchLoader:
         return self
 
     def __next__(self) -> Dict:
-        item = self._q.get()
+        with telemetry.span("loader.get"):
+            item = self._q.get()
         if isinstance(item, _Failed):
             raise RuntimeError("batch loader worker failed") from item.error
         return item

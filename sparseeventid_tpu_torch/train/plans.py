@@ -28,6 +28,7 @@ from ..models.build import SPARSE, build_sparse_classifier, model_family
 from ..ops.engine import WINDOW, host_list_width
 from ..ops.host_plans import EncoderPlans, encoder_plans_from_host
 from ..ops.sparse_tensor import SparseTensor
+from ..utils import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -155,16 +156,18 @@ class HostPlanner:
         self.widened += 1
         logger.info("host plan lists widened to hold every pair: %s",
                     {k: grown[k] for k in WIDTH_KEYS})
-        return build_window_plans(coords, **grown)
+        with telemetry.span("plans.rebuild"):
+            return build_window_plans(coords, **grown)
 
     def build(self, image: np.ndarray, indices=None,
               split: str = "") -> Dict[str, np.ndarray]:
         """The plan dict of a padded larcv batch, through the cache when
         ``indices`` are given."""
-        coords = plan_coords(image, self.geometry["grid"])
-        if indices is not None and self.cache is not None:
-            return self.cache.plans_for(split, coords, indices)
-        return self.build_coords(coords)
+        with telemetry.span("plans.build"):
+            coords = plan_coords(image, self.geometry["grid"])
+            if indices is not None and self.cache is not None:
+                return self.cache.plans_for(split, coords, indices)
+            return self.build_coords(coords)
 
     def transform(self, split: str):
         """A ``BatchLoader`` transform that adds the batch's plans as
@@ -185,8 +188,9 @@ class HostPlanner:
     @staticmethod
     def to_device(host: Dict[str, np.ndarray],
                   device: torch.device) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(device, non_blocking=True)
-                for k, v in host.items()}
+        with telemetry.span("prepare.plans_copy"):
+            return {k: torch.from_numpy(v).to(device, non_blocking=True)
+                    for k, v in host.items()}
 
     def plans(self, st: SparseTensor, host: Dict[str, torch.Tensor]
               ) -> EncoderPlans:

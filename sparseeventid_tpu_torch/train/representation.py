@@ -30,6 +30,7 @@ from ..models.heads import pool_encoded
 from ..ops import SparseTensor
 from ..ops.window.query import WindowTuning
 from ..parallel import mesh
+from ..utils import telemetry
 from .losses import nt_xent_loss, nt_xent_top_k_accuracy
 from .state import TrainState
 
@@ -80,7 +81,8 @@ class RepresentationModel(nn.Module):
 def _view_plans(plans_builder, v1, v2, host):
     if plans_builder is None or host is None:
         return None, None
-    return plans_builder(v1, host[0]), plans_builder(v2, host[1])
+    with telemetry.span("step.plans"):
+        return plans_builder(v1, host[0]), plans_builder(v2, host[1])
 
 
 def simclr_metrics(loss, z1, z2, dropped, temperature: float = 0.1
@@ -110,16 +112,20 @@ def make_simclr_train_step(state: TrainState, lr_schedule=None,
              generator: torch.Generator | None = None
              ) -> Dict[str, torch.Tensor]:
         model.train()
-        z1, z2, dropped = model(v1, v2, *_view_plans(plans_builder, v1, v2,
-                                                     host_plans))
-        loss = nt_xent_loss(z1, z2, temperature, sync)
-        loss.backward()
-        with torch.no_grad():
+        with telemetry.span("step.forward"):
+            z1, z2, dropped = model(v1, v2, *_view_plans(
+                plans_builder, v1, v2, host_plans))
+        with telemetry.span("step.loss"):
+            loss = nt_xent_loss(z1, z2, temperature, sync)
+        with telemetry.span("step.backward"):
+            loss.backward()
+        with telemetry.span("step.metrics"), torch.no_grad():
             metrics = simclr_metrics(loss.detach(), z1, z2, dropped,
                                      temperature)
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
-        state.apply_gradients(k)
+        with telemetry.span("step.optimizer"):
+            state.apply_gradients(k)
         return metrics
 
     return step

@@ -24,6 +24,7 @@ import torch
 from ..config.schema import LossBalanceScheme
 from ..ops import SparseTensor
 from ..parallel import mesh
+from ..utils import telemetry
 from .losses import multi_head_accuracy, multi_head_loss
 from .state import TrainState
 
@@ -42,7 +43,8 @@ def eval_metrics(logits, labels, dropped, scheme, class_weights=None
 def _plans(plans_builder, st, host_plans):
     if plans_builder is None or host_plans is None:
         return None
-    return plans_builder(st, host_plans)
+    with telemetry.span("step.plans"):
+        return plans_builder(st, host_plans)
 
 
 def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None,
@@ -94,18 +96,22 @@ def make_train_step(
     def step(st: SparseTensor, labels, generator: torch.Generator | None = None,
              host_plans=None) -> Dict[str, torch.Tensor]:
         model.train()
-        logits, dropped = model(st, generator,
-                                _plans(plans_builder, st, host_plans))
-        loss, _ = multi_head_loss(logits, labels, scheme, class_weights)
-        loss.backward()  # adds onto the gradients of earlier micro-steps
-        metrics = {"loss/loss": loss.detach(), "overflow/dropped": dropped}
-        with torch.no_grad():
+        with telemetry.span("step.forward"):
+            logits, dropped = model(st, generator,
+                                    _plans(plans_builder, st, host_plans))
+        with telemetry.span("step.loss"):
+            loss, _ = multi_head_loss(logits, labels, scheme, class_weights)
+        with telemetry.span("step.backward"):
+            loss.backward()  # adds onto the gradients of earlier micro-steps
+        with telemetry.span("step.metrics"), torch.no_grad():
+            metrics = {"loss/loss": loss.detach(), "overflow/dropped": dropped}
             acc = multi_head_accuracy(logits, labels)
-        metrics.update({f"acc/{name}": v for name, v in acc.items()})
-        metrics = mesh.reduce_metrics(metrics)
+            metrics.update({f"acc/{name}": v for name, v in acc.items()})
+            metrics = mesh.reduce_metrics(metrics)
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
-        state.apply_gradients(k)
+        with telemetry.span("step.optimizer"):
+            state.apply_gradients(k)
         return metrics
 
     return step

@@ -60,6 +60,7 @@ from ..models import (
     require_sparse,
 )
 from ..ops.window.query import WindowTuning
+from ..utils import telemetry
 from ..utils.checkpoint import encoder_freeze_names, transfers_encoder
 from .evaluate import (
     class_weights_of,
@@ -223,8 +224,9 @@ def _supervised(cfg, dataset, grid, epoch_length, params, dev, planner):
     cap0, dtype = input_capacity(state.model, mode), feature_dtype(cfg)
 
     def prepare(batch):
-        x, labels = prepare_batch(batch, grid, cap0, dtype, dev, mode,
-                                  max_points(cfg))
+        with telemetry.span("prepare.input"):
+            x, labels = prepare_batch(batch, grid, cap0, dtype, dev, mode,
+                                      max_points(cfg))
         return x, labels, host_plans_of(planner, batch, dev)
 
     return Training(state, lambda a, gen: step(a[0], a[1], gen, a[2]),
@@ -260,11 +262,12 @@ def _unsupervised(cfg, dataset, grid, epoch_length, params, dev, planner):
     cap0, dtype = model.encoder.capacities[0], feature_dtype(cfg)
 
     def prepare(batch):
-        e = np.asarray(batch["energy"])
-        weak = ((e >= lo) & (e <= hi)).astype(np.int32)
-        st = to_input(batch["image"], grid, cap0, dtype, dev)
-        return (st, {"weak_label": torch.from_numpy(weak).to(dev)},
-                host_plans_of(planner, batch, dev))
+        with telemetry.span("prepare.input"):
+            e = np.asarray(batch["energy"])
+            weak = ((e >= lo) & (e <= hi)).astype(np.int32)
+            st = to_input(batch["image"], grid, cap0, dtype, dev)
+            labels = {"weak_label": torch.from_numpy(weak).to(dev)}
+        return st, labels, host_plans_of(planner, batch, dev)
 
     return Training(state, lambda a, gen: step(a[0], a[1], gen, a[2]),
                     lambda a: eval_step(*a), step_count(cfg, epoch_length),
@@ -293,11 +296,13 @@ def _vertex(cfg, dataset, grid, epoch_length, params, dev, planner):
                 "yolo task needs a per-event 'vertex' target; the dataset "
                 "must provide one (synthetic does; larcv files need the "
                 "particle_event_group vertex field)")
-        st = to_input(batch["image"], grid, cap0, dtype, dev)
-        vertex = torch.from_numpy(np.asarray(batch["vertex"], np.float32))
-        label = torch.from_numpy(np.asarray(batch["labelneutID"], np.int32))
-        return (st, vertex.to(dev), label.to(dev),
-                host_plans_of(planner, batch, dev))
+        with telemetry.span("prepare.input"):
+            st = to_input(batch["image"], grid, cap0, dtype, dev)
+            vertex = torch.from_numpy(
+                np.asarray(batch["vertex"], np.float32)).to(dev)
+            label = torch.from_numpy(
+                np.asarray(batch["labelneutID"], np.int32)).to(dev)
+        return st, vertex, label, host_plans_of(planner, batch, dev)
 
     return Training(state, lambda a, gen: step(*a, generator=gen),
                     lambda a: eval_step(*a), step_count(cfg, epoch_length),
@@ -350,14 +355,16 @@ def _simclr(cfg, dataset, grid, epoch_length, params, dev, planner):
 
     def prepare(batch):
         image = batch["image"]
-        v1 = view(image) if t1 else image[..., :vm, :]
-        v2 = view(image) if t2 else image[..., :vm, :]
+        with telemetry.span("prepare.input"):
+            v1 = view(image) if t1 else image[..., :vm, :]
+            v2 = view(image) if t2 else image[..., :vm, :]
+            x1 = to_input(v1, grid, cap0, dtype, dev)
+            x2 = to_input(v2, grid, cap0, dtype, dev)
         host = None
         if planner is not None:
             host = tuple(planner.to_device(planner.build(v), dev)
                          for v in (v1, v2))
-        return (to_input(v1, grid, cap0, dtype, dev),
-                to_input(v2, grid, cap0, dtype, dev), host)
+        return x1, x2, host
 
     return Training(state, lambda a, gen: step(*a, generator=gen),
                     lambda a: eval_step(*a), step_count(cfg, epoch_length),

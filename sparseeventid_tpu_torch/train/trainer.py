@@ -54,6 +54,7 @@ import torch
 from ..config.schema import OUTPUT_SHAPE, SparseEventIDConfig
 from ..io.dataset import BatchLoader
 from ..parallel import mesh
+from ..utils import telemetry
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
@@ -138,13 +139,15 @@ class TrainSession:
 
     def next_args(self):
         """The loader's next batch, prepared on the device."""
-        return self.task.prepare(next(self.loader))
+        with telemetry.span("next_args", new_step=True):
+            return self.task.prepare(next(self.loader))
 
     def step(self, args, i: int) -> Dict[str, torch.Tensor]:
         """Train step ``i`` on prepared ``args`` (the dropout generator of
         step ``i``, as in ``train``)."""
-        return self.task.train_step(
-            args, step_generator(self.cfg.run.seed, i, self.device))
+        with telemetry.span("step"):
+            return self.task.train_step(
+                args, step_generator(self.cfg.run.seed, i, self.device))
 
 
 @dataclasses.dataclass
@@ -267,7 +270,8 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
     """With ``run.profile``, run the block under ``torch.profiler`` (CPU and,
     on the card, CUDA activities) and write its Chrome trace to
     ``<run dir>/profile/trace.json`` (the JAX trainer's ``jax.profiler``
-    trace)."""
+    trace); the program's tracer records meanwhile, each of its spans a
+    ``record_function`` range of the trace (``utils/telemetry``)."""
     if not cfg.run.profile or not mesh.is_main():
         yield
         return
@@ -278,7 +282,7 @@ def _profiled(cfg: SparseEventIDConfig, out_dir: Path, dev: torch.device):
         activities.append(ProfilerActivity.CUDA)
     path = out_dir / "profile" / "trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, telemetry.tracing(True):
         yield
     prof.export_chrome_trace(str(path))
     logger.info("wrote the profiler trace %s", path)

@@ -33,7 +33,9 @@ from ..models.encoder import Encoder
 from ..ops import SparseTensor, to_dense
 from ..ops.window.query import WindowTuning
 from ..parallel import mesh
+from ..utils import telemetry
 from .state import TrainState
+from .supervised import _plans
 
 CM_PER_VOXEL = 0.4  # dune3d meta
 
@@ -160,12 +162,6 @@ def vertex_resolution_metrics(pred: torch.Tensor, true: torch.Tensor,
     }
 
 
-def _plans(plans_builder, st, host_plans):
-    if plans_builder is None or host_plans is None:
-        return None
-    return plans_builder(st, host_plans)
-
-
 def vertex_metrics(anchor, event_logits, dropped, vertex, event_label,
                    anchor_grid, full_grid):
     """-> (loss, metrics): the loss, its parts, the resolution metrics and
@@ -191,15 +187,22 @@ def make_vertex_train_step(state: TrainState, anchor_grid, full_grid,
 
     def step(st, vertex, event_label, host_plans=None, generator=None):
         model.train()
-        anchor, event_logits, dropped = model(
-            st, _plans(plans_builder, st, host_plans))
-        loss, metrics = vertex_metrics(anchor, event_logits, dropped, vertex,
-                                       event_label, anchor_grid, full_grid)
-        loss.backward()
-        metrics = mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        with telemetry.span("step.forward"):
+            anchor, event_logits, dropped = model(
+                st, _plans(plans_builder, st, host_plans))
+        with telemetry.span("step.loss"):
+            loss, metrics = vertex_metrics(anchor, event_logits, dropped,
+                                           vertex, event_label, anchor_grid,
+                                           full_grid)
+        with telemetry.span("step.backward"):
+            loss.backward()
+        with telemetry.span("step.metrics"):
+            metrics = mesh.reduce_metrics(
+                {k: v.detach() for k, v in metrics.items()})
         if lr_schedule is not None:
             metrics["opt/lr"] = lr_schedule(state.step)
-        state.apply_gradients(every)
+        with telemetry.span("step.optimizer"):
+            state.apply_gradients(every)
         return metrics
 
     return step
