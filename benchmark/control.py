@@ -13,8 +13,10 @@ reference.  Each is read by ``check.numbers`` and judged by
 ``check.verdict`` against the cell's limits, as a run judges the
 program; ``grad_gap_worst`` (the worst parameter's first gradient) is
 printed beside them and judged by none.  A step that leaves its state
-unchanged reads 1 on ``update_gap`` by construction.  The benchmark's
-own runs do not run this.
+unchanged reads 1 on ``update_gap`` by construction.  The reference,
+the control and the faults run through the configuration's model family
+(``models/<family>.py``), so each family's limits are set from its own
+readings.  The benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     spec = harness.load_spec(args.workload)
-    cfg, traffic = spec["config"], spec["traffic"]
+    cfg, traffic, model = spec["config"], spec["traffic"], spec["model"]
     if args.precision is not None:
         cfg = dict(cfg, overrides=[o for o in cfg["overrides"]
                                    if not o.startswith("run.precision=")]
@@ -63,7 +65,7 @@ def main(argv=None) -> int:
         events, labels = generator.make_pool(int(traffic["pool"]), seed,
                                              cfg["generator"])
         split = program.Split(events, labels, int(traffic["split"]), cfg)
-        weights = reference.make_weights(cfg["arch"], seed, dev)
+        weights = model.make_weights(cfg, seed, dev)
         out = {"workload": args.workload, "seed": seed,
                "precision": args.precision or cfg["precision"]}
         prog = None
@@ -74,7 +76,7 @@ def main(argv=None) -> int:
                                       bool(traffic.get("fill_cache"))) as run:
                 prog, prog_labels, dropped = program.checked_steps(
                     run, harness.CHECKED_STEPS, weights,
-                    float(cfg["optimizer"]["b1"]))
+                    float(cfg["optimizer"]["b1"]), model)
                 del run
             rows = [split.events_of(k) for k in range(harness.CHECKED_STEPS)]
             gc.collect()
@@ -84,8 +86,8 @@ def main(argv=None) -> int:
                     for k in range(harness.CHECKED_STEPS)]
         batches = [([events[i] for i in r], {k: v[r] for k, v in labels.items()})
                    for r in rows]
-        ref = reference.train_steps(cfg, weights, batches, seed % 2**31,
-                                    epoch, dev)
+        ref = reference.train_steps(model, cfg, weights, batches,
+                                    seed % 2**31, epoch, dev)
         names = check.counted(ref.grad_norms)
         out["left_out"] = sorted(set(ref.grad_norms) - set(names))
 
@@ -100,7 +102,7 @@ def main(argv=None) -> int:
             out["program"] = judged(check.numbers(
                 prog, ref, prog_labels,
                 [{k: v[r] for k, v in labels.items()} for r in rows],
-                dropped, 0), prog)
+                dropped, 0, model), prog)
             out["program_worst"] = {
                 "grad": check.worst_leaves(prog.grad_norms, ref.grad_norms,
                                            names),
@@ -109,10 +111,10 @@ def main(argv=None) -> int:
         for name, kw in (("control", {"precision": "float8_e4m3fn"}),
                          ("half", {"variant": "half"}),
                          ("alter", {"variant": "alter"})):
-            faulty = reference.train_steps(cfg, weights, batches,
+            faulty = reference.train_steps(model, cfg, weights, batches,
                                            seed % 2**31, epoch, dev, **kw)
-            out[name] = judged(check.numbers(faulty, ref, [], [], 0, 0),
-                               faulty)
+            out[name] = judged(check.numbers(faulty, ref, [], [], 0, 0,
+                                             model), faulty)
         out["losses"] = ref.losses
         out["seconds"] = time.perf_counter() - t
         print(json.dumps(out), flush=True)

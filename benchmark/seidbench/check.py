@@ -13,8 +13,9 @@ the reference's, each beside its limit.
   a batch-norm scale at level 0 or 1 whose gradient, a cancelling sum
   over the batch's sites, carries 5-20% of bf16 rounding on any seed, so
   it cannot tell a fault from rounding.)
-- ``conv_grad_gap``: the same first gradient by the worst conv weight
-  (the encoder's ``*_w`` and ``*.w``, batch-norm scales not among them):
+- ``conv_grad_gap``: the same first gradient by the worst of the model
+  family's ``gradient_leaves`` (the sparse ResNet's: its conv weights,
+  the encoder's ``*_w`` and ``*.w``, batch-norm scales not among them):
   a backward fault confined to one conv's dW moves no median, and AdamW's
   change hides its scale.
 - ``update_gap``: each parameter's change over the steps, by the worst
@@ -46,11 +47,6 @@ def counted(ref_grads: Dict[str, float]) -> List[str]:
     return [n for n, g in ref_grads.items() if g >= LEFT_OUT_BELOW * med]
 
 
-def conv_weights(names: Sequence[str]) -> List[str]:
-    return [n for n in names if n.startswith("encoder.")
-            and (n.endswith("_w") or n.endswith(".w"))]
-
-
 def worst_leaf(prog: Dict[str, float], ref: Dict[str, float],
                names: Sequence[str]) -> float:
     med = statistics.median(ref[n] for n in names)
@@ -77,7 +73,7 @@ def worst_leaves(prog: Dict[str, float], ref: Dict[str, float],
 def input_numbers(prog_inputs, ref_inputs, prog_labels, ref_labels):
     """-> (mismatched sites and labels, largest charge gap over the largest
     charge).  Inputs: per batch (batch index i64[n], coords i64[n, 3],
-    charge f32[n]) in key order."""
+    charge f32[n]) in the family's canonical order."""
     mismatch, gap = 0, 0.0
     for (pb, pc, pv), (rb, rc, rv) in zip(prog_inputs, ref_inputs):
         pb, pc, pv = (t.cpu() for t in (pb, pc, pv))
@@ -99,9 +95,9 @@ def input_numbers(prog_inputs, ref_inputs, prog_labels, ref_labels):
 
 
 def numbers(prog, ref, prog_labels, ref_labels, dropped: int,
-            failed_steps: int) -> Dict[str, float]:
+            failed_steps: int, model) -> Dict[str, float]:
     """The program's ``reference.Readings``-shaped record against the
-    reference's."""
+    reference's; ``model`` is the cell's model family."""
     names = counted(ref.grad_norms)
     mismatch, in_gap = input_numbers(prog.inputs, ref.inputs, prog_labels,
                                      ref_labels)
@@ -114,7 +110,7 @@ def numbers(prog, ref, prog_labels, ref_labels, dropped: int,
         "loss_gap": loss_gap,
         "grad_gap": median_leaf(prog.grad_norms, ref.grad_norms, names),
         "conv_grad_gap": worst_leaf(prog.grad_norms, ref.grad_norms,
-                                    conv_weights(names)),
+                                    model.gradient_leaves(names)),
         "update_gap": worst_leaf(prog.change_norms, ref.change_norms, names),
         "dropped": dropped,
         "failed_steps": failed_steps,

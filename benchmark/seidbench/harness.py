@@ -1,8 +1,8 @@
 """One run of one cell: set-up, the timed window, the check, the result.
 
 Set-up makes the pool of raw events from the seed (``generator.py``), the
-weights on the device from the seed (``reference.make_weights``), opens
-the program's ``RunSession`` on the split (where the traffic says
+weights on the device from the seed (the model family's ``make_weights``),
+opens the program's ``RunSession`` on the split (where the traffic says
 ``fill_cache``, its planner first plans the whole split into its plan
 cache, so that the checked steps take their plans from cache hits, as
 the window's do) and drives its first steps: the ``checked_steps`` that
@@ -12,6 +12,11 @@ phase's seconds are printed on standard error and kept in the result's
 without a fence of its own until the host clock passes ``seconds``, then
 waits once (``torch.cuda.synchronize``).  After it the program's state is
 freed and the reference recomputes the checked steps.
+
+The model is a configuration's own part: its ``"model"`` key names a
+module ``models/<family>.py``, loaded by path, that gives the hooks of
+``MODEL_HOOKS`` (``models/sparse_resnet.py`` is one; ``README.md`` says
+what each returns).  The run reaches the model only through them.
 """
 
 from __future__ import annotations
@@ -26,10 +31,13 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import check, flops, generator, program, reference, trace
+from . import check, generator, program, reference, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu")
 CHECKED_STEPS = 3
+MODEL_HOOKS = ("param_shapes", "make_weights", "reference_batch", "forward",
+               "program_input", "gradient_leaves", "window_work",
+               "check_program")
 
 
 def forbidden_loaded(modules) -> List[str]:
@@ -47,9 +55,30 @@ def _json(path: Path) -> Dict:
         return json.load(f)
 
 
+def _load(name: str, path: Path):
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(module)
+    return module
+
+
+def load_model(path: Path):
+    """The model family module at ``path``; it has to give every hook of
+    ``MODEL_HOOKS``."""
+    if not path.is_file():
+        raise FileNotFoundError(f"no model family module {path}")
+    module = _load("model_" + path.stem.replace(".", "_"), path)
+    missing = [h for h in MODEL_HOOKS if not callable(getattr(module, h,
+                                                               None))]
+    if missing:
+        raise AttributeError(f"{path} gives no {', '.join(missing)}")
+    return module
+
+
 def load_spec(workload: str, root: Optional[Path] = None) -> Dict:
     """The cell's entry of ``BENCHMARK.json`` and the files it names:
-    ``configs/<config>.json``, ``traffic/<traffic>.json``,
+    ``configs/<config>.json``, the model family it names
+    (``models/<family>.py``), ``traffic/<traffic>.json``,
     ``workloads/<name>.json`` (the limits of its checks), the metrics it
     reports and the kernel families."""
     root = root or bench_root()
@@ -66,10 +95,16 @@ def load_spec(workload: str, root: Optional[Path] = None) -> Dict:
     e2e_names = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"] if reports(m)
              and ("workloads" in m or m["moves"] in e2e_names)]
+    cfg_path = root / "configs" / f"{cell['config']}.json"
+    cfg = _json(cfg_path)
+    if "model" not in cfg:
+        raise KeyError(f"{cfg_path} names no model family: its \"model\" "
+                       f"key names a module of {root / 'models'}")
     return {
         "name": workload,
         "chips": int(cell["chips"]),
-        "config": _json(root / "configs" / f"{cell['config']}.json"),
+        "config": cfg,
+        "model": load_model(root / "models" / f"{cfg['model']}.py"),
         "traffic": _json(root / "traffic" / f"{cell['traffic']}.json"),
         "limits": _json(root / "workloads" / f"{workload}.json")["limits"],
         "end_to_end": e2e,
@@ -84,12 +119,8 @@ def load_spec(workload: str, root: Optional[Path] = None) -> Dict:
 
 def read_metric(metrics_dir: Path, name: str, record: Dict):
     """The metric's reader, ``metrics/<name>.py``'s ``read(record)``."""
-    path = metrics_dir / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        "metric_" + name.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(module)
-    return module.read(record)
+    return _load("metric_" + name.replace(".", "_"),
+                 metrics_dir / f"{name}.py").read(record)
 
 
 class Phases:
@@ -117,15 +148,14 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool,
     """One run of the cell -> the result line's object."""
     phase = Phases(t_process)
     phase("start")
-    cfg, traffic = spec["config"], spec["traffic"]
-    arch = cfg["arch"]
+    cfg, traffic, model = spec["config"], spec["traffic"], spec["model"]
     batch = int(traffic["batch"])
     pool_events, pool_labels = generator.make_pool(
         int(traffic["pool"]), seed, cfg["generator"])
     split = program.Split(pool_events, pool_labels, int(traffic["split"]), cfg)
     phase("pool")
     work = spec["work_dir"]
-    weights = reference.make_weights(arch, seed, device)
+    weights = model.make_weights(cfg, seed, device)
     _sync(device)
     phase("weights")
     pcfg = program.program_config(cfg, traffic, spec["name"], seed,
@@ -138,7 +168,7 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool,
                               bool(traffic.get("fill_cache"))) as run:
         phase("session")
         prog, prog_labels, dropped = program.checked_steps(
-            run, CHECKED_STEPS, weights, b1)
+            run, CHECKED_STEPS, weights, b1, model)
         _sync(device)
         checked_counts = program.counters(run, split)
         phase("checked_steps")
@@ -211,14 +241,14 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool,
 
     t_check = time.perf_counter()
     ref = reference.train_steps(
-        cfg, weights,
+        model, cfg, weights,
         [([pool_events[i] for i in rows],
           {k: v[rows] for k, v in pool_labels.items()}) for rows in checked],
         int(seed) % 2**31, int(traffic["split"]) // batch, device)
     ref_labels = [{k: v[rows] for k, v in pool_labels.items()}
                   for rows in checked]
     values = check.numbers(prog, ref, prog_labels, ref_labels, dropped,
-                           failed_steps)
+                           failed_steps, model)
     correct, checks = check.verdict(values, spec["limits"])
     check_s = time.perf_counter() - t_check
 
@@ -312,7 +342,8 @@ def layer_record(spec, device, t0, window_s, steps, batch, spans, before,
                  after, trace_path, marker, pool_events, window_batches
                  ) -> Dict:
     """What the per-layer readers read: spans, counter differences, the
-    reduced trace, and the work of the window's batches."""
+    reduced trace, and the work of the window's batches (the model
+    family's ``window_work``)."""
     record = {
         "window_s": window_s,
         "steps": steps,
@@ -330,19 +361,7 @@ def layer_record(spec, device, t0, window_s, steps, batch, spans, before,
     peak = spec["peaks"].get(torch.cuda.get_device_name(device)
                              if device.type == "cuda" else "cpu")
     if peak is not None and window_batches:
-        cfg = spec["config"]
-        used = sorted({int(i) for rows in window_batches for i in rows})
-        where = {e: r for r, e in enumerate(used)}
-        sites = [reference.event_sites(pool_events[e], cfg)[0] for e in used]
-        counts = flops.event_counts(sites, cfg["arch"], cfg["grid"], device)
-        macs = flops.useful_macs(counts, cfg["arch"])
-        record["useful_flop"] = float(sum(
-            2.0 * macs[[where[int(i)] for i in rows]].sum()
-            for rows in window_batches))
-        record["conv_roofline_s"] = float(sum(
-            flops.conv_roofline_s(counts, [where[int(i)] for i in rows],
-                                  cfg["arch"], peak["bf16_flops"],
-                                  peak["hbm_bytes_per_s"])
-            for rows in window_batches))
+        record.update(spec["model"].window_work(
+            spec["config"], pool_events, window_batches, peak, device))
         record["peak"] = peak
     return record

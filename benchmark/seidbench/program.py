@@ -128,32 +128,23 @@ def fill(run, split: Split, batch: int) -> None:
                            f"the split's {len(split)} events")
 
 
-def _live_rows(st):
-    """(batch index, coords, charge) of a prepared SparseTensor's live
-    rows, in its key order."""
-    n = st.n_active.cpu().tolist()
-    b = torch.cat([torch.full((k,), i, dtype=torch.int64)
-                   for i, k in enumerate(n)])
-    c = torch.cat([st.coords[i, :k].cpu().long() for i, k in enumerate(n)])
-    v = torch.cat([st.feats[i, :k, 0].float().cpu() for i, k in enumerate(n)])
-    return b, c, v
-
-
 def _norm(t) -> float:
     return 0.0 if t is None else float(torch.linalg.vector_norm(t))
 
 
-def checked_steps(run, n: int, weights: Dict[str, torch.Tensor], b1: float):
+def checked_steps(run, n: int, weights: Dict[str, torch.Tensor], b1: float,
+                  model):
     """Drive the session's first ``n`` steps through its own ``next_args``
     and ``step``, reading what the reference is held against -> (Readings,
-    labels of each batch, dropped pairs)."""
-    model, opt = run.state.model, run.state.optimizer
-    params = dict(model.named_parameters())
+    labels of each batch, dropped pairs).  ``model``, the cell's model
+    family, reads each prepared input (``program_input``)."""
+    opt = run.state.optimizer
+    params = dict(run.state.model.named_parameters())
     losses, inputs, labels, grads = [], [], [], {}
     dropped = 0
     for k in range(n):
         args = run.next_args()
-        inputs.append(_live_rows(args[0]))
+        inputs.append(model.program_input(args))
         labels.append({key: v.cpu().numpy() for key, v in args[1].items()})
         metrics = run.step(args, k)
         losses.append(float(metrics["loss/loss"]))

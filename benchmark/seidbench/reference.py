@@ -2,6 +2,13 @@
 times, written from the published architecture (the sparse ResNet event
 classifier of SparseEventID's recipes) and from nothing of the program.
 
+``train_steps`` is the step loop that every model family of
+``benchmark/models/`` shares (the focal loss, AdamW, the dropout
+generator's seed rule, the warm-up schedule, the rounding of
+``precision``); a family gives it the model's parameters, batch and
+forward.  The rest of this module is the sparse ResNet's arithmetic,
+which ``models/sparse_resnet.py`` hands to the loop.
+
 From raw events and the weights the benchmark made, it derives the batch
 (each projection's charge normalized to mean 1, std 0.5 as larcv's
 Normalize does, cut at MaxVoxels in stored order, 2-D wire planes on a
@@ -403,7 +410,8 @@ def learning_rate(opt: Dict, step: int, epoch_length: int) -> float:
 class Readings:
     """What the reference gives for the checked steps: each step's loss,
     each parameter's first gradient norm, its change over the steps, and
-    each batch's input (sorted level-0 coordinates and charge)."""
+    each batch's input reading (batch index, coordinates, charge, in the
+    family's canonical order)."""
 
     losses: List[float]
     grad_norms: Dict[str, float]
@@ -411,22 +419,25 @@ class Readings:
     inputs: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def train_steps(cfg: Dict, weights: Dict[str, torch.Tensor],
+def train_steps(model, cfg: Dict, weights: Dict[str, torch.Tensor],
                 batches: List[Tuple[List, Dict[str, np.ndarray]]],
                 run_seed: int, epoch_length: int, device,
                 precision: str = "float32", variant: str = "") -> Readings:
-    """Run ``len(batches)`` steps from ``weights``; batch k is (events'
-    projections, labels by key) and takes step k's dropout generator and
-    learning rate.  ``variant`` plants a fault for the harness's checks:
-    "half" takes the loss over the first half of each batch, "alter"
-    doubles event 0's first charge of each batch."""
-    arch, opt, loss_cfg = cfg["arch"], cfg["optimizer"], cfg["loss"]
+    """Run ``len(batches)`` steps of the model family ``model`` (a module of
+    ``benchmark/models/``: its ``param_shapes``, ``reference_batch`` and
+    ``forward``) from ``weights``; batch k is (events' projections, labels
+    by key) and takes step k's dropout generator and learning rate.  The
+    loss is the focal loss summed over the heads that ``forward`` returns;
+    the optimizer AdamW.  ``variant`` plants a fault for the harness's
+    checks: "half" takes the loss over the first half of each batch,
+    "alter" doubles event 0's first charge where the batch is made."""
+    opt, loss_cfg = cfg["optimizer"], cfg["loss"]
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rnd = rounding(precision)
-    names = [n for n, _ in param_shapes(arch) if not is_buffer(n)]
+    names = [n for n, _ in model.param_shapes(cfg)]
     p = {n: weights[n].detach().clone().requires_grad_(True) for n in names}
     m = {n: torch.zeros_like(p[n]) for n in names}
     v = {n: torch.zeros_like(p[n]) for n in names}
@@ -435,23 +446,18 @@ def train_steps(cfg: Dict, weights: Dict[str, torch.Tensor],
     losses, grad_norms, inputs = [], {}, []
     try:
         for step, (events, labels) in enumerate(batches):
-            sites = [event_sites(ev, cfg) for ev in events]
-            if variant == "alter":
-                coords, charge = sites[0]
-                charge = charge.copy()
-                charge[0] *= 2.0
-                sites[0] = (coords, charge)
-            level, charge = batch_input(sites, cfg["grid"], device)
-            inputs.append((level.batch, level.coords, rnd(charge).detach()))
+            model_input, reading = model.reference_batch(
+                events, cfg, device, rnd, alter=variant == "alter")
+            inputs.append(reading)
             gen = dropout_generator(run_seed, step, device)
-            logits = forward(p, level, charge, len(events), arch, gen, rnd)
+            logits = model.forward(p, model_input, len(events), cfg, gen, rnd)
             keep = len(events) // 2 if variant == "half" else len(events)
             loss = sum(
                 focal_loss(logits[k][:keep],
                            torch.as_tensor(labels[k][:keep], device=device),
                            float(loss_cfg["gamma"]),
                            float(loss_cfg["clamp"])).mean()
-                for k, _n in LABEL_CLASSES)
+                for k in logits)
             for t in p.values():
                 t.grad = None
             loss.backward()

@@ -73,37 +73,36 @@ def test_cell_files_found_by_name(cell):
     for m in spec["per_layer"]:
         assert (ROOT / "metrics" / f"{m['name']}.py").is_file()
     assert "sparse_conv" in spec["families"]
+    assert spec["model"].__file__ == str(
+        ROOT / "models" / f"{spec['config']['model']}.py")
     assert {"batch", "pool", "split", "access", "run_length",
             "warmup_steps"} <= set(spec["traffic"])
     assert spec["traffic"]["warmup_steps"] >= harness.CHECKED_STEPS
 
 
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_config_names_a_model_family(config):
+    """Each configuration names its model family, a module of
+    ``benchmark/models/`` that gives every hook of the interface."""
+    from seidbench import harness
+
+    entry = {c["name"]: c for c in BENCH["configs"]}[config]
+    cfg = json.loads((ROOT.parent / entry["file"]).read_text())
+    path = ROOT / "models" / f"{cfg['model']}.py"
+    assert path.is_file(), path
+    model = harness.load_model(path)
+    for hook in harness.MODEL_HOOKS:
+        assert callable(getattr(model, hook, None)), hook
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_config_matches_the_program(config):
     """The configuration file states what the program loads from its
-    recipe, and the reference's parameters are the program's."""
-    from seidbench import reference
-    from sparseeventid_tpu_torch.config import load_config
-    from sparseeventid_tpu_torch.models import build_sparse_classifier
+    recipe, as its model family checks it."""
+    from seidbench import harness
 
     entry = {c["name"]: c for c in BENCH["configs"]}[config]
     cfg = json.loads((ROOT.parent / entry["file"]).read_text())
     assert cfg["reduced"] == entry["reduced"] == []
-    prog = load_config(cfg["recipe"], cfg["overrides"])
-    enc, arch = prog.encoder, cfg["arch"]
-    for key in ("depth", "n_initial_filters", "n_output_filters",
-                "blocks_per_layer", "filter_size", "leakiness"):
-        assert getattr(enc, key) == arch[key], key
-    assert prog.data.max_voxels == cfg["max_voxels"]
-    assert prog.head.hidden == arch["head_hidden"]
-    assert prog.head.dropout == arch["head_dropout"]
-    assert prog.mode.optimizer.weight_decay == cfg["optimizer"]["weight_decay"]
-    sched = prog.mode.optimizer.lr_schedule
-    assert sched.peak_learning_rate == cfg["optimizer"]["peak_lr"]
-    model = build_sparse_classifier(prog)
-    ik, sks, stride = model.encoder.plan_kernels()
-    assert list(ik) == arch["initial_kernel"]
-    assert list(sks[0]) == arch["series_kernel"]
-    assert list(stride) == arch["stride"]
-    shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
-    assert shapes == dict(reference.param_shapes(arch))
+    harness.load_model(ROOT / "models" / f"{cfg['model']}.py").check_program(
+        cfg)

@@ -38,9 +38,15 @@ def test_whole_name_comparison_tells_the_program_from_the_jax_package():
 
 
 def test_reference_loads_neither_jax_nor_the_program():
+    """The reference's modules, and every model family module of
+    ``benchmark/models/`` loaded by path as the harness loads it."""
     loaded = _top_level_modules(
         "import seidbench.reference, seidbench.flops, seidbench.check, "
-        "seidbench.generator, seidbench.trace")
+        "seidbench.generator, seidbench.trace\n"
+        "import importlib.util, pathlib\n"
+        "for p in sorted(pathlib.Path('benchmark/models').glob('*.py')):\n"
+        "    s = importlib.util.spec_from_file_location(p.stem, p)\n"
+        "    s.loader.exec_module(importlib.util.module_from_spec(s))\n")
     assert not loaded & JAX_SIDE, loaded & JAX_SIDE
     assert PROGRAM not in loaded
 

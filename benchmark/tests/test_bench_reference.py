@@ -42,8 +42,10 @@ def _readings(spec, seed, **kw):
     batches = [([events[i] for i in rows],
                 {k: v[rows] for k, v in labels.items()})
                for rows in ([0, 1], [2, 3], [4, 5])]
-    weights = reference.make_weights(cfg["arch"], seed, "cpu")
-    return reference.train_steps(cfg, weights, batches, seed, 16, "cpu", **kw)
+    model = spec["model"]
+    weights = model.make_weights(cfg, seed, "cpu")
+    return reference.train_steps(model, cfg, weights, batches, seed, 16, "cpu",
+                                 **kw)
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])
@@ -53,7 +55,7 @@ def test_control_fails(tmp_path, few_threads, seed):
     spec = tiny_spec(tmp_path)
     ref = _readings(spec, seed)
     control = _readings(spec, seed, precision="float8_e4m3fn")
-    values = check.numbers(control, ref, [], [], 0, 0)
+    values = check.numbers(control, ref, [], [], 0, 0, spec["model"])
     ok, _ = check.verdict(values, tiny_spec(tmp_path, "bfloat16")["limits"])
     assert not ok, values
 
@@ -63,6 +65,6 @@ def test_planted_faults_read_far(tmp_path, few_threads, variant):
     spec = tiny_spec(tmp_path)
     ref = _readings(spec, 21)
     values = check.numbers(_readings(spec, 21, variant=variant), ref, [], [],
-                           0, 0)
+                           0, 0, spec["model"])
     ok, _ = check.verdict(values, spec["limits"])
     assert not ok, values

@@ -36,6 +36,8 @@ CACHED = {"batch": 2, "pool": 8, "split": 8, "access": "random_events",
 
 def tiny_spec(tmp_path: Path, precision: str = "float32",
               traffic: dict = None) -> dict:
+    from seidbench import harness
+
     with open(ROOT / "configs" / "dune3d.json") as f:
         cfg = json.load(f)
     cfg = copy.deepcopy(cfg)
@@ -54,6 +56,7 @@ def tiny_spec(tmp_path: Path, precision: str = "float32",
         "name": "tiny",
         "chips": 1,
         "config": cfg,
+        "model": harness.load_model(ROOT / "models" / f"{cfg['model']}.py"),
         "traffic": traffic or {"batch": 2, "pool": 8, "split": 32,
                                "access": "serial_access", "run_length": 1,
                                "warmup_steps": 4},
