@@ -195,10 +195,19 @@ Phases, one JSON line each; any failure exits non-zero:
               on and one off give the same bits in every conv weight
               gradient and every running statistic, the recomputation's
               48 series convs counted; peak GiB and steps/s over 3 steps
-              each); pointnet and dgcnn (encoder=pointnet|dgcnn, 2048
-              points an event: the card against the CPU from the same
-              weights within rtol = atol = 1e-3, TF32 off; DGCNN's
-              knn_indices on the card equal the CPU's on integer
+              each); before these, csrc/knn.cu's knn_topk at B=8,
+              P=8192, k=20, F=4, 64 and 128 (phase_knn_kernels): the plain
+              version's indices bit for bit on integer-valued clouds with
+              ties, padding and a cloud of 15 points, the float64
+              neighbour distances within KNN_REAL_TOL on real-valued ones,
+              ms, bound_ms, plain_ms and library_ms (torch.topk on the
+              materialised distances); pointnet and dgcnn
+              (encoder=pointnet|dgcnn, 2048 points an event, trained at
+              bf16: DGCNN launches knn_topk 4 times a forward, PointNet
+              never; the card against the CPU from the same weights
+              within rtol = atol = 1e-3, TF32 off, DGCNN's CPU pass on the
+              card's neighbour lists, the first stage's own lists equal;
+              DGCNN's knn_indices on the card equal the CPU's on integer
               coordinates with ties at the k-th neighbour); per_label
               (dune2d, encoder.per_label_final_series=true: one
               window_plan a forward on host plans, fp32 logits against the
@@ -206,7 +215,8 @@ Phases, one JSON line each; any failure exits non-zero:
               off: the dune2d grid through PlaneAxisDataset, inference
               B=8, training DENSE_TRAIN_BATCH_2D; 3D at DENSE_GRID_3D; the
               card against the CPU on small inputs, eval mode).  The dense
-              and point-cloud phases launch no kernel of csrc/
+              and point-cloud phases launch no sparse-conv kernel of
+              csrc/, and only DGCNN the neighbour search's
  16. bench    the port's benchmark drivers (scripts/bench.py,
               bench_e2e.py, bench_extra.py) through their main functions,
               in this process, at their full default widths and reduced
@@ -260,8 +270,8 @@ Phases, one JSON line each; any failure exits non-zero:
      launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
      of the model runs; launches_sparse_efficiency of the sweep;
      launches_bench of the drivers; launches_accuracy of the long window
-     run of the accuracy phase), then {"ok": true, "device": {...}}
-     last.
+     run of the accuracy phase; knn_topk's row last, its launches those of
+     the dgcnn train run), then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -4346,6 +4356,15 @@ DENSE_GRID_3D = (128, 64, 160)
 DENSE_TRAIN_BATCH_3D = BATCH
 DENSE_COMPARE_TOL = 1e-3  # rtol and atol of the card's logits against the CPU's
 POINTS_COMPARE_EVENTS = 2  # events of the card-against-CPU forward
+KNN_PER_DGCNN_FORWARD = 4  # one neighbour search an EdgeConv stage
+# the neighbour search kernel's rows: B clouds of P points, k neighbours,
+# at each EdgeConv stage's input width F (as the dgcnn3d benchmark runs it)
+KNN_B, KNN_P, KNN_K = 8, 8192, 20
+KNN_FEATURES = (4, 64, 128)
+# on real-valued data the kernel and the plain version round apart: the
+# float64 distances of the neighbours each picks, row by row in ascending
+# order, within this share of the largest of them
+KNN_REAL_TOL = 1e-5
 
 
 def _fp32_window_vs_plain(phase, extra, dataset, grid, recipe="dune3d",
@@ -4413,13 +4432,27 @@ def _fp32_window_vs_plain(phase, extra, dataset, grid, recipe="dune3d",
             f"{phase}: fp32 gradients differ: {report}")
 
 
+def _knn_counted(fn):
+    """Run ``fn`` with the neighbour search's launch and plain-call counts
+    at 0 -> (its result, {"knn_topk": launches, "knn_topk_plain": calls})."""
+    from sparseeventid_tpu_torch.ops import knn_kernels as KNN
+
+    KNN.knn_topk.launches = KNN.knn_topk_plain.calls = 0
+    out = fn()
+    return out, {"knn_topk": KNN.knn_topk.launches,
+                 "knn_topk_plain": KNN.knn_topk_plain.calls}
+
+
 def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
-                       per_step=None, per_forward=None, train_batch=BATCH):
+                       per_step=None, per_forward=None, train_batch=BATCH,
+                       knn_per_forward=0):
     """MODEL_STEPS steps through trainer.train, then validate() over the
     dataset from the run's checkpoint: finite losses, 0 dropped, the launch
     counts of every kernel ``per_step`` times the steps and ``per_forward``
-    times the batches, no plain version -> (steps/s, events/s of training,
-    events/s of inference, the train run's launches)."""
+    times the batches, the neighbour search's kernel ``knn_per_forward``
+    times each forward (a train step runs one), no plain version -> (steps/s,
+    events/s of training, events/s of inference, the train run's launches,
+    knn_topk's among them)."""
     import numpy as np
     import torch
 
@@ -4430,8 +4463,8 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
                         f"mode.iterations={MODEL_STEPS}",
                         f"run.minibatch_size={train_batch}", *extra], recipe)
     torch.cuda.reset_peak_memory_stats()
-    run, launches, plain_calls, ops = _counted_dp(
-        lambda: train(cfg, dataset=dataset, device=DEVICE))
+    (run, launches, plain_calls, ops), knn = _knn_counted(
+        lambda: _counted_dp(lambda: train(cfg, dataset=dataset, device=DEVICE)))
     train_peak = torch.cuda.max_memory_allocated() / 2**30
     history = run.history
     require(len(history) == MODEL_STEPS == run.state.step, f"{phase}: steps")
@@ -4445,6 +4478,9 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     require(all(v == 0 for v in plain_calls.values()) and not any(ops.values()),
             f"{phase}: plain version or ops-path kernel on the path: "
             f"{plain_calls}, {ops}")
+    want_knn = {"knn_topk": knn_per_forward * MODEL_STEPS, "knn_topk_plain": 0}
+    require(knn == want_knn,
+            f"{phase}: neighbour search {knn}, expected {want_knn}")
     timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
     steps_per_s = len(timed) / sum(timed)
     del run
@@ -4458,8 +4494,9 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics, v_launches, v_plain, v_ops = _counted_dp(
-        lambda: validate(cfg_v, dataset=dataset, device=DEVICE))
+    (metrics, v_launches, v_plain, v_ops), v_knn = _knn_counted(
+        lambda: _counted_dp(
+            lambda: validate(cfg_v, dataset=dataset, device=DEVICE)))
     seconds = time.perf_counter() - t0
     require(np.isfinite(metrics["loss/loss"]) and metrics["overflow/dropped"] == 0,
             f"{phase} inference: {metrics}")
@@ -4471,6 +4508,9 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     require(all(v == 0 for v in v_plain.values()) and not any(v_ops.values()),
             f"{phase} inference: plain version or ops-path kernel on the path: "
             f"{v_plain}, {v_ops}")
+    want_knn = {"knn_topk": knn_per_forward * n_batches, "knn_topk_plain": 0}
+    require(v_knn == want_knn,
+            f"{phase} inference: neighbour search {v_knn}, expected {want_knn}")
     events_per_s = n_batches * BATCH / seconds
     emit({"phase": phase, "recipe": recipe, "steps": MODEL_STEPS,
           "train_batch": train_batch,
@@ -4478,6 +4518,8 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
           "step_s": [m["time/step_s"] for m in history],
           "loss": [m["loss/loss"] for m in history], "launches": launches,
           "train_peak_mem_gib": train_peak, "inference_metrics": metrics,
+          "knn_launches": knn["knn_topk"],
+          "inference_knn_launches": v_knn["knn_topk"],
           "inference_launches": v_launches, "inference_batch": BATCH,
           "inference_seconds": seconds,
           "inference_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
@@ -4488,7 +4530,7 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
                       "timed_steps": len(timed), "precision": "bfloat16"}),
           flush=True)
     STEPS_PER_S[phase] = steps_per_s
-    return {**launches, **ops}
+    return {**launches, **ops, "knn_topk": knn["knn_topk"]}
 
 
 def phase_groupnorm(dataset):
@@ -4677,34 +4719,66 @@ class PlaneAxisDataset(SlicedDataset):
         return out
 
 
-def _card_against_cpu(phase, model, inputs, modes=("eval", "train")):
+def _card_against_cpu(phase, model, inputs, modes=("eval", "train"),
+                      neighbours=False):
     """The logits of ``model`` (the card's weights) on the card and of its
     copy on the CPU from the same weights, in each of ``modes``, TF32 off
-    -> the report row; rtol = atol = DENSE_COMPARE_TOL."""
+    -> the report row; rtol = atol = DENSE_COMPARE_TOL.  ``neighbours``
+    (DGCNN): the CPU's pass takes each stage's neighbour lists from the
+    card's pass, so the logits compare the arithmetic around the search;
+    its own lists are searched beside them and their rows that differ are
+    reported by stage, the first stage's (integer coordinates, exact
+    distances) required equal.  Stages 1-3 search real-valued features in
+    which the two devices' rounding flips near ties, as it did with the
+    plain search on both sides."""
     import copy
 
     import torch
 
     from sparseeventid_tpu_torch.config.schema import OUTPUT_SHAPE
+    from sparseeventid_tpu_torch.models import dgcnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu = copy.deepcopy(model).cpu()
+    search = dgcnn.knn_indices
+    lists, differ = [], []
+
+    def card_search(x, mask, k):
+        lists.append(search(x, mask, k))
+        return lists[-1]
+
+    def cpu_search(x, mask, k):
+        idx = lists.pop(0).to(x.device)
+        differ.append(int((search(x, mask, k) != idx).any(-1)[mask].sum()))
+        return idx
+
     row = {}
     for mode in modes:
         outs = []
-        for m, dev in ((model, DEVICE), (cpu, "cpu")):
+        differ.clear()
+        for m, dev, spy in ((model, DEVICE, card_search),
+                            (cpu, "cpu", cpu_search)):
             m.train(mode == "train")
             x = ([t.to(dev) for t in inputs] if isinstance(inputs, tuple)
                  else inputs.to(dev))
-            with torch.no_grad():
-                lg, _ = m(tuple(x) if isinstance(inputs, tuple) else x)
+            if neighbours:
+                dgcnn.knn_indices = spy
+            try:
+                with torch.no_grad():
+                    lg, _ = m(tuple(x) if isinstance(inputs, tuple) else x)
+            finally:
+                dgcnn.knn_indices = search
             outs.append(torch.cat([lg[k] for k in OUTPUT_SHAPE], 1).cpu())
         card, ref = outs
         row[mode] = {"max_abs_diff": float((card - ref).abs().max()),
                      "max_abs": float(ref.abs().max()),
                      "within": torch.allclose(card, ref, rtol=DENSE_COMPARE_TOL,
                                               atol=DENSE_COMPARE_TOL)}
+        if neighbours:
+            row[mode].update(rows_differ_by_stage=list(differ),
+                             within=row[mode]["within"] and not lists
+                             and differ[0] == 0)
     emit({"phase": f"{phase}_card_vs_cpu", "tf32": False, **row})
     for mode, r in row.items():
         require(r["within"], f"{phase}: card against CPU ({mode}): {r}")
@@ -4755,19 +4829,25 @@ def phase_dense(dataset_2d):
 
 def phase_points(dataset, encoder):
     """encoder=pointnet|dgcnn on dune3d batches (max_points 2048 a cloud):
-    train and validate (finite, no port kernel launched), the card against
-    the CPU from the same weights on POINTS_COMPARE_EVENTS clouds of
-    integer coordinates and values; for DGCNN, knn_indices on the card
-    equal to the CPU's there, ties included -> launches (none)."""
+    train and validate at bf16 (finite; no sparse-conv kernel launched;
+    DGCNN launches csrc/knn.cu's kernel KNN_PER_DGCNN_FORWARD times a
+    forward, on the bf16 points of its first stage too, PointNet never),
+    the card against the CPU from the same weights on
+    POINTS_COMPARE_EVENTS clouds of integer coordinates and values (DGCNN's
+    CPU pass on the card's neighbour lists, its first stage's own lists
+    equal to them); for DGCNN, knn_indices on the card equal to the CPU's
+    there, ties included -> the train run's launches (knn_topk's among
+    them)."""
     import numpy as np
     import torch
 
     from sparseeventid_tpu_torch.io import larcv_batch_to_pointcloud
     from sparseeventid_tpu_torch.models import build_model, init_parameters
 
-    launches = train_and_validate(encoder, [f"encoder={encoder}"], dataset,
-                                  GRID, per_step=NO_LAUNCHES,
-                                  per_forward=NO_LAUNCHES)
+    launches = train_and_validate(
+        encoder, [f"encoder={encoder}"], dataset, GRID,
+        per_step=NO_LAUNCHES, per_forward=NO_LAUNCHES,
+        knn_per_forward=KNN_PER_DGCNN_FORWARD if encoder == "dgcnn" else 0)
     cfg = train_config([f"encoder={encoder}", "head.dropout=0.0"])
     model, mode = build_model(cfg)
     require(mode == "points", f"{encoder}: build_model gave {mode}")
@@ -4777,7 +4857,7 @@ def phase_points(dataset, encoder):
                               np.round(image[..., -1] * 4.0))
     pts, mask = larcv_batch_to_pointcloud(image, cfg.encoder.max_points)
     x = (torch.from_numpy(pts), torch.from_numpy(mask))
-    _card_against_cpu(encoder, model, x)
+    _card_against_cpu(encoder, model, x, neighbours=encoder == "dgcnn")
     if encoder == "dgcnn":
         from sparseeventid_tpu_torch.models.dgcnn import knn_indices
 
@@ -4793,6 +4873,114 @@ def phase_points(dataset, encoder):
         require(torch.equal(card, cpu), "dgcnn: knn_indices differ on the card")
         require(ties > 0, "dgcnn: no tie at the k-th neighbour to test")
     return launches
+
+
+def _knn_clouds(f, integer):
+    """KNN_B clouds [KNN_B, KNN_P, f] and their mask.  ``integer``: values
+    in [-3, 3] (ties everywhere), cloud 1 with every third point padded,
+    cloud 2 of 15 valid points, the padded rows junk; otherwise uniform
+    real values (the first stage's scale at f = 4, unit normal beyond),
+    all valid."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + f)
+    shape = (KNN_B, KNN_P, f)
+    mask = torch.ones(shape[:2], dtype=torch.bool, device=DEVICE)
+    if integer:
+        x = torch.randint(-3, 4, shape, generator=gen, device=DEVICE).float()
+        mask[1, ::3] = False
+        mask[2, 15:] = False
+    elif f == 4:
+        x = torch.rand(shape, generator=gen, device=DEVICE) * 1024.0
+    else:
+        x = torch.randn(shape, generator=gen, device=DEVICE)
+    return x, mask
+
+
+def _neighbour_distances(x, idx):
+    """float64 squared distances [B, P, k] of each point to its ``idx``,
+    sorted per row."""
+    import torch
+
+    x64 = x.double()
+    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    d = ((x64[b, idx] - x64[:, :, None, :]) ** 2).sum(-1)
+    return d.sort(dim=-1).values
+
+
+def phase_knn_kernels():
+    """csrc/knn.cu's knn_topk at KNN_B x KNN_P, k = KNN_K, F in
+    KNN_FEATURES: on integer-valued clouds (ties, padding, a cloud of 15
+    points) the plain version's indices bit for bit; on real-valued ones
+    each row's float64 neighbour distances within KNN_REAL_TOL of the
+    plain version's; ms, the bound (2 B P^2 F operations at the float32
+    peak, B P (4F + 1 + 8k) bytes), the plain version's ms and the
+    library's (torch.topk on the materialised distances) -> the rows."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops import knn_kernels as KNN
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for f in KNN_FEATURES:
+        x, mask = _knn_clouds(f, integer=True)
+        got = KNN.knn_topk(x, mask, KNN_K)
+        want = KNN.knn_topk_plain(x, mask, KNN_K)
+        equal = bool(torch.equal(got, want))
+        short = bool(torch.equal(
+            got[2, :, 15:], torch.arange(15, KNN_K, device=DEVICE)
+            .expand(KNN_P, KNN_K - 15)))
+        del got, want
+        xr, mr = _knn_clouds(f, integer=False)
+        got = KNN.knn_topk(xr, mr, KNN_K)
+        want = KNN.knn_topk_plain(xr, mr, KNN_K)
+        rows_equal = float((got == want).all(-1).float().mean())
+        dk, dp = _neighbour_distances(xr, got), _neighbour_distances(xr, want)
+        gap = float((dk - dp).abs().max()) / float(dp.max())
+        del got, want, dk, dp
+        ms = timed_ms(lambda: KNN.knn_topk(xr, mr, KNN_K))
+        plain_ms = timed_ms(lambda: KNN.knn_topk_plain(xr, mr, KNN_K),
+                            iters=2, warmup=1, graph=False)
+        sq = (xr * xr).sum(-1)
+        dist = sq[..., :, None] - 2.0 * xr @ xr.transpose(1, 2) + sq[..., None, :]
+        library_ms = timed_ms(
+            lambda: torch.topk(dist, KNN_K, dim=-1, largest=False),
+            iters=3, warmup=1, graph=False)
+        del dist, sq
+        b_ms, b_by = bound(KNN_B * KNN_P * (4 * f + 1 + 8 * KNN_K),
+                           2.0 * KNN_B * KNN_P * KNN_P * f, torch.float32)
+        row = dict(shape=f"B={KNN_B} P={KNN_P} k={KNN_K} F={f}",
+                   features=f, integer_equal=equal, short_cloud_fill=short,
+                   real_rows_equal=rows_equal, real_gap=gap,
+                   real_tol=KNN_REAL_TOL, max_abs_err=0.0, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_ms)
+        emit({"phase": "knn_kernel", **row})
+        require(equal and short,
+                f"knn_topk F={f}: integer clouds differ from the plain "
+                f"version: {row}")
+        require(gap <= KNN_REAL_TOL,
+                f"knn_topk F={f}: real-valued neighbours beyond rounding: {row}")
+        rows.append(row)
+        del x, mask, xr, mr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def knn_kernel_row(knn_rows, model_launches) -> dict:
+    """The neighbour search's entry of the kernels line: its headline the
+    last stage's width, its launches those of the dgcnn train run."""
+    head = knn_rows[-1]
+    return dict(
+        name="knn_topk", route="cuda",
+        source="sparseeventid_tpu_torch/csrc/knn.cu",
+        replaces="sparseeventid_tpu/models/dgcnn.py:26",
+        launches=model_launches["dgcnn"]["knn_topk"], path="dgcnn",
+        **{f"launches_{m}": counts.get("knn_topk", 0)
+           for m, counts in model_launches.items()},
+        max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"], shape=head["shape"], shapes=knn_rows)
 
 
 SWEEP_TOL = 1e-4  # window output against the xla backend and cuDNN, of the scale
@@ -5207,6 +5395,7 @@ def main(argv) -> int:
         phase_visualize()
         dp_launches = phase_dp_world1(dataset)
         dp_two_rank_launches = phase_dp_two_ranks()
+        knn_rows = phase_knn_kernels()
         t_models = time.perf_counter()
         model_launches = {"groupnorm": phase_groupnorm(dataset),
                           "remat": phase_remat(dataset)}
@@ -5304,6 +5493,7 @@ def main(argv) -> int:
                 library_ms=head["library_ms"], shape=head["shape"],
                 parent_ms=head.get("parent_ms"), shapes=per_shape,
             ))
+        kernels.append(knn_kernel_row(knn_rows, model_launches))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,11 +4,12 @@ fixed-capacity point clouds [..., P, F] with a validity mask.
 Each of four edge-conv stages (64, 64, 128, 256) builds the k-nearest
 neighbour graph of its input features, forms the edge features
 (x_j - x_i, x_i), applies a shared Dense, batch norm and leaky ReLU 0.2,
-and takes the max over the neighbours.  The stages' outputs are
-concatenated, mapped to ``emb_dims``, and pooled by masked max and masked
-mean; multiplane clouds [B, planes, P, F] share the weights and
-concatenate the planes' embeddings.  Then per label: FC 512, leaky ReLU,
-dropout, FC hidden, leaky ReLU, FC n.
+and takes the max over the neighbours (the tracer's spans: ``dgcnn.knn``
+around the search, ``dgcnn.edge_conv`` around the rest of the stage).  The
+stages' outputs are concatenated, mapped to ``emb_dims``, and pooled by
+masked max and masked mean; multiplane clouds [B, planes, P, F] share
+the weights and concatenate the planes' embeddings.  Then per label: FC
+512, leaky ReLU, dropout, FC hidden, leaky ReLU, FC n.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Dict, Mapping, Sequence
 import torch
 from torch import nn
 
+from ..ops.knn_kernels import knn_topk
+from ..utils import telemetry
 from .dense import leaky_relu
 from .heads import dropout
 from .pointnet import Dense, MaskedPointBN, masked_max
@@ -25,15 +28,19 @@ from .pointnet import Dense, MaskedPointBN, masked_max
 
 def knn_indices(x: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
     """[..., P, F] -> the indices [..., P, k] of each point's k nearest
-    valid points, itself included, by squared euclidean distance in the
-    input's type.  Padded points sit at distance 1e9.  Equal distances
-    take the lower index first, as ``jax.lax.top_k`` breaks ties (a stable
-    sort; ``torch.topk`` promises no order among ties)."""
-    sq = (x * x).sum(dim=-1)
-    d = (sq[..., :, None] - 2.0 * torch.einsum("...pf,...qf->...pq", x, x)
-         + sq[..., None, :])
-    d = torch.where(mask[..., None, :], d, 1e9)
-    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    valid points, itself included, by squared euclidean distance in
+    float32, or in the input's type where it is wider (bf16 and float16
+    points, as ``run.precision=bfloat16`` gives the first stage, widen
+    exactly).  Padded points sit at distance 1e9.  Equal distances take
+    the lower index first, as ``jax.lax.top_k`` breaks ties (a stable
+    sort; ``torch.topk`` promises no order among ties).  On the card the
+    search is ``csrc/knn.cu``'s kernel, on the CPU the plain version
+    (``ops/knn_kernels``); both run without autograd on the detached
+    features, so no [..., P, P] tensor is kept for the backward."""
+    x = x.detach()
+    with torch.no_grad():
+        return knn_topk(x.to(torch.promote_types(x.dtype, torch.float32)),
+                        mask, k)
 
 
 def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -56,14 +63,17 @@ class EdgeConv(nn.Module):
         self.bn = MaskedPointBN(n_out)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        e = edge_features(x, knn_indices(x, mask, self.k))
-        h = self.fc(e)  # [..., P, k, n_out]
-        # the norm runs over the flattened edges of the valid points
-        lead = h.shape[:-3]
-        flat_mask = mask[..., None].expand(h.shape[:-1]).reshape(*lead, -1)
-        h = self.bn(h.reshape(*lead, -1, self.n_out), flat_mask).reshape(h.shape)
-        out = leaky_relu(h, 0.2).amax(dim=-2)
-        return torch.where(mask[..., None], out, 0)
+        with telemetry.span("dgcnn.knn"):
+            idx = knn_indices(x, mask, self.k)
+        with telemetry.span("dgcnn.edge_conv"):
+            h = self.fc(edge_features(x, idx))  # [..., P, k, n_out]
+            # the norm runs over the flattened edges of the valid points
+            lead = h.shape[:-3]
+            flat_mask = mask[..., None].expand(h.shape[:-1]).reshape(*lead, -1)
+            h = self.bn(h.reshape(*lead, -1, self.n_out),
+                        flat_mask).reshape(h.shape)
+            out = leaky_relu(h, 0.2).amax(dim=-2)
+            return torch.where(mask[..., None], out, 0)
 
 
 class DGCNNClassifier(nn.Module):

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
            "window_dw", "overflow_dw", "window_gather", "gather_conv",
-           "masked_norm")
+           "masked_norm", "knn")
 # headers a source includes: an edited header rebuilds every source
 HEADERS = ("window_match.cuh", "window_tc.cuh")
 NVCC_FLAGS = (
@@ -76,6 +76,8 @@ SIGNATURES.update({
 })
 for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
+# float32 only: x, mask, N, P, F, k, out, the stream
+SIGNATURES["seid_knn_topk_f32"] = [_P, _P, _I, _I, _I, _I, _P, _P]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -57,6 +57,7 @@ from ..io import (
 )
 from ..models import DENSE, POINTS, SPARSE, build_model, init_parameters
 from ..parallel import mesh
+from ..utils import telemetry
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from .plans import run_planner
@@ -149,6 +150,13 @@ def max_points(cfg: SparseEventIDConfig) -> int:
     return getattr(cfg.encoder, "max_points", 2048)
 
 
+def points_truncated(image: np.ndarray, points: int) -> int:
+    """The valid voxels of a padded 3-D larcv image [B, MaxVoxels, D+1]
+    that a cloud of ``points`` points leaves out."""
+    valid = np.all(image[..., :-1] != -999.0, axis=-1).sum(axis=-1)
+    return int(np.maximum(valid - points, 0).sum())
+
+
 def to_input(image: np.ndarray, grid, capacity: int | None,
              dtype: torch.dtype, device: torch.device, mode: str = SPARSE,
              points: int = 2048):
@@ -156,13 +164,18 @@ def to_input(image: np.ndarray, grid, capacity: int | None,
     device, in the feature type (the JAX trainer's ``_image_to_input``):
     ``sparse``, a SparseTensor of ``capacity`` rows (a 4-D image is 2D
     multiplane data, [B, planes, MaxVoxels, 3]); ``dense``, the grid
-    [B, *grid, 1]; ``points``, (points [B, points, D+1], mask).  The dense
-    and point-cloud conversions take 3-D images only."""
+    [B, *grid, 1]; ``points``, (points [B, points, D+1], mask), counting
+    the valid voxels beyond ``points`` as ``points_truncated`` while the
+    tracer records.  The dense and point-cloud conversions take 3-D images
+    only."""
     if mode == DENSE:
         dense = torch.from_numpy(larcv_batch_to_dense(image, tuple(grid)))
         return dense.to(device).to(dtype)
     if mode == POINTS:
         pts, mask = larcv_batch_to_pointcloud(image, points)
+        if telemetry.recording():
+            telemetry.count("points_truncated",
+                            points_truncated(image, points))
         return (torch.from_numpy(pts).to(device).to(dtype),
                 torch.from_numpy(mask).to(device))
     to_sparse = (larcv_batch_to_sparse_2d if image.ndim == 4

@@ -170,6 +170,12 @@ def count(name: str, n: int = 1) -> None:
         tracer.count(name, n)
 
 
+def recording() -> bool:
+    """True while a ``tracing()`` block records: a count that costs work
+    to compute is computed only then."""
+    return _tracer is not None
+
+
 class Tracer:
     """What one ``tracing()`` block records.  ``spans``, ``counts`` and
     ``threads`` (thread ident -> name) are filled when the block ends;
