@@ -201,9 +201,18 @@ Phases, one JSON line each; any failure exits non-zero:
               ties, padding and a cloud of 15 points, the float64
               neighbour distances within KNN_REAL_TOL on real-valued ones,
               ms, bound_ms, plain_ms and library_ms (torch.topk on the
-              materialised distances); pointnet and dgcnn
+              materialised distances); then csrc/edge_conv.cu's edge_conv
+              at each stage of the dgcnn3d cell (phase_edge_conv_kernels:
+              B=8, P=8192, k=20, F -> C 4->64, 64->64, 64->128,
+              128->256): the plain version's output bit for bit on
+              integer-valued clouds, on real-valued ones the output and
+              the backward's within EDGE_TOL, the kernels' forward and
+              backward ms against the plain version's and the parent's
+              composition (edge features, Dense, MaskedPointBN, leaky
+              ReLU, max; autograd); pointnet and dgcnn
               (encoder=pointnet|dgcnn, 2048 points an event, trained at
-              bf16: DGCNN launches knn_topk 4 times a forward, PointNet
+              bf16: DGCNN launches knn_topk and edge_conv 4 times a
+              forward and edge_conv_backward 4 times a step, PointNet
               never; the card against the CPU from the same weights
               within rtol = atol = 1e-3, TF32 off, DGCNN's CPU pass on the
               card's neighbour lists, the first stage's own lists equal;
@@ -270,8 +279,8 @@ Phases, one JSON line each; any failure exits non-zero:
      launches_groupnorm, _remat, _pointnet, _dgcnn, _per_label and _dense
      of the model runs; launches_sparse_efficiency of the sweep;
      launches_bench of the drivers; launches_accuracy of the long window
-     run of the accuracy phase; knn_topk's row last, its launches those of
-     the dgcnn train run), then {"ok": true, "device": {...}} last.
+     run of the accuracy phase; knn_topk's and edge_conv's rows last, their
+     launches those of the dgcnn train run), then {"ok": true, "device": {...}} last.
 
 It needs the repository around it and a CUDA device: without either it
 prints no result and exits with 2.  Kernels build into build/torch_kernels/,
@@ -4365,6 +4374,12 @@ KNN_FEATURES = (4, 64, 128)
 # float64 distances of the neighbours each picks, row by row in ascending
 # order, within this share of the largest of them
 KNN_REAL_TOL = 1e-5
+# the edge convolution's rows: the dgcnn3d cell's stages (F -> C) at
+# KNN_B x KNN_P, k = KNN_K; on real-valued data the kernels and the plain
+# version sum in other orders: the output and d ab within this share of
+# their largest value
+EDGE_STAGES = ((4, 64), (64, 64), (64, 128), (128, 256))
+EDGE_TOL = 1e-4
 
 
 def _fp32_window_vs_plain(phase, extra, dataset, grid, recipe="dune3d",
@@ -4432,15 +4447,25 @@ def _fp32_window_vs_plain(phase, extra, dataset, grid, recipe="dune3d",
             f"{phase}: fp32 gradients differ: {report}")
 
 
-def _knn_counted(fn):
-    """Run ``fn`` with the neighbour search's launch and plain-call counts
-    at 0 -> (its result, {"knn_topk": launches, "knn_topk_plain": calls})."""
+def _point_kernels_counted(fn):
+    """Run ``fn`` with the neighbour search's and the edge convolution's
+    launch and plain-call counts at 0 -> (its result, {"knn_topk":
+    launches, "knn_topk_plain": calls, "edge_conv": forward launches,
+    "edge_conv_backward": backward launches, "edge_conv_plain": the plain
+    versions' calls})."""
+    from sparseeventid_tpu_torch.ops import edge_conv_kernels as EK
     from sparseeventid_tpu_torch.ops import knn_kernels as KNN
 
     KNN.knn_topk.launches = KNN.knn_topk_plain.calls = 0
+    EK.edge_conv.launches = EK.edge_conv_backward.launches = 0
+    EK.edge_conv_plain.calls = EK.edge_conv_backward_plain.calls = 0
     out = fn()
     return out, {"knn_topk": KNN.knn_topk.launches,
-                 "knn_topk_plain": KNN.knn_topk_plain.calls}
+                 "knn_topk_plain": KNN.knn_topk_plain.calls,
+                 "edge_conv": EK.edge_conv.launches,
+                 "edge_conv_backward": EK.edge_conv_backward.launches,
+                 "edge_conv_plain": (EK.edge_conv_plain.calls
+                                     + EK.edge_conv_backward_plain.calls)}
 
 
 def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
@@ -4449,10 +4474,11 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     """MODEL_STEPS steps through trainer.train, then validate() over the
     dataset from the run's checkpoint: finite losses, 0 dropped, the launch
     counts of every kernel ``per_step`` times the steps and ``per_forward``
-    times the batches, the neighbour search's kernel ``knn_per_forward``
-    times each forward (a train step runs one), no plain version -> (steps/s,
-    events/s of training, events/s of inference, the train run's launches,
-    knn_topk's among them)."""
+    times the batches, the neighbour search's kernel and the edge
+    convolution's ``knn_per_forward`` times each forward (a train step runs
+    one, and as many edge backwards), no plain version -> (steps/s, events/s
+    of training, events/s of inference, the train run's launches, knn_topk's
+    and edge_conv's among them)."""
     import numpy as np
     import torch
 
@@ -4463,7 +4489,7 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
                         f"mode.iterations={MODEL_STEPS}",
                         f"run.minibatch_size={train_batch}", *extra], recipe)
     torch.cuda.reset_peak_memory_stats()
-    (run, launches, plain_calls, ops), knn = _knn_counted(
+    (run, launches, plain_calls, ops), knn = _point_kernels_counted(
         lambda: _counted_dp(lambda: train(cfg, dataset=dataset, device=DEVICE)))
     train_peak = torch.cuda.max_memory_allocated() / 2**30
     history = run.history
@@ -4478,9 +4504,12 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     require(all(v == 0 for v in plain_calls.values()) and not any(ops.values()),
             f"{phase}: plain version or ops-path kernel on the path: "
             f"{plain_calls}, {ops}")
-    want_knn = {"knn_topk": knn_per_forward * MODEL_STEPS, "knn_topk_plain": 0}
+    want_knn = {"knn_topk": knn_per_forward * MODEL_STEPS, "knn_topk_plain": 0,
+                "edge_conv": knn_per_forward * MODEL_STEPS,
+                "edge_conv_backward": knn_per_forward * MODEL_STEPS,
+                "edge_conv_plain": 0}
     require(knn == want_knn,
-            f"{phase}: neighbour search {knn}, expected {want_knn}")
+            f"{phase}: point-cloud kernels {knn}, expected {want_knn}")
     timed = [m["time/io_s"] + m["time/step_s"] for m in history[1:]]
     steps_per_s = len(timed) / sum(timed)
     del run
@@ -4494,7 +4523,7 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (metrics, v_launches, v_plain, v_ops), v_knn = _knn_counted(
+    (metrics, v_launches, v_plain, v_ops), v_knn = _point_kernels_counted(
         lambda: _counted_dp(
             lambda: validate(cfg_v, dataset=dataset, device=DEVICE)))
     seconds = time.perf_counter() - t0
@@ -4508,9 +4537,12 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
     require(all(v == 0 for v in v_plain.values()) and not any(v_ops.values()),
             f"{phase} inference: plain version or ops-path kernel on the path: "
             f"{v_plain}, {v_ops}")
-    want_knn = {"knn_topk": knn_per_forward * n_batches, "knn_topk_plain": 0}
+    want_knn = {"knn_topk": knn_per_forward * n_batches, "knn_topk_plain": 0,
+                "edge_conv": knn_per_forward * n_batches,
+                "edge_conv_backward": 0, "edge_conv_plain": 0}
     require(v_knn == want_knn,
-            f"{phase} inference: neighbour search {v_knn}, expected {want_knn}")
+            f"{phase} inference: point-cloud kernels {v_knn}, expected "
+            f"{want_knn}")
     events_per_s = n_batches * BATCH / seconds
     emit({"phase": phase, "recipe": recipe, "steps": MODEL_STEPS,
           "train_batch": train_batch,
@@ -4520,6 +4552,8 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
           "train_peak_mem_gib": train_peak, "inference_metrics": metrics,
           "knn_launches": knn["knn_topk"],
           "inference_knn_launches": v_knn["knn_topk"],
+          "edge_conv_launches": [knn["edge_conv"], knn["edge_conv_backward"]],
+          "inference_edge_conv_launches": v_knn["edge_conv"],
           "inference_launches": v_launches, "inference_batch": BATCH,
           "inference_seconds": seconds,
           "inference_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
@@ -4530,7 +4564,9 @@ def train_and_validate(phase, extra, dataset, grid, recipe="dune3d",
                       "timed_steps": len(timed), "precision": "bfloat16"}),
           flush=True)
     STEPS_PER_S[phase] = steps_per_s
-    return {**launches, **ops, "knn_topk": knn["knn_topk"]}
+    return {**launches, **ops, "knn_topk": knn["knn_topk"],
+            "edge_conv": knn["edge_conv"],
+            "edge_conv_backward": knn["edge_conv_backward"]}
 
 
 def phase_groupnorm(dataset):
@@ -4983,6 +5019,178 @@ def knn_kernel_row(knn_rows, model_launches) -> dict:
         library_ms=head["library_ms"], shape=head["shape"], shapes=knn_rows)
 
 
+def _edge_inputs(f, c, integer):
+    """One stage's inputs at KNN_B x KNN_P, k = KNN_K -> (ab, idx, mask,
+    scale, offset, x, weight): integer values in [-3, 3] with cloud 1's
+    every third point padded and cloud 2 of 15 points, or real values (the
+    first stage's coordinates up to 1280 at f = 4); a third of the
+    channels of negative scale."""
+    import torch
+
+    from sparseeventid_tpu_torch.ops.knn_kernels import knn_topk
+
+    x, mask = _knn_clouds(f, integer)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + c)
+    if integer:
+        w = torch.randint(-2, 3, (c, 2 * f), generator=gen, device=DEVICE).float()
+        scale = torch.randint(1, 3, (c,), generator=gen, device=DEVICE).float()
+        offset = torch.randint(-1, 2, (c,), generator=gen, device=DEVICE).float()
+    else:
+        w = torch.randn((c, 2 * f), generator=gen, device=DEVICE) / (2 * f) ** 0.5
+        scale = torch.rand((c,), generator=gen, device=DEVICE) + 0.5
+        offset = torch.randn((c,), generator=gen, device=DEVICE) * 0.3
+    scale[: c // 3] *= -1.0
+    x = torch.where(mask[..., None], x, 0.0)
+    idx = knn_topk(x, mask, KNN_K)
+    wd = w[:, :f]
+    ab = x @ torch.cat([wd, w[:, f:] - wd]).t()
+    return ab, idx, mask, scale, offset, x, w
+
+
+def phase_edge_conv_kernels():
+    """csrc/edge_conv.cu at each stage of the dgcnn3d cell (EDGE_STAGES,
+    KNN_B x KNN_P, k = KNN_K), training: on integer-valued clouds the plain
+    version's output, statistics and running averages bit for bit; on
+    real-valued ones its output and the backward's d ab and sums within
+    EDGE_TOL; the forward's and the backward's device ms (10 calls in one
+    CUDA graph: the kernels and the backward's reverse index, without the
+    host's cost of the wrappers; the matrix products not timed), the bound
+    (the bytes each must move: ab, the lists and the output forward; dy,
+    ab, the lists, the output and d ab backward), the plain version's ms,
+    and the parent's composition's (edge features, Dense, MaskedPointBN,
+    leaky ReLU, max, forward and its autograd backward) as library_ms ->
+    the rows."""
+    import torch
+
+    from sparseeventid_tpu_torch.models.dgcnn import edge_features
+    from sparseeventid_tpu_torch.models.pointnet import MaskedPointBN
+    from sparseeventid_tpu_torch.models.dense import leaky_relu
+    from sparseeventid_tpu_torch.ops import edge_conv_kernels as EK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    kw = dict(momentum=0.9, eps=1e-5)
+
+    def forward(fn, ab, idx, mask, scale, offset):
+        c = scale.shape[0]
+        rm = torch.zeros(c, device=DEVICE)
+        rv = torch.ones(c, device=DEVICE)
+        return fn(ab, idx, mask, scale, offset, rm, rv, training=True,
+                  **kw), rm, rv
+
+    for f, c in EDGE_STAGES:
+        ab, idx, mask, scale, offset, _, _ = _edge_inputs(f, c, True)
+        (out_k, saved_k), rm_k, rv_k = forward(EK._forward, ab, idx, mask,
+                                               scale, offset)
+        (out_p, saved_p), rm_p, rv_p = forward(EK.edge_conv_plain, ab, idx,
+                                               mask, scale, offset)
+        equal = all(torch.equal(a, b) for a, b in
+                    ((out_k, out_p), (saved_k, saved_p), (rm_k, rm_p),
+                     (rv_k, rv_p)))
+        del ab, idx, mask, out_k, out_p
+        torch.cuda.empty_cache()
+
+        ab, idx, mask, scale, offset, x, w = _edge_inputs(f, c, False)
+        (out, saved), _, _ = forward(EK._forward, ab, idx, mask, scale, offset)
+        (out_p, saved_p), _, _ = forward(EK.edge_conv_plain, ab, idx, mask,
+                                         scale, offset)
+        out_err = float((out - out_p).abs().max() / out_p.abs().max())
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        dy = torch.randn(out.shape, generator=gen, device=DEVICE)
+        bwd = dict(training=True)
+        dab, sums = EK.edge_conv_backward(dy, ab, idx, mask, out, saved,
+                                          scale, offset, **bwd)
+        dab_p, sums_p = EK.edge_conv_backward_plain(dy, ab, idx, mask, out,
+                                                    saved, scale, offset,
+                                                    **bwd)
+        dab_err = float((dab - dab_p).abs().max() / dab_p.abs().max())
+        sums_err = float((sums - sums_p).abs().max() / sums_p.abs().max())
+        repeat = bool(torch.equal(dab, EK.edge_conv_backward(
+            dy, ab, idx, mask, out, saved, scale, offset, **bwd)[0]))
+        del out_p, saved_p, dab_p, sums_p
+        torch.cuda.empty_cache()
+        rm = torch.zeros(c, device=DEVICE)
+        rv = torch.ones(c, device=DEVICE)
+        fwd_ms = timed_ms(lambda: EK._forward(ab, idx, mask, scale, offset,
+                                              rm, rv, training=True, **kw))
+        bwd_ms = timed_ms(lambda: EK.edge_conv_backward(
+            dy, ab, idx, mask, out, saved, scale, offset, **bwd))
+        plain_fwd_ms = timed_ms(lambda: forward(
+            EK.edge_conv_plain, ab, idx, mask, scale, offset), iters=2,
+            warmup=1, graph=False)
+        plain_bwd_ms = timed_ms(lambda: EK.edge_conv_backward_plain(
+            dy, ab, idx, mask, out, saved, scale, offset, **bwd), iters=2,
+            warmup=1, graph=False)
+        torch.cuda.empty_cache()
+        bn = MaskedPointBN(c).to(DEVICE)
+        xg = x.clone().requires_grad_(True)
+        wg = w.clone().requires_grad_(True)
+
+        def composed():
+            h = edge_features(xg, idx) @ wg.t()
+            flat = mask[..., None].expand(h.shape[:-1]).reshape(KNN_B, -1)
+            h = bn(h.reshape(KNN_B, -1, c), flat).reshape(h.shape)
+            o = torch.where(mask[..., None], leaky_relu(h, 0.2).amax(dim=-2), 0)
+            o.backward(dy)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        library_ms = timed_ms(composed, iters=3, warmup=1, graph=False)
+        library_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        forward(EK._forward, ab, idx, mask, scale, offset)
+        EK.edge_conv_backward(dy, ab, idx, mask, out, saved, scale, offset,
+                              **bwd)
+        torch.cuda.synchronize()
+        kernel_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        m = KNN_B * KNN_P
+        fwd_b_ms, fwd_by = bound(m * (8 * c + 8 * KNN_K + 4 * c), 0.0,
+                                 torch.float32)
+        bwd_b_ms, bwd_by = bound(m * (4 * c + 8 * c + 8 * KNN_K + 4 * c
+                                      + 8 * c), 0.0, torch.float32)
+        row = dict(shape=f"B={KNN_B} P={KNN_P} k={KNN_K} F={f} C={c}",
+                   integer_equal=equal, out_err=out_err, dab_err=dab_err,
+                   sums_err=sums_err, backward_repeats=repeat,
+                   max_abs_err=max(out_err, dab_err), ms=fwd_ms + bwd_ms,
+                   forward_ms=fwd_ms, backward_ms=bwd_ms,
+                   bound_ms=fwd_b_ms + bwd_b_ms, bound_by=fwd_by,
+                   plain_ms=plain_fwd_ms + plain_bwd_ms,
+                   plain_forward_ms=plain_fwd_ms,
+                   plain_backward_ms=plain_bwd_ms, library_ms=library_ms,
+                   peak_gib=kernel_peak, library_peak_gib=library_peak)
+        emit({"phase": "edge_conv_kernel", **row})
+        require(equal, f"edge_conv F={f} C={c}: integer clouds differ from "
+                f"the plain version: {row}")
+        require(max(out_err, dab_err, sums_err) <= EDGE_TOL and repeat,
+                f"edge_conv F={f} C={c}: real-valued data beyond rounding, "
+                f"or a backward that does not repeat: {row}")
+        rows.append(row)
+        del ab, idx, mask, out, saved, dy, dab, x, w, xg, wg, bn
+        torch.cuda.empty_cache()
+    return rows
+
+
+def edge_conv_kernel_row(edge_rows, model_launches) -> dict:
+    """The edge convolution's entry of the kernels line: its headline the
+    last stage, its launches (forward, backward) those of the dgcnn train
+    run."""
+    head = edge_rows[-1]
+    return dict(
+        name="edge_conv", route="cuda",
+        source="sparseeventid_tpu_torch/csrc/edge_conv.cu",
+        replaces="sparseeventid_tpu/models/dgcnn.py (jnp: no TPU kernel)",
+        launches=[model_launches["dgcnn"]["edge_conv"],
+                  model_launches["dgcnn"]["edge_conv_backward"]],
+        path="dgcnn",
+        **{f"launches_{m}": counts.get("edge_conv", 0)
+           for m, counts in model_launches.items()},
+        max_abs_err=head["max_abs_err"], ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        shape=head["shape"], shapes=edge_rows)
+
+
 SWEEP_TOL = 1e-4  # window output against the xla backend and cuDNN, of the scale
 
 
@@ -5396,6 +5604,7 @@ def main(argv) -> int:
         dp_launches = phase_dp_world1(dataset)
         dp_two_rank_launches = phase_dp_two_ranks()
         knn_rows = phase_knn_kernels()
+        edge_rows = phase_edge_conv_kernels()
         t_models = time.perf_counter()
         model_launches = {"groupnorm": phase_groupnorm(dataset),
                           "remat": phase_remat(dataset)}
@@ -5494,6 +5703,7 @@ def main(argv) -> int:
                 parent_ms=head.get("parent_ms"), shapes=per_shape,
             ))
         kernels.append(knn_kernel_row(knn_rows, model_launches))
+        kernels.append(edge_conv_kernel_row(edge_rows, model_launches))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

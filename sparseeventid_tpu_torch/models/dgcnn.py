@@ -5,10 +5,12 @@ Each of four edge-conv stages (64, 64, 128, 256) builds the k-nearest
 neighbour graph of its input features, forms the edge features
 (x_j - x_i, x_i), applies a shared Dense, batch norm and leaky ReLU 0.2,
 and takes the max over the neighbours (the tracer's spans: ``dgcnn.knn``
-around the search, ``dgcnn.edge_conv`` around the rest of the stage).  The
-stages' outputs are concatenated, mapped to ``emb_dims``, and pooled by
-masked max and masked mean; multiplane clouds [B, planes, P, F] share
-the weights and concatenate the planes' embeddings.  Then per label: FC
+around the search, ``dgcnn.edge_conv`` around the rest of the stage, which
+``ops/edge_conv_kernels.edge_conv`` runs without forming the edges: CUDA
+kernels on the card, counted as ``edge_conv_fused`` while the tracer
+records).  The stages' outputs are concatenated, mapped to ``emb_dims``,
+and pooled by masked max and masked mean; multiplane clouds [B, planes,
+P, F] share the weights and concatenate the planes' embeddings.  Then per label: FC
 512, leaky ReLU, dropout, FC hidden, leaky ReLU, FC n.
 """
 
@@ -19,6 +21,7 @@ from typing import Dict, Mapping, Sequence
 import torch
 from torch import nn
 
+from ..ops.edge_conv_kernels import edge_conv
 from ..ops.knn_kernels import knn_topk
 from ..utils import telemetry
 from .dense import leaky_relu
@@ -44,7 +47,8 @@ def knn_indices(x: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(x_j - x_i, x_i) edge features [..., P, k, 2F]."""
+    """(x_j - x_i, x_i) edge features [..., P, k, 2F], as the JAX package
+    forms them (the model's stages never do: see ``EdgeConv``)."""
     p, f = x.shape[-2:]
     k = idx.shape[-1]
     flat = idx.reshape(*idx.shape[:-2], p * k, 1).expand(
@@ -55,6 +59,12 @@ def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class EdgeConv(nn.Module):
+    """One stage: the neighbour search, then ``edge_conv`` with the Dense's
+    weight [n_out, 2 c_in] and the norm's parameters and running
+    statistics (the JAX package's edge features, Dense, batch norm over
+    the edges of the valid points, leaky ReLU 0.2 and max over the
+    neighbours; 0 at the padded points)."""
+
     def __init__(self, c_in: int, n_out: int, k: int):
         super().__init__()
         self.k = k
@@ -66,14 +76,10 @@ class EdgeConv(nn.Module):
         with telemetry.span("dgcnn.knn"):
             idx = knn_indices(x, mask, self.k)
         with telemetry.span("dgcnn.edge_conv"):
-            h = self.fc(edge_features(x, idx))  # [..., P, k, n_out]
-            # the norm runs over the flattened edges of the valid points
-            lead = h.shape[:-3]
-            flat_mask = mask[..., None].expand(h.shape[:-1]).reshape(*lead, -1)
-            h = self.bn(h.reshape(*lead, -1, self.n_out),
-                        flat_mask).reshape(h.shape)
-            out = leaky_relu(h, 0.2).amax(dim=-2)
-            return torch.where(mask[..., None], out, 0)
+            bn = self.bn
+            return edge_conv(x, idx, mask, self.fc.weight, bn.scale, bn.bias,
+                             bn.mean, bn.var, training=self.training,
+                             momentum=bn.momentum, eps=bn.eps)
 
 
 class DGCNNClassifier(nn.Module):

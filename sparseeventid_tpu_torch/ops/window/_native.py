@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
            "window_dw", "overflow_dw", "window_gather", "gather_conv",
-           "masked_norm", "knn")
+           "masked_norm", "knn", "edge_conv")
 # headers a source includes: an edited header rebuilds every source
 HEADERS = ("window_match.cuh", "window_tc.cuh")
 NVCC_FLAGS = (
@@ -78,6 +78,14 @@ for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
 # float32 only: x, mask, N, P, F, k, out, the stream
 SIGNATURES["seid_knn_topk_f32"] = [_P, _P, _I, _I, _I, _I, _P, _P]
+# the edge conv's, float32 only: ab, idx, mask, (N, P, C, K) and the launch
+# shape (vec, threads, per_block, grid), then each entry's own
+_EDGES = [_I] * 8
+SIGNATURES["seid_edge_conv_fwd_f32"] = (
+    [_P, _P, _P] + _EDGES + [_P] * 4 + [_F] * 3 + [_I, _F] + [_P] * 6)
+# the backward's take dy first and out, saved, scale, bias after the mask
+SIGNATURES["seid_edge_conv_bwd_f32"] = (
+    [_P] * 8 + _EDGES + [_I, _F] + [_P] * 3 + [_I] + [_P] * 8)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

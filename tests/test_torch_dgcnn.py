@@ -288,3 +288,187 @@ def test_model_searches_bf16_points_with_the_kernel(card):
                        KK.knn_topk_plain(x * 64.0, mask, 20))
     assert all(torch.isfinite(p.grad).all() for p in model.parameters()
                if p.grad is not None)
+
+
+# ---- the edge convolution's kernels (csrc/edge_conv.cu) on the card
+
+from sparseeventid_tpu_torch.models.pointnet import MaskedPointBN  # noqa: E402
+from sparseeventid_tpu_torch.ops import edge_conv_kernels as EK  # noqa: E402
+
+_BN = MaskedPointBN(1)
+NORM = dict(momentum=_BN.momentum, eps=_BN.eps)  # the model's norm settings
+
+# the dgcnn3d cell's stages: (input features, output features)
+CELL_STAGES = ((4, 64), (64, 64), (64, 128), (128, 256))
+# real-valued data: the kernels and the plain version sum the statistics
+# and the incoming edges in other orders; out within this share of its
+# largest value, each gradient within this share of its own largest
+GRAD_TOL = 1e-4
+OUT_TOL = 1e-5
+
+
+def _stage_inputs(card, n, p, f, c, integer, seed=0):
+    """n clouds of p points (cloud 1 with every third point padded, cloud
+    2 of 15 valid points when n >= 3), the weight [c, 2f], scale (a third
+    of the channels negative), offset, the neighbour lists (k = 20)."""
+    gen = torch.Generator(device=card).manual_seed(seed + f + c)
+    mask = torch.ones((n, p), dtype=torch.bool, device=card)
+    if n >= 3:
+        mask[1, ::3] = False
+        mask[2, 15:] = False
+    if integer:
+        x = torch.randint(-3, 4, (n, p, f), generator=gen, device=card).float()
+        w = torch.randint(-2, 3, (c, 2 * f), generator=gen, device=card).float()
+        scale = torch.randint(1, 3, (c,), generator=gen, device=card).float()
+        bias = torch.randint(-1, 2, (c,), generator=gen, device=card).float()
+    else:
+        x = torch.randn((n, p, f), generator=gen, device=card)
+        if f == 4:  # the first stage's coordinates and charge
+            x[..., :3] = torch.randint(0, 1280, (n, p, 3), generator=gen,
+                                       device=card).float()
+        w = torch.randn((c, 2 * f), generator=gen, device=card) / (2 * f) ** 0.5
+        scale = torch.rand((c,), generator=gen, device=card) + 0.5
+        bias = torch.randn((c,), generator=gen, device=card) * 0.3
+    scale[: c // 3] *= -1.0
+    x = torch.where(mask[..., None], x, 0.0)
+    return x, mask, w, scale, bias, knn_indices(x, mask, 20)
+
+
+def _stage(x, mask, w, scale, bias, idx, training=True, seed=1):
+    """(out, running mean, running var, d x, d w, d scale, d bias) of one
+    stage for a fixed random cotangent."""
+    c = w.shape[0]
+    rm = torch.zeros(c, device=x.device)
+    rv = torch.ones(c, device=x.device)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, bias)]
+    out = EK.edge_conv(leaves[0], idx, mask, leaves[1], leaves[2], leaves[3],
+                       rm, rv, training=training, **NORM)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.randn(out.shape, generator=gen, device=x.device)
+    (out * g).sum().backward()
+    return [out.detach(), rm, rv] + [t.grad for t in leaves]
+
+
+def _plain_on_the_card(monkeypatch):
+    monkeypatch.setattr(EK, "_use_kernel", lambda *t: False)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("f,c", [(4, 64), (64, 64)])
+@pytest.mark.parametrize("training", [True, False])
+def test_edge_kernels_equal_the_plain_version(card, monkeypatch, f, c,
+                                              training):
+    """Integer-valued clouds (3 x 2048 points: padding, a cloud of 15 and
+    ties), k = 20: the forward's output and running statistics are the
+    plain version's bit for bit (every sum exact); the gradients, whose
+    shares divide by the ties and the count, within 1e-6 of their largest
+    entry (the plain version sums in other orders and scatters with float
+    atomics); the kernels' own bits the same on a second run."""
+    inputs = _stage_inputs(card, 3, 2048, f, c, integer=True)
+    launches = EK.edge_conv.launches, EK.edge_conv_backward.launches
+    plain = EK.edge_conv_plain.calls, EK.edge_conv_backward_plain.calls
+    got = _stage(*inputs, training=training)
+    torch.cuda.synchronize()
+    assert (EK.edge_conv.launches, EK.edge_conv_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert (EK.edge_conv_plain.calls,
+            EK.edge_conv_backward_plain.calls) == plain
+    with monkeypatch.context() as m:
+        _plain_on_the_card(m)
+        want = _stage(*inputs, training=training)
+    names = ("out", "run_mean", "run_var", "x", "weight", "scale", "bias")
+    for name, a, b in zip(names, got, want):
+        if name in ("x", "weight", "scale", "bias"):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-6 * float(b.abs().max()),
+                                       msg=name)
+        else:
+            assert torch.equal(a, b), name
+    again = _stage(*inputs, training=training)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("f,c", CELL_STAGES)
+def test_edge_kernels_at_the_cell_shapes(card, monkeypatch, f, c):
+    """B = 8 clouds of P = 8192 real-valued points, k = 20, each stage of
+    the dgcnn3d cell: the output within OUT_TOL of its largest value, the
+    running statistics within 1e-6, every gradient within GRAD_TOL of its
+    largest entry."""
+    inputs = _stage_inputs(card, 8, 8192, f, c, integer=False)
+    got = _stage(*inputs)
+    with monkeypatch.context() as m:
+        _plain_on_the_card(m)
+        want = _stage(*inputs)
+    names = ("out", "run_mean", "run_var", "x", "weight", "scale", "bias")
+    for name, a, b in zip(names, got, want):
+        tol = (OUT_TOL if name == "out" else 1e-6 if name.startswith("run")
+               else GRAD_TOL)
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.card
+def test_edge_stage_allocates_no_edge_tensor(card):
+    """The last stage of the cell (F = 128 -> C = 256, B = 8, P = 8192,
+    k = 20), forward and backward: the peak allocated over the inputs stays
+    under one [B, P, k, C] float32 tensor (1.34 GB)."""
+    x, mask, w, scale, bias, idx = _stage_inputs(card, 8, 8192, 128, 256,
+                                                 integer=False)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, bias)]
+    g = torch.randn((8, 8192, 256), device=card)
+    rm, rv = torch.zeros(256, device=card), torch.ones(256, device=card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = EK.edge_conv(leaves[0], idx, mask, leaves[1], leaves[2], leaves[3],
+                       rm, rv, training=True, **NORM)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    edge_tensor = 8 * 8192 * 20 * 256 * 4
+    assert torch.cuda.max_memory_allocated() - base < edge_tensor
+
+
+@pytest.mark.card
+def test_dgcnn_train_step_repeats_on_the_card(card):
+    """Two train forwards and backwards of one batch (B = 2 clouds of 2048
+    real-valued points) from the same weights and dropout draws: the edge
+    kernels launch once a stage each way, no plain version runs, and the
+    logits, the running statistics and every gradient are the same
+    bits."""
+    pts, mask = (t.to(card) for t in _cloud(2, 2048, (2048, 1500)))
+    torch.manual_seed(0)
+    model = DGCNNClassifier(OUTPUT_SHAPE, 4, 1).to(card).train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        model.zero_grad()
+        before = (EK.edge_conv.launches, EK.edge_conv_backward.launches,
+                  EK.edge_conv_plain.calls, EK.edge_conv_backward_plain.calls)
+        logits = model(pts, mask,
+                       torch.Generator(device=card).manual_seed(3))
+        sum((v * v).sum() for v in logits.values()).backward()
+        torch.cuda.synchronize()
+        after = (EK.edge_conv.launches, EK.edge_conv_backward.launches,
+                 EK.edge_conv_plain.calls, EK.edge_conv_backward_plain.calls)
+        assert [a - b for a, b in zip(after, before)] == [4, 4, 0, 0]
+        runs.append([v.detach().clone() for v in logits.values()]
+                    + [v.clone() for v in model.state_dict().values()]
+                    + [p.grad.clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.card
+def test_traced_forward_counts_the_fused_stages(card):
+    """Under the tracer a DGCNN forward on the card counts
+    ``edge_conv_fused`` once a stage, inside the stage's
+    ``dgcnn.edge_conv`` span."""
+    pts, mask = (t.to(card) for t in _cloud(2, 512, (512, 300)))
+    model = DGCNNClassifier(OUTPUT_SHAPE, 4, 1).to(card).train()
+    with telemetry.tracing() as tracer:
+        model(pts, mask)
+        torch.cuda.synchronize()
+    fused = [c for c in tracer.counts if c.name == "edge_conv_fused"]
+    assert sum(c.n for c in fused) == 4
+    assert {tracer.spans[c.span].name for c in fused} == {"dgcnn.edge_conv"}
