@@ -2817,7 +2817,7 @@ def phase_host_plans(dataset, recipe="dune3d", grid=GRID, phase="host_plans"):
                 "entries": int(hp.start.numel())}
 
     plan = E.build_series_plan(st0, ik, backend=E.WINDOW,
-                               q_bound_frac=encoder._qb_frac(0),
+                               q_bound_frac=encoder.q_bound_fracs[0],
                                window_r=tuning.window_r_initial)
     check("initial", st0,
           lambda s, w: WE.window_submanifold_conv(s, plans.initial, w),
@@ -2826,7 +2826,7 @@ def phase_host_plans(dataset, recipe="dune3d", grid=GRID, phase="host_plans"):
     st = st0
     for l in range(len(caps)):
         plan = E.build_series_plan(st, sks[l], backend=E.WINDOW,
-                                   q_bound_frac=encoder._qb_frac(l),
+                                   q_bound_frac=encoder.q_bound_fracs[l],
                                    window_r=tuning.for_level(l))
         hp = plans.series[l]
         check(f"L{l} series", st,
@@ -2837,8 +2837,8 @@ def phase_host_plans(dataset, recipe="dune3d", grid=GRID, phase="host_plans"):
             break
         skel, (fwd, rev), dropped = E.build_downsample_plan(
             st, stride, caps[l + 1], backend=E.WINDOW,
-            q_bound_frac_in=encoder._qb_frac(l),
-            q_bound_frac_out=encoder._qb_frac(l + 1), tuning=tuning)
+            q_bound_frac_in=encoder.q_bound_fracs[l],
+            q_bound_frac_out=encoder.q_bound_fracs[l + 1], tuning=tuning)
         hskel, (hfwd, hrev) = plans.skeletons[l], plans.down[l]
         require(int(dropped.sum()) == 0
                 and torch.equal(hskel.coords, skel.coords)
@@ -3536,13 +3536,10 @@ def build_task_of(cfg, dataset):
     the plain backend)."""
     import torch
 
-    from sparseeventid_tpu_torch.models import build_sparse_classifier
-    from sparseeventid_tpu_torch.train.plans import planner_for
-    from sparseeventid_tpu_torch.train.tasks import LOADER_PLANS, build_task
+    from sparseeventid_tpu_torch.train.plans import task_planner
+    from sparseeventid_tpu_torch.train.tasks import build_task
 
-    planner = None
-    if cfg.name in LOADER_PLANS:
-        planner = planner_for(cfg, build_sparse_classifier(cfg).encoder, GRID)
+    planner = task_planner(cfg, GRID)
     task = build_task(cfg, dataset, GRID, N_BATCHES, None,
                       torch.device(DEVICE), planner)
     return task, planner

@@ -92,6 +92,12 @@ class Encoder(nn.Module):
         self.remat = remat
         caps = tuple(capacities) or (None,) * (p.depth + 1)
         self.capacities = caps
+        # each level's query-row bound, a fraction of its capacity: the one
+        # rule of the plans built here and of those built on the host
+        # (``train/plans.HostPlanner``)
+        self.q_bound_fracs = tuple(
+            min(1.0, p.query_bound_frac * p.query_bound_growth**level)
+            for level in range(p.depth + 1))
         downsampler = (
             ConvolutionDownsample
             if p.downsampling == DownSampling.convolutional
@@ -116,8 +122,8 @@ class Encoder(nn.Module):
                 nxt = filters + p.n_initial_filters
             self.add_module(f"down_{i}", downsampler(
                 filters, nxt, self._stride(), p, out_capacity=caps[i + 1],
-                backend=backend, q_bound_frac_in=self._qb_frac(i),
-                q_bound_frac_out=self._qb_frac(i + 1), tuning=tuning,
+                backend=backend, q_bound_frac_in=self.q_bound_fracs[i],
+                q_bound_frac_out=self.q_bound_fracs[i + 1], tuning=tuning,
                 sync_bn=sync_bn,
             ))
             filters = nxt
@@ -151,14 +157,10 @@ class Encoder(nn.Module):
             self._stride(),
         )
 
-    def _qb_frac(self, level: int) -> float:
-        p = self.params
-        return min(1.0, p.query_bound_frac * p.query_bound_growth**level)
-
     def _plan(self, st: SparseTensor, ksize: int, level: int, window_r: int):
         return build_series_plan(
             st, self._kernel(ksize, level), backend=self.backend,
-            q_bound_frac=self._qb_frac(level), window_r=window_r,
+            q_bound_frac=self.q_bound_fracs[level], window_r=window_r,
         )
 
     def _series(self, series: SparseBlockSeries, st: SparseTensor, plan):

@@ -55,23 +55,24 @@ def _plan_from_host(host, prefix, qmeta, dkeys, q_active, offsets, window_r,
 def encoder_plans_from_host(
     st0: SparseTensor,
     host: Dict[str, torch.Tensor],
-    depth: int,
     initial_kernel: Sequence[int],
     series_kernel,
     stride: Sequence[int],
-    tuning: WindowTuning = WindowTuning(),
-    q_bound_frac: float = 1.0,
-    q_bound_growth: float = 1.6,
+    tuning: WindowTuning,
+    q_bound_fracs: Sequence[float],
 ) -> EncoderPlans:
     """EncoderPlans from the host plan dict (on ``st0``'s device).
 
     ``st0`` is the level-0 SparseTensor of the batch the plans were built
     for: its rows are sorted by key as the host's are, so they agree row for
-    row.  ``tuning`` must be the one the builder was given (the trainer's
-    ``_plan_geometry`` derives both from the model): the kernels search
-    windows of ``window_r`` rows at the host's starts.  ``series_kernel`` is
-    one kernel for every level or one a level (the 2D multiplane model's
-    [1,k,k] -> [3,k,k] switch)."""
+    row.  ``tuning`` must be the one the builder was given
+    (``train/plans.plan_geometry`` derives both from the model): the
+    kernels search windows of ``window_r`` rows at the host's starts.
+    ``series_kernel`` is one kernel for every level or one a level (the 2D
+    multiplane model's [1,k,k] -> [3,k,k] switch).  ``q_bound_fracs`` are
+    the encoder's query bounds of levels 0..depth, each a fraction of its
+    level's capacity (``models.encoder.Encoder.q_bound_fracs``)."""
+    depth = len(q_bound_fracs) - 1
     host_tiles = host["lvl0/series/start"].shape[1]
     st_tiles = _cdiv(st0.capacity, TILE_T)
     if host_tiles != st_tiles:
@@ -83,7 +84,7 @@ def encoder_plans_from_host(
         )
 
     def q_bound(capacity, level):
-        return query_bound(capacity, min(1.0, q_bound_frac * q_bound_growth**level))
+        return query_bound(capacity, q_bound_fracs[level])
 
     i_offs = kernel_offsets(initial_kernel, centered=True)
     if hasattr(series_kernel[0], "__len__"):

@@ -58,6 +58,7 @@ for a failed 36k regime and no silent switch to device plans
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -81,7 +82,7 @@ from ..train.evaluate import build_dataset, class_weights_of
 from ..train.plans import HostPlanner
 from ..train.supervised import make_train_step
 from ..train.tasks import new_state
-from ..train.trainer import step_generator
+from ..train.trainer import open_run, step_generator
 
 ASSUMED_A100_MINKOWSKI_EVENTS_PER_S = 30.0
 
@@ -244,6 +245,17 @@ def open_split(spec: SyntheticFileSpec, stem: str, overrides: Sequence[str],
         return cfg, build_dataset(cfg, "train")
     return cfg, synthetic_larcv_dataset(spec, max_voxels=cfg.data.max_voxels,
                                         normalize=cfg.data.normalize)
+
+
+@contextlib.contextmanager
+def fresh_run(cfg, dataset, dev: torch.device):
+    """``open_run`` of ``cfg`` on ``dataset`` in a new run directory under
+    the temporary one, removed on exit: nothing to restore, so the run
+    starts from its seeded initialisation."""
+    with tempfile.TemporaryDirectory() as out, open_run(
+            dataclasses.replace(cfg, output_dir=out), {"train": dataset},
+            device=dev) as run:
+        yield run
 
 
 def card_fields(dev: torch.device) -> Dict:

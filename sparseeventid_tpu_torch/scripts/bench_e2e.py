@@ -23,9 +23,10 @@ host), ``io/memory.synthetic_larcv_dataset`` serves the same batches with
 no file.  The route is printed first and reported as ``data``.
 
 The config is the dune3d recipe at B = 8, bf16, ``framework.remat=false``;
-the session is ``train/trainer.train_session`` (the task, loader and
-planner ``train`` builds).  The first step, on the first batch, is left out
-of every timing.  The host queues the steps of an epoch or a block without
+the session is ``train/trainer.open_run``'s (the task, loader and
+planner ``train`` builds) in a new run directory (``bench.fresh_run``), so
+it starts from the run's seeded initialisation.  The first step, on the
+first batch, is left out of every timing.  The host queues the steps of an epoch or a block without
 waiting for the card; one ``torch.cuda.synchronize()`` at its end stops its
 clock, where the JAX driver fences (``bench.Steps.fence``).  The host
 probes build plans with a planner of their own (no cache), so the
@@ -53,9 +54,8 @@ import numpy as np
 
 from ..io.memory import SyntheticFileSpec
 from ..train.plans import run_planner
-from ..train.trainer import train_session
 from .bench import Steps, add_device_arg, card_fields, data_route
-from .bench import open_split, resolve_device, timed_rate
+from .bench import fresh_run, open_split, resolve_device, timed_rate
 
 BATCH = 8
 N_EVENTS = 128
@@ -105,7 +105,7 @@ def run(args) -> Dict:
         print(f"occupancy ~{occ} vox/event; read {read_ms:.1f} ms/batch; "
               f"plan build {plan_ms} ms/batch", flush=True)
 
-        with train_session(cfg, ds, dev) as s:
+        with fresh_run(cfg, ds, dev) as s:
             steps = Steps(s.step, dev)
             steps(s.next_args())  # the first step, outside every timing
             steps.fence()

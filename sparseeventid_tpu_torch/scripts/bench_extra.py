@@ -51,8 +51,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..io.memory import SyntheticFileSpec
-from ..train.trainer import train_session
-from .bench import Steps, add_device_arg, card_fields, data_route
+from .bench import Steps, add_device_arg, card_fields, data_route, fresh_run
 from .bench import open_split, resolve_device, split_config, timed_rate
 
 WARMUP = 6
@@ -98,7 +97,7 @@ CONFIGS = {
 def default_view_drops(cfg, ds, dev) -> float:
     """Sites and pairs one SimCLR forward of the first batch drops at the
     views' default capacities."""
-    with train_session(cfg, ds, dev) as s:
+    with fresh_run(cfg, ds, dev) as s:
         return float(s.task.eval_step(s.next_args())["overflow/dropped"])
 
 
@@ -124,7 +123,7 @@ def bench_one(name: str, args) -> Dict:
             drops = default_view_drops(default_cfg, ds, dev)
             print(json.dumps({"simclr_default_capacities": True,
                               "overflow_dropped": drops}), flush=True)
-        with train_session(cfg, ds, dev) as s:
+        with fresh_run(cfg, ds, dev) as s:
             steps = Steps(s.step, dev)
             for _ in range(args.warmup):
                 steps(s.next_args())

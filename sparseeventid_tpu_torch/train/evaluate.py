@@ -1,18 +1,19 @@
-"""Inference mode: run the validation split once, report the mean loss and
-per-head accuracy, and write the per-event softmax to ``mode.output_file``
-when it is set: larcv style (``Data/softmax_<head>_group/scores``) for a
-``.h5`` name, else ``.npz`` (JAX counterpart: ``Trainer.validate``,
-supervised task only).  The weights are restored as a train run restores
-them (``utils.checkpoint.restore_run``): an encoder-only transfer or a full
-restore from ``mode.weights_location``, else the newest checkpoint of the
-run directory.
+"""Inference mode: run the validation split once through the task's own
+``Training`` (``train/tasks.py``; JAX counterpart: ``Trainer.validate``),
+report the mean metrics, and write the task's per-event outputs: the
+supervised task's softmax to ``mode.output_file`` when it is set, larcv
+style (``Data/softmax_<head>_group/scores``) for a ``.h5`` name, else
+``.npz``; yolo's to ``validation_output/``.  The weights are restored as
+a train run restores them (``utils.checkpoint.restore_run``): an
+encoder-only transfer or a full restore from ``mode.weights_location``,
+else the newest checkpoint of the run directory.
 
 A split's data is its larcv file (``data.train`` / ``data.val`` /
 ``data.test``), or, for the word ``synthetic`` or an empty name under the
 synthetic detector, synthetic events on the detector's grid.  The
 supervised task runs every model family (``models.build.build_model``:
 sparse, dense or point-cloud input).  Each batch's window plans of a sparse
-model are built on the host (``train/plans.py``) unless
+model are built on the host (``train/plans.task_planner``) unless
 ``SEID_HOST_PLANS=0``.
 
 Entry points run on the card.  They use the CPU only when asked, by
@@ -42,7 +43,6 @@ from ..config.schema import (
     ComputeMode,
     Detector,
     LossBalanceScheme,
-    OptimizerConfig,
     Precision,
     SparseEventIDConfig,
     image_size,
@@ -55,13 +55,12 @@ from ..io import (
     larcv_batch_to_sparse_2d,
     larcv_batch_to_sparse_3d,
 )
-from ..models import DENSE, POINTS, SPARSE, build_model, init_parameters
+from ..models import DENSE, POINTS, SPARSE
 from ..parallel import mesh
 from ..utils import telemetry
 from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
-from .plans import run_planner
-from .supervised import eval_metrics
+from .plans import task_planner
 
 logger = logging.getLogger(__name__)
 
@@ -240,16 +239,17 @@ def validate(
     params: Mapping[str, torch.Tensor] | None = None,
     device: torch.device | str | None = None,
 ) -> Dict[str, float]:
-    """Run the validation split once -> mean metrics (``overflow/dropped``
-    is the total over the run).  The supervised task can write its softmax
-    (``mode.output_file``); yolo writes its per-event outputs to
-    ``<run dir>/validation_output/val_rank_<rank>.npz``.
+    """Run the validation split once through the task's ``Training``
+    (``train/tasks.py``, JAX ``Trainer.validate``) -> mean metrics
+    (``overflow/dropped`` is the total over the run).  The supervised task
+    can write its softmax (``mode.output_file``); yolo writes its per-event
+    outputs to ``<run dir>/validation_output/val_rank_<rank>.npz``.
 
     ``dataset`` (``__len__``, ``batch(indices)``, ``batch_grid()``) defaults
     to the config's val split (test without one); ``params`` is a
     ``state_dict`` to evaluate (e.g. from ``convert.params_from_jax``),
     default a seeded random initialisation and then the run's restore."""
-    from .tasks import task_check
+    from .tasks import build_task, task_check
 
     task_check(cfg)
     dev = resolve_device(cfg, device)
@@ -261,95 +261,31 @@ def validate(
                 cfg, "val" if "val" in cfg.data.active else "test")
             owned.append(dataset)
         try:
-            if cfg.name == "supervised_eventID":
-                return _validate(cfg, dataset, params, dev, out_dir)
-            return _validate_task(cfg, dataset, params, dev, out_dir)
+            grid = tuple(dataset.batch_grid())
+            task = build_task(cfg, dataset, grid, 1, params, dev,
+                              task_planner(cfg, grid))
+            if params is None:
+                restore_run(cfg.mode,
+                            CheckpointManager(out_dir / "checkpoints"),
+                            task.state.model, dev)
+            batches = shard_batches(len(dataset), cfg.run.minibatch_size)
+            per_batch, outputs = [], []
+            for indices in batches:
+                args = task.prepare(dataset.batch(indices))
+                if task.outputs is None:
+                    metrics = task.eval_step(args)
+                else:
+                    metrics, out = task.outputs.step(args)
+                    outputs.append(out)
+                per_batch.append({k: float(v) for k, v in metrics.items()})
+            mean = {k: float(np.mean([m[k] for m in per_batch]))
+                    for k in per_batch[0]}
+            mean["overflow/dropped"] = float(
+                sum(m["overflow/dropped"] for m in per_batch))
+            logger.info("validation over %d batches a rank: %s",
+                        len(batches), mean)
+            if task.outputs is not None:
+                task.outputs.write(outputs)
+            return mean
         finally:
             close_datasets(owned)
-
-
-def _validate(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
-    model, mode = build_model(cfg)
-    if params is None:
-        init_parameters(model, cfg.run.seed)
-        model.to(dev)
-        restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),
-                    model, dev)
-    else:
-        model.load_state_dict(params)
-        model.to(dev)
-    model.eval()
-    dtype = feature_dtype(cfg)
-    grid = dataset.batch_grid()
-    cap0 = input_capacity(model, mode)
-    opt_cfg = getattr(cfg.mode, "optimizer", None) or OptimizerConfig()
-    scheme = opt_cfg.loss_balance_scheme
-    class_weights = class_weights_of(scheme, dev)
-    output_file = getattr(cfg.mode, "output_file", "")
-    planner = run_planner(cfg, grid)
-
-    batches = shard_batches(len(dataset), cfg.run.minibatch_size)
-    per_batch = []
-    outputs = {k: [] for k in OUTPUT_SHAPE}
-    for indices in batches:
-        batch = dataset.batch(indices)
-        x, labels = prepare_batch(batch, grid, cap0, dtype, dev, mode,
-                                  max_points(cfg))
-        with torch.no_grad():
-            plans = None
-            if planner is not None:
-                plans = planner.plans(
-                    x, planner.to_device(planner.build(batch["image"]), dev))
-            logits, dropped = model(x, plans=plans)
-            m = mesh.reduce_metrics(
-                eval_metrics(logits, labels, dropped, scheme, class_weights))
-        per_batch.append({k: float(v) for k, v in m.items()})
-        if output_file:
-            for k in OUTPUT_SHAPE:
-                outputs[k].append(torch.softmax(logits[k], dim=-1))
-    mean = {
-        k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]
-    }
-    mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
-    logger.info("validation over %d batches a rank: %s", len(batches), mean)
-    if output_file:
-        with torch.no_grad():  # every rank's rows, in rank (= event) order
-            scores = {k: mesh.all_gather_rows(torch.cat(v)).cpu().numpy()
-                      for k, v in outputs.items()}
-        if mesh.is_main():
-            write_softmax(output_file, scores)
-            logger.info("wrote softmax outputs to %s", output_file)
-    return mean
-
-
-def _validate_task(cfg, dataset, params, dev, out_dir) -> Dict[str, float]:
-    """validate() for simclr, yolo and unsupervised_eventID: the task's
-    eval step over the split (JAX ``Trainer.validate``), and for yolo the
-    predict step's outputs, one ``.npz`` (keys label, vertex_true, anchor,
-    vertex, pred_label; the reference's vertex_finding.py:154-178)."""
-    from .tasks import LOADER_PLANS, build_task
-
-    grid = tuple(dataset.batch_grid())
-    planner = run_planner(cfg, grid) if cfg.name in LOADER_PLANS else None
-    task = build_task(cfg, dataset, grid, 1, params, dev, planner)
-    if params is None:
-        restore_run(cfg.mode, CheckpointManager(out_dir / "checkpoints"),
-                    task.state.model, dev)
-    batches = shard_batches(len(dataset), cfg.run.minibatch_size)
-    per_batch, outputs = [], []
-    for indices in batches:
-        args = task.prepare(dataset.batch(indices))
-        per_batch.append({k: float(v) for k, v in task.eval_step(args).items()})
-        if task.predict is not None:
-            outputs.append({k: v.cpu().numpy()
-                            for k, v in task.predict(args).items()})
-    mean = {k: float(np.mean([m[k] for m in per_batch])) for k in per_batch[0]}
-    mean["overflow/dropped"] = float(sum(m["overflow/dropped"] for m in per_batch))
-    logger.info("validation over %d batches a rank: %s", len(batches), mean)
-    if outputs:
-        path = out_dir / "validation_output" / f"val_rank_{mesh.rank()}.npz"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        np.savez(path, **{k: np.concatenate([o[k] for o in outputs])
-                          for k in outputs[0]})
-        logger.info("wrote vertex validation outputs to %s", path)
-    return mean

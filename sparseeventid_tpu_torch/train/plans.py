@@ -137,11 +137,9 @@ class HostPlanner:
 
     def __init__(self, encoder, grid: Sequence[int], cache_mb: int = 0):
         self.geometry = plan_geometry(encoder, grid)
-        self.widened = 0
-        self.depth = encoder.params.depth
         self.tuning = encoder.tuning
-        self.q_bound_frac = encoder.params.query_bound_frac
-        self.q_bound_growth = encoder.params.query_bound_growth
+        self.q_bound_fracs = encoder.q_bound_fracs
+        self.widened = 0
         self.cache: Optional[PlanCache] = None
         if cache_mb > 0:
             self.cache = PlanCache(self.build_coords,
@@ -195,13 +193,10 @@ class HostPlanner:
     def plans(self, st: SparseTensor, host: Dict[str, torch.Tensor]
               ) -> EncoderPlans:
         """The encoder's plans for ``st`` from a dict on its device."""
-        ik = self.geometry["initial_kernel"]
-        sks = self.geometry["series_kernel"]
+        g = self.geometry
         return encoder_plans_from_host(
-            st, host, self.depth, ik, sks, self.geometry["stride"],
-            tuning=self.tuning, q_bound_frac=self.q_bound_frac,
-            q_bound_growth=self.q_bound_growth,
-        )
+            st, host, g["initial_kernel"], g["series_kernel"], g["stride"],
+            self.tuning, self.q_bound_fracs)
 
 
 def planner_for(cfg: SparseEventIDConfig, encoder, grid: Sequence[int],
@@ -222,3 +217,16 @@ def run_planner(cfg: SparseEventIDConfig, grid: Sequence[int],
     if not plans_enabled(cfg):
         return None
     return planner_for(cfg, build_sparse_classifier(cfg).encoder, grid, cache)
+
+
+def task_planner(cfg: SparseEventIDConfig, grid: Sequence[int],
+                 cache: bool = False) -> Optional[HostPlanner]:
+    """The planner of the plans a task's batches carry, the one choice of
+    ``open_run`` (its loaders build them) and ``validate``:
+    ``run_planner``'s for supervised_eventID, yolo and
+    unsupervised_eventID; None for SimCLR, whose views are planned as they
+    are made (``planner_for`` on the views' encoder), and where the plans
+    are built on the device."""
+    if cfg.name not in ("supervised_eventID", "yolo", "unsupervised_eventID"):
+        return None
+    return run_planner(cfg, grid, cache)

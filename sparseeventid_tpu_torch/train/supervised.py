@@ -47,6 +47,15 @@ def _plans(plans_builder, st, host_plans):
         return plans_builder(st, host_plans)
 
 
+def _evaluate(model, scheme, class_weights, plans_builder, st, labels,
+              host_plans):
+    """(metrics, logits) of one eval-mode forward."""
+    model.eval()
+    logits, dropped = model(st, plans=_plans(plans_builder, st, host_plans))
+    return mesh.reduce_metrics(
+        eval_metrics(logits, labels, dropped, scheme, class_weights)), logits
+
+
 def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None,
                    plans_builder=None):
     """Returns step(st, labels, host_plans=None) -> metrics (device
@@ -55,10 +64,23 @@ def make_eval_step(model, scheme: LossBalanceScheme, class_weights=None,
     @torch.no_grad()
     def step(st: SparseTensor, labels, host_plans=None
              ) -> Dict[str, torch.Tensor]:
-        model.eval()
-        logits, dropped = model(st, plans=_plans(plans_builder, st, host_plans))
-        return mesh.reduce_metrics(
-            eval_metrics(logits, labels, dropped, scheme, class_weights))
+        return _evaluate(model, scheme, class_weights, plans_builder, st,
+                         labels, host_plans)[0]
+
+    return step
+
+
+def make_scored_eval_step(model, scheme: LossBalanceScheme, class_weights,
+                          plans_builder):
+    """Returns step(st, labels, host_plans=None) -> (metrics, softmax per
+    head): the eval step's metrics and the predict step's softmax, of one
+    forward."""
+
+    @torch.no_grad()
+    def step(st: SparseTensor, labels, host_plans=None):
+        metrics, logits = _evaluate(model, scheme, class_weights,
+                                    plans_builder, st, labels, host_plans)
+        return metrics, {k: torch.softmax(v, dim=-1) for k, v in logits.items()}
 
     return step
 

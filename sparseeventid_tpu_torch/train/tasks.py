@@ -15,12 +15,14 @@ chosen by ``cfg.name`` as the reference CLI chooses them:
 Each builder returns a ``Training``: the state (the model initialised from
 the run's seed or loaded from ``params``, on the device, its optimizer and
 schedule; a transfer run's encoder frozen), ``train_step(args, generator)``,
-``eval_step(args)``, the step count, and ``prepare(batch) -> args`` on the
-device.  Window plans are built on the host unless SEID_HOST_PLANS=0: for
-supervised, yolo and unsupervised by the run's planner, in the loader's
-thread and through its cache; for SimCLR in ``prepare``, one uncached plan
-dict a view at the views' capacities (their coordinates change with every
-draw).
+``eval_step(args)``, the step count, ``prepare(batch) -> args`` on the
+device, and the per-event ``Outputs`` validation writes: the supervised
+task's softmax (``mode.output_file``; from the metrics' forward), yolo's
+vertices.  Window plans are built on the host unless SEID_HOST_PLANS=0: for
+supervised, yolo and unsupervised by ``plans.task_planner``'s planner (in
+a train run, in the loader's thread, through its cache); for SimCLR in
+``prepare``, one uncached plan dict a view at the views' capacities (their
+coordinates change with every draw).
 
 The supervised task trains every model family (``models.build.build_model``:
 sparse, dense or point-cloud input); the other three build the sparse
@@ -37,6 +39,7 @@ alike) and augments its own events with views seeded ``run.seed + 101``.
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
@@ -60,6 +63,7 @@ from ..models import (
     require_sparse,
 )
 from ..ops.window.query import WindowTuning
+from ..parallel import mesh
 from ..utils import telemetry
 from ..utils.checkpoint import encoder_freeze_names, transfers_encoder
 from .evaluate import (
@@ -68,7 +72,9 @@ from .evaluate import (
     input_capacity,
     max_points,
     prepare_batch,
+    run_dir,
     to_input,
+    write_softmax,
 )
 from .optimizers import build_optimizer
 from .plans import HostPlanner, planner_for
@@ -79,7 +85,7 @@ from .representation import (
 )
 from .schedules import build_lr_schedule
 from .state import TrainState
-from .supervised import make_eval_step, make_train_step
+from .supervised import make_eval_step, make_scored_eval_step, make_train_step
 from .unsupervised import weak_labels_from_energy
 from .vertex import (
     VertexModel,
@@ -91,10 +97,16 @@ from .vertex import (
 logger = logging.getLogger(__name__)
 
 TASKS = ("supervised_eventID", "simclr", "yolo", "unsupervised_eventID")
-# the tasks whose loaders build the batches' plans (SimCLR's views are made
-# in prepare, so are their plans)
-LOADER_PLANS = ("supervised_eventID", "yolo", "unsupervised_eventID")
 WEAK_LABEL_SAMPLE = 256  # events whose energies place the window, at most
+
+
+class Outputs(NamedTuple):
+    """A task's per-event outputs of validation: ``step(args) -> (metrics,
+    outputs)`` takes the eval step's place, and ``write(the outputs of
+    every batch)`` writes them once the split is done."""
+
+    step: Callable
+    write: Callable
 
 
 class Training(NamedTuple):
@@ -103,7 +115,7 @@ class Training(NamedTuple):
     eval_step: Callable  # (args) -> metrics
     n_steps: int
     prepare: Callable  # (loader batch) -> args on the device
-    predict: Optional[Callable] = None  # yolo: (args) -> per-event outputs
+    outputs: Optional[Outputs] = None
 
 
 def check_task(name: str) -> None:
@@ -184,7 +196,7 @@ def build_training(cfg: SparseEventIDConfig, epoch_length: int,
     step = make_train_step(
         state, scheme, lr_schedule, class_weights_of(scheme, device),
         gradient_accumulation=opt_cfg.gradient_accumulation,
-        plans_builder=planner.plans if planner is not None else None,
+        plans_builder=_plans_builder(planner),
     )
     return state, step, step_count(cfg, epoch_length)
 
@@ -217,9 +229,14 @@ def _supervised(cfg, dataset, grid, epoch_length, params, dev, planner):
     state, step, n_steps = build_training(cfg, epoch_length, params, dev,
                                           planner)
     scheme = optimizer_config(cfg).loss_balance_scheme
-    eval_step = make_eval_step(state.model, scheme,
-                               class_weights_of(scheme, dev),
-                               plans_builder=_plans_builder(planner))
+    weights, pb = class_weights_of(scheme, dev), _plans_builder(planner)
+    eval_step = make_eval_step(state.model, scheme, weights, plans_builder=pb)
+    outputs = None
+    path = getattr(cfg.mode, "output_file", "")
+    if path:
+        scored = make_scored_eval_step(state.model, scheme, weights, pb)
+        outputs = Outputs(lambda a: scored(*a),
+                          functools.partial(_write_scores, path))
     mode = model_family(cfg)
     cap0, dtype = input_capacity(state.model, mode), feature_dtype(cfg)
 
@@ -230,7 +247,19 @@ def _supervised(cfg, dataset, grid, epoch_length, params, dev, planner):
         return x, labels, host_plans_of(planner, batch, dev)
 
     return Training(state, lambda a, gen: step(a[0], a[1], gen, a[2]),
-                    lambda a: eval_step(*a), n_steps, prepare)
+                    lambda a: eval_step(*a), n_steps, prepare, outputs)
+
+
+def _write_scores(path, outputs) -> None:
+    """The softmax of every rank's events, gathered in rank (= event)
+    order and written once, by rank 0 (``evaluate.write_softmax``)."""
+    with torch.no_grad():
+        scores = {k: mesh.all_gather_rows(
+                      torch.cat([o[k] for o in outputs])).cpu().numpy()
+                  for k in OUTPUT_SHAPE}
+    if mesh.is_main():
+        write_softmax(path, scores)
+        logger.info("wrote softmax outputs to %s", path)
 
 
 def _energies(dataset) -> np.ndarray:
@@ -288,6 +317,11 @@ def _vertex(cfg, dataset, grid, epoch_length, params, dev, planner):
         optimizer_config(cfg).gradient_accumulation, pb)
     eval_step = make_vertex_eval_step(model, anchor_grid, full_grid, pb)
     predict = make_vertex_predict_step(model, anchor_grid, full_grid, pb)
+
+    def eval_and_predict(a):
+        return eval_step(*a), {k: v.cpu().numpy()
+                               for k, v in predict(*a).items()}
+
     cap0, dtype = model.encoder.capacities[0], feature_dtype(cfg)
 
     def prepare(batch):
@@ -306,7 +340,21 @@ def _vertex(cfg, dataset, grid, epoch_length, params, dev, planner):
 
     return Training(state, lambda a, gen: step(*a, generator=gen),
                     lambda a: eval_step(*a), step_count(cfg, epoch_length),
-                    prepare, predict=lambda a: predict(*a))
+                    prepare,
+                    Outputs(eval_and_predict,
+                            functools.partial(_write_vertex, cfg)))
+
+
+def _write_vertex(cfg: SparseEventIDConfig, outputs) -> None:
+    """yolo's per-event outputs, one ``.npz`` a rank under the run
+    directory (keys label, vertex_true, anchor, vertex, pred_label; the
+    reference's vertex_finding.py:154-178)."""
+    path = (run_dir(cfg) / "validation_output"
+            / f"val_rank_{mesh.rank()}.npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: np.concatenate([o[k] for o in outputs])
+                      for k in outputs[0]})
+    logger.info("wrote vertex validation outputs to %s", path)
 
 
 def augment_views(cfg: SparseEventIDConfig, grid):
@@ -385,8 +433,8 @@ def build_task(cfg: SparseEventIDConfig, dataset, grid, epoch_length: int,
                ) -> Training:
     """The ``Training`` of ``cfg.name`` on batches of ``grid``; ``dataset``
     is the split whose energies place the weak-label window; ``planner``
-    the loader's (its batches carry their plans), used by every task but
-    SimCLR."""
+    is ``plans.task_planner``'s (a train run's loaders build its plans
+    into the batches), None for SimCLR."""
     task_check(cfg)
     return BUILDERS[cfg.name](cfg, dataset, grid, epoch_length, params,
                               device, planner)

@@ -14,13 +14,13 @@ end, keeping 5.  As in the JAX package, a resumed run's data stream starts
 again at its beginning.  Logs go to the run's ``process.log`` and, with
 tensorboardX, to ``tb/``; with ``run.profile`` the loop runs under
 ``torch.profiler`` and leaves a Chrome trace under ``profile/``.
-``open_run`` hands a caller that keeps its own schedule of validation
-and saves (the convergence run, ``scripts/accuracy_run.py``) the run
+``open_run`` hands a caller that drives the steps itself the run
 ``train`` drives, after its restore: a ``RunSession`` of the task, the
-loaders, the planner and the checkpoints.  ``train_session`` hands a
-caller that drives the steps itself (the benchmark drivers of
-``scripts/``) the same task, loader and planner (``split_loaders``,
-``open_task``), with no restore and no checkpoint.
+loaders, the planner and the checkpoints.  Its callers keep their own
+schedule of validation and saves (the convergence run,
+``scripts/accuracy_run.py``) or none (the benchmark drivers of
+``scripts/``, which open it in a new run directory, so that nothing is
+restored and the run starts from its seeded initialisation).
 
 The window plans of every batch are built on the host, in the loader's
 thread, through a per-event plan cache whose line goes to the log once an
@@ -59,10 +59,9 @@ from ..utils.checkpoint import CheckpointManager, restore_run
 from ..utils.logger import process_log
 from ..utils.telemetry import StepTimer, SummaryWriter, format_log_message
 from .evaluate import build_dataset, close_datasets, resolve_device, run_dir
-from .plans import HostPlanner, run_planner
+from .plans import HostPlanner, run_planner, task_planner
 from .state import TrainState, param_count
 from .tasks import (  # noqa: F401  (build_training, host_plans_of: callers)
-    LOADER_PLANS,
     Training,
     build_task,
     build_training,
@@ -125,39 +124,17 @@ def train(
 
 
 @dataclasses.dataclass
-class TrainSession:
-    """A train run's pieces for a caller that drives the steps itself (the
-    benchmark drivers, ``scripts/bench_e2e.py`` and ``bench_extra.py``):
-    the task, the train split's loader and planner, as ``train`` builds
-    them."""
+class RunSession:
+    """A train run's pieces after its restore (``open_run``): the task at
+    the restored step, a loader a split, the planner whose plans the
+    loaders build (None where there is none), the run's checkpoints and its
+    directory.  ``train`` drives it, and so do callers that keep their own
+    schedule (the convergence run, the benchmark drivers)."""
 
     cfg: SparseEventIDConfig
     task: Training
-    loader: BatchLoader
     planner: Optional[HostPlanner]
     device: torch.device
-
-    def next_args(self):
-        """The loader's next batch, prepared on the device."""
-        with telemetry.span("next_args", new_step=True):
-            return self.task.prepare(next(self.loader))
-
-    def step(self, args, i: int) -> Dict[str, torch.Tensor]:
-        """Train step ``i`` on prepared ``args`` (the dropout generator of
-        step ``i``, as in ``train``)."""
-        with telemetry.span("step"):
-            return self.task.train_step(
-                args, step_generator(self.cfg.run.seed, i, self.device))
-
-
-@dataclasses.dataclass
-class RunSession(TrainSession):
-    """A train run's pieces after its restore (``open_run``): a
-    ``TrainSession`` (the task at the restored step, the train loader) with
-    a loader a split, the run's checkpoints and its directory.  ``train``
-    drives it, and so do callers that keep their own schedule of validation
-    and saves (the convergence run of ``scripts/accuracy_run.py``)."""
-
     loaders: Dict[str, BatchLoader]
     ckpt: CheckpointManager
     out_dir: Path
@@ -165,6 +142,18 @@ class RunSession(TrainSession):
     @property
     def state(self) -> TrainState:
         return self.task.state
+
+    def next_args(self):
+        """The train loader's next batch, prepared on the device."""
+        with telemetry.span("next_args", new_step=True):
+            return self.task.prepare(next(self.loaders["train"]))
+
+    def step(self, args, i: int) -> Dict[str, torch.Tensor]:
+        """Train step ``i`` on prepared ``args`` (the dropout generator of
+        step ``i``, as in ``train``)."""
+        with telemetry.span("step"):
+            return self.task.train_step(
+                args, step_generator(self.cfg.run.seed, i, self.device))
 
     def evaluate(self, split: str = "val") -> Dict[str, float]:
         """The metrics of the split's next batch, as floats."""
@@ -191,78 +180,44 @@ def open_run(cfg: SparseEventIDConfig, datasets: Mapping[str, object] | None = N
     dev = resolve_device(cfg, device)
     out_dir = run_dir(cfg)
     with process_log(out_dir / "process.log"):
-        owned = []
+        owned, loaders = [], {}
         if datasets is None:
             splits = ["train"] + (["val"] if "val" in cfg.data.active else [])
             owned = [build_dataset(cfg, s) for s in splits]
             datasets = dict(zip(splits, owned))
         try:
-            with split_loaders(cfg, datasets) as (grid, planner, loaders):
-                task = open_task(cfg, datasets["train"], grid,
-                                 loaders["train"], params, dev, planner)
-                state = task.state
-                logger.info("Model parameters: %s",
-                            f"{param_count(state.model):,}")
-                logger.info("window plans built on the %s",
-                            "host" if planner is not None else "device")
-                ckpt = CheckpointManager(out_dir / "checkpoints")
-                if params is None:
-                    restored = restore_run(cfg.mode, ckpt, state.model, dev,
-                                           state.optimizer, state.scheduler)
-                    if restored is not None:
-                        state.step = restored
-                mesh.broadcast_module(state.model)
-                yield RunSession(cfg, task, loaders["train"], planner, dev,
-                                 loaders, ckpt, out_dir)
+            # every split on the train split's grid, each loader building
+            # its batches' plans in its thread with the task's planner
+            grid = tuple(datasets["train"].batch_grid())
+            planner = task_planner(cfg, grid, cache=True)
+            for split, ds in datasets.items():
+                if tuple(ds.batch_grid()) != grid:
+                    raise ValueError(f"split {split} has grid "
+                                     f"{ds.batch_grid()}, train has {grid}")
+                loaders[split] = make_loader(
+                    cfg, ds, planner.transform(split) if planner else None)
+            # one step count on every rank: a rank that stepped once more
+            # would wait in a collective for ever
+            epoch_length = mesh.min_across(len(loaders["train"]))
+            task = build_task(cfg, datasets["train"], grid, epoch_length,
+                              params, dev, planner)
+            state = task.state
+            logger.info("Model parameters: %s",
+                        f"{param_count(state.model):,}")
+            logger.info("window plans built on the %s",
+                        "host" if planner is not None else "device")
+            ckpt = CheckpointManager(out_dir / "checkpoints")
+            if params is None:
+                restored = restore_run(cfg.mode, ckpt, state.model, dev,
+                                       state.optimizer, state.scheduler)
+                if restored is not None:
+                    state.step = restored
+            mesh.broadcast_module(state.model)
+            yield RunSession(cfg, task, planner, dev, loaders, ckpt, out_dir)
         finally:
+            for loader in loaders.values():
+                loader.stop()
             close_datasets(owned)
-
-
-@contextlib.contextmanager
-def split_loaders(cfg: SparseEventIDConfig, datasets: Mapping[str, object]):
-    """-> (grid, planner, loaders): the train split's grid, the one plan
-    geometry of every split; the run's ``HostPlanner`` with its plan cache
-    for the tasks whose loaders build the plans (else None); a prefetching
-    loader a split, each building its batches' plans in its thread.  The
-    loaders stop on exit."""
-    grid = tuple(datasets["train"].batch_grid())
-    planner = (run_planner(cfg, grid, cache=True)
-               if cfg.name in LOADER_PLANS else None)
-    loaders = {}
-    try:
-        for split, ds in datasets.items():
-            if tuple(ds.batch_grid()) != grid:
-                raise ValueError(f"split {split} has grid "
-                                 f"{ds.batch_grid()}, train has {grid}")
-            loaders[split] = make_loader(
-                cfg, ds, planner.transform(split) if planner else None)
-        yield grid, planner, loaders
-    finally:
-        for loader in loaders.values():
-            loader.stop()
-
-
-def open_task(cfg: SparseEventIDConfig, dataset, grid, loader: BatchLoader,
-              params, dev: torch.device, planner) -> Training:
-    """The run's ``Training`` (state and step) for batches of ``loader``:
-    one step count on every rank, since a rank that stepped once more
-    would wait in a collective for ever."""
-    epoch_length = mesh.min_across(len(loader))
-    return build_task(cfg, dataset, grid, epoch_length, params, dev, planner)
-
-
-@contextlib.contextmanager
-def train_session(cfg: SparseEventIDConfig, dataset,
-                  device: torch.device | str | None = None):
-    """A ``TrainSession`` of ``cfg`` on ``dataset`` from the run's seeded
-    initialisation (no restore, no checkpoint, no log file); its loader
-    stops on exit."""
-    task_check(cfg)
-    dev = resolve_device(cfg, device)
-    with split_loaders(cfg, {"train": dataset}) as (grid, planner, loaders):
-        task = open_task(cfg, dataset, grid, loaders["train"], None, dev,
-                         planner)
-        yield TrainSession(cfg, task, loaders["train"], planner, dev)
 
 
 @contextlib.contextmanager

@@ -214,3 +214,23 @@ def test_frozen_encoder_step_matches_jax_multi_transform(batches):
                                        atol=1e-6, err_msg=name)
     assert any(not torch.equal(got[n], start[n]) for n in buffers
                if n.startswith("encoder."))
+
+
+def test_open_run_in_a_new_directory_starts_from_the_seeded_init(tmp_path):
+    """A run directory with nothing to restore: ``open_run`` starts from
+    ``init_parameters`` of the run's seed, at step 0 (the benchmark drivers
+    of ``scripts/`` open their sessions so)."""
+    from sparseeventid_tpu_torch.models import build_model
+    from sparseeventid_tpu_torch.train.evaluate import build_dataset
+    from sparseeventid_tpu_torch.train.trainer import open_run
+
+    cfg = _cfg(tload, ["run.compute_mode=CPU", "data.synthetic_events=4",
+                       "data.active=[train]", f"output_dir={tmp_path}"])
+    want = init_parameters(build_model(cfg)[0], cfg.run.seed).state_dict()
+    with open_run(cfg, {"train": build_dataset(cfg, "train")},
+                  device="cpu") as run:
+        assert run.state.step == 0
+        got = run.state.model.state_dict()
+    assert list(got) == list(want)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name

@@ -179,7 +179,7 @@ def test_traced_train_step_records_the_search_and_truncation(
     from sparseeventid_tpu_torch.config import load_config
     from sparseeventid_tpu_torch.train import evaluate
     from sparseeventid_tpu_torch.train.evaluate import build_dataset
-    from sparseeventid_tpu_torch.train.trainer import train_session
+    from sparseeventid_tpu_torch.train.trainer import open_run
 
     images = []
     to_cloud = evaluate.larcv_batch_to_pointcloud
@@ -194,7 +194,8 @@ def test_traced_train_step_records_the_search_and_truncation(
         "run.precision=float32", "data.max_voxels=256",
         "data.synthetic_events=8", "run.minibatch_size=2",
         "data.active=[train]", f"output_dir={tmp_path}"])
-    with train_session(cfg, build_dataset(cfg, "train"), "cpu") as session:
+    with open_run(cfg, {"train": build_dataset(cfg, "train")},
+                  device="cpu") as session:
         with telemetry.tracing() as tracer:
             session.step(session.next_args(), 0)
     names = [s.name for s in tracer.spans]

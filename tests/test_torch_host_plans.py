@@ -288,8 +288,8 @@ def test_host_plans_equal_device_plans(case, one_torch_thread):
     feats = rng.integers(-3, 4, (b, coords.shape[1], 1)).astype(np.float32)
     st0 = build_sparse_tensor(torch.from_numpy(coords), torch.from_numpy(feats),
                               c["grid"], capacity=c["caps"][0])
-    plans = encoder_plans_from_host(st0, host, depth, c["initial"], sks,
-                                    c["stride"], tuning=TUNING)
+    plans = encoder_plans_from_host(st0, host, c["initial"], sks, c["stride"],
+                                    TUNING, (1.0,) * (depth + 1))
     assert int(plans.site_dropped) == 0
     for p in (plans.initial, *plans.series, *[q for d in plans.down for q in d]):
         assert overflow_dst_ordered(p.ov_dst, _ov_bound(p.ov_valid))
@@ -376,8 +376,8 @@ def test_layout_guard_raises():
                              torch.ones(coords.shape[:2] + (1,)), c["grid"],
                              capacity=c["caps"][0] + 512)
     with pytest.raises(ValueError, match="query tiles"):
-        encoder_plans_from_host(st, host, depth, c["initial"], sks, c["stride"],
-                                tuning=TUNING)
+        encoder_plans_from_host(st, host, c["initial"], sks, c["stride"],
+                                TUNING, (1.0,) * (depth + 1))
 
 
 # ---- the model on host plans against the JAX model fed the JAX builder's

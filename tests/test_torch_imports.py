@@ -1,5 +1,5 @@
-"""The port stands alone: no module of it, nor its scripts chip_smoke.py
-and fence_ab.py, imports JAX,
+"""The port stands alone: no module of it, nor its script chip_smoke.py,
+imports JAX,
 flax, optax, the JAX package or the repository's bin/ and scripts/; and its entry points refuse to fall back to
 the CPU unless asked."""
 
@@ -12,7 +12,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "sparseeventid_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py", "fence_ab.py"]
+) + ["chip_smoke.py"]
 # the JAX stack, the JAX package and the repository's own tool folders (the
 # port's tools are its own copies, sparseeventid_tpu_torch/scripts/)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparseeventid_tpu", "scripts",

@@ -116,10 +116,11 @@ MAIN_ORDER = ["next_args", "loader.get", "prepare.input",
 def test_train_session_records_every_span(tmp_path, one_torch_thread,
                                           widened):
     from sparseeventid_tpu_torch.train.evaluate import build_dataset
-    from sparseeventid_tpu_torch.train.trainer import train_session
+    from sparseeventid_tpu_torch.train.trainer import open_run
 
     cfg = load_config("synthetic", SMALL + [f"output_dir={tmp_path}"])
-    with train_session(cfg, build_dataset(cfg, "train"), "cpu") as session:
+    with open_run(cfg, {"train": build_dataset(cfg, "train")},
+                  device="cpu") as session:
         geo = session.planner.geometry
         if widened:  # lists far too short: every batch is built twice
             geo.update(ov_caps=[16] * len(geo["ov_caps"]),
