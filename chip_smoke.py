@@ -200,8 +200,11 @@ Phases, one JSON line each; any failure exits non-zero:
               version's indices bit for bit on integer-valued clouds with
               ties, padding and a cloud of 15 points, the float64
               neighbour distances within KNN_REAL_TOL on real-valued ones,
-              ms, bound_ms, plain_ms and library_ms (torch.topk on the
-              materialised distances); then csrc/edge_conv.cu's edge_conv
+              the counting instance's filter pass share and merges a query
+              (knn_topk_counts), the registers and spills ptxas printed for
+              the build, ms, bound_ms, plain_ms and library_ms (torch.topk
+              on the materialised distances), with --parent the earlier
+              kernel's lists (bit-equal) and ms; then csrc/edge_conv.cu's edge_conv
               at each stage of the dgcnn3d cell (phase_edge_conv_kernels:
               B=8, P=8192, k=20, F -> C 4->64, 64->64, 64->128,
               128->256): the plain version's output bit for bit on
@@ -672,7 +675,8 @@ class ParentKernels:
     Each call's result is checked against the current kernel's."""
 
     SOURCES = ("window_plan", "window_conv", "overflow_apply", "window_bwd",
-               "window_dw", "overflow_dw", "window_gather", "gather_conv")
+               "window_dw", "overflow_dw", "window_gather", "gather_conv",
+               "knn")
 
     def __init__(self, tree):
         import ctypes
@@ -4941,19 +4945,45 @@ def _neighbour_distances(x, idx):
     return d.sort(dim=-1).values
 
 
+def knn_ptxas() -> dict:
+    """Registers and spills of each csrc/knn.cu kernel instance, as ``nvcc
+    -Xptxas -v`` printed them for the library this run loaded (its build
+    log beside it) -> {"knn_topk_kernel<direct, count>": {registers,
+    spill_stores, spill_loads}}."""
+    import re
+
+    from sparseeventid_tpu_torch.ops.window import _native
+
+    log = _native._target("knn").with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    flag = {"0": "false", "1": "true"}
+    return {f"knn_topk_kernel<{flag[m[1]]}, {flag[m[2]]}>": dict(
+        registers=int(m[5]), spill_stores=int(m[3]), spill_loads=int(m[4]))
+        for m in re.finditer(
+            r"entry function '\S*knn_topk_kernelILb([01])ELb([01])E\S*'.*?"
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+            r"Used (\d+) registers", text, re.S)}
+
+
 def phase_knn_kernels():
     """csrc/knn.cu's knn_topk at KNN_B x KNN_P, k = KNN_K, F in
     KNN_FEATURES: on integer-valued clouds (ties, padding, a cloud of 15
     points) the plain version's indices bit for bit; on real-valued ones
     each row's float64 neighbour distances within KNN_REAL_TOL of the
-    plain version's; ms, the bound (2 B P^2 F operations at the float32
-    peak, B P (4F + 1 + 8k) bytes), the plain version's ms and the
-    library's (torch.topk on the materialised distances) -> the rows."""
+    plain version's; the counting instance's lists the same and its
+    filter's pass share a pair and merges a query (``knn_topk_counts``);
+    the registers and spills of the instance timed (``knn_ptxas``); ms, the
+    bound (2 B P^2 F operations at the float32 peak, B P (4F + 1 + 8k)
+    bytes), the plain version's ms and the library's (torch.topk on the
+    materialised distances); with --parent, the earlier kernel's lists
+    (bit-equal required on both clouds, rows that differ counted) and ms
+    -> the rows."""
     import torch
 
     from sparseeventid_tpu_torch.ops import knn_kernels as KNN
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    ptxas = knn_ptxas()
     rows = []
     for f in KNN_FEATURES:
         x, mask = _knn_clouds(f, integer=True)
@@ -4963,15 +4993,25 @@ def phase_knn_kernels():
         short = bool(torch.equal(
             got[2, :, 15:], torch.arange(15, KNN_K, device=DEVICE)
             .expand(KNN_P, KNN_K - 15)))
+        parent_int = (None if PARENT is None else int(
+            (PARENT.run(KNN.knn_topk, x, mask, KNN_K) != got).any(-1).sum()))
         del got, want
         xr, mr = _knn_clouds(f, integer=False)
         got = KNN.knn_topk(xr, mr, KNN_K)
         want = KNN.knn_topk_plain(xr, mr, KNN_K)
+        counted, passed, merges = KNN.knn_topk_counts(xr, mr, KNN_K)
+        counted_equal = bool(torch.equal(counted, got))
+        pass_share = float(passed.double().sum()) / (KNN_B * KNN_P * KNN_P)
+        merges_per_query = float(merges.double().mean())
+        parent_real = (None if PARENT is None else int(
+            (PARENT.run(KNN.knn_topk, xr, mr, KNN_K) != got).any(-1).sum()))
         rows_equal = float((got == want).all(-1).float().mean())
         dk, dp = _neighbour_distances(xr, got), _neighbour_distances(xr, want)
         gap = float((dk - dp).abs().max()) / float(dp.max())
-        del got, want, dk, dp
+        del got, want, dk, dp, counted, passed, merges
         ms = timed_ms(lambda: KNN.knn_topk(xr, mr, KNN_K))
+        parent_ms = (None if PARENT is None else timed_ms(
+            lambda: PARENT.run(KNN.knn_topk, xr, mr, KNN_K)))
         plain_ms = timed_ms(lambda: KNN.knn_topk_plain(xr, mr, KNN_K),
                             iters=2, warmup=1, graph=False)
         sq = (xr * xr).sum(-1)
@@ -4982,18 +5022,29 @@ def phase_knn_kernels():
         del dist, sq
         b_ms, b_by = bound(KNN_B * KNN_P * (4 * f + 1 + 8 * KNN_K),
                            2.0 * KNN_B * KNN_P * KNN_P * f, torch.float32)
+        instance = (f"knn_topk_kernel<{'true' if f <= KNN.DIRECT_FEATURES else 'false'}"
+                    f", false>")
         row = dict(shape=f"B={KNN_B} P={KNN_P} k={KNN_K} F={f}",
                    features=f, integer_equal=equal, short_cloud_fill=short,
                    real_rows_equal=rows_equal, real_gap=gap,
                    real_tol=KNN_REAL_TOL, max_abs_err=0.0, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library_ms)
+                   library_ms=library_ms, counted_equal=counted_equal,
+                   pass_share=pass_share, merges_per_query=merges_per_query,
+                   instance=instance, ptxas=ptxas.get(instance),
+                   parent_ms=parent_ms, parent_rows_differ_integer=parent_int,
+                   parent_rows_differ_real=parent_real)
         emit({"phase": "knn_kernel", **row})
         require(equal and short,
                 f"knn_topk F={f}: integer clouds differ from the plain "
                 f"version: {row}")
         require(gap <= KNN_REAL_TOL,
                 f"knn_topk F={f}: real-valued neighbours beyond rounding: {row}")
+        require(counted_equal and 0.0 < pass_share <= 1.0
+                and merges_per_query >= 1.0,
+                f"knn_topk F={f}: the counting instance: {row}")
+        require(PARENT is None or parent_int == parent_real == 0,
+                f"knn_topk F={f}: lists differ from the earlier kernel's: {row}")
         rows.append(row)
         del x, mask, xr, mr
         torch.cuda.empty_cache()

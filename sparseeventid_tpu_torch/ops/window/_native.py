@@ -76,8 +76,10 @@ SIGNATURES.update({
 })
 for _name in [n for n in SIGNATURES if n.endswith("_f32")]:
     SIGNATURES[_name[:-3] + "bf16"] = SIGNATURES[_name]
-# float32 only: x, mask, N, P, F, k, out, the stream
+# float32 only: x, mask, N, P, F, k, out, the stream; the counting entry
+# takes its counts before the stream
 SIGNATURES["seid_knn_topk_f32"] = [_P, _P, _I, _I, _I, _I, _P, _P]
+SIGNATURES["seid_knn_topk_counts_f32"] = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
 # the edge conv's, float32 only: ab, idx, mask, (N, P, C, K) and the launch
 # shape (vec, threads, per_block, grid), then each entry's own
 _EDGES = [_I] * 8

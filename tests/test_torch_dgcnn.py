@@ -133,6 +133,14 @@ def test_search_rule_on_the_cpu(f, k):
             assert got[b, i].tolist() == [j for _, j in sorted(d)[:k]]
 
 
+def test_filter_counts_run_on_the_card_only():
+    """``knn_topk_counts`` counts the kernel's filter and merges: it has no
+    plain version, and a CPU tensor is refused."""
+    x, mask = _cloud(2, 64, (64, 30))
+    with pytest.raises(ValueError, match="on the card"):
+        KK.knn_topk_counts(x, mask, 20)
+
+
 def test_narrow_points_are_searched_in_float32():
     """bf16 and float16 points (the first stage's input under
     ``run.precision=bfloat16``) are widened exactly and searched in
@@ -237,23 +245,49 @@ def _integer_clouds(f, p=8192, seed=0):
     return torch.from_numpy(x), torch.from_numpy(mask)
 
 
+# (P, k): sizes that are not multiples of the kernel's tiles (128
+# candidates, 64 or 128 queries a block), list lengths up to 32
+SEARCH_SIZES = [(15, 8), (15, 15)] + [(p, k) for p in (1000, 8192)
+                                      for k in (8, 16, 20, 32)]
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("f", [4, 64, 128])
-def test_kernel_equals_the_plain_search(card, f):
-    """P = 8192, k = 20: the kernel's indices are the plain version's, bit
-    for bit, ties, padding and the short cloud included."""
-    x, mask = (t.to(card) for t in _integer_clouds(f))
+@pytest.mark.parametrize("p,k", SEARCH_SIZES)
+@pytest.mark.parametrize("f", [4, 16, 20, 64, 128])
+def test_kernel_equals_the_plain_search(card, f, p, k):
+    """Both sides of the direct/expanded boundary (F = 16 | 20): the
+    kernel's indices are the plain version's, bit for bit, ties, padding
+    and the short cloud included."""
+    x, mask = (t.to(card) for t in _integer_clouds(f, p=p))
     before = KK.knn_topk.launches
-    got = KK.knn_topk(x, mask, 20)
-    want = KK.knn_topk_plain(x, mask, 20)
+    got = KK.knn_topk(x, mask, k)
+    want = KK.knn_topk_plain(x, mask, k)
     torch.cuda.synchronize()
     assert KK.knn_topk.launches == before + 1
-    assert got.dtype == torch.int64 and got.shape == (3, 8192, 20)
+    assert got.dtype == torch.int64 and got.shape == (3, p, k)
     assert torch.equal(got, want)
-    assert torch.equal(got[2, :, 15:].cpu(),
-                       torch.arange(15, 20).expand(8192, 5))
-    again = KK.knn_topk(x, mask, 20)
+    if p > 15 and k > 15:
+        assert torch.equal(got[2, :, 15:].cpu(),
+                           torch.arange(15, k).expand(p, k - 15))
+    again = KK.knn_topk(x, mask, k)
     assert torch.equal(got, again)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("f", [4, 64])
+def test_kernel_counts_its_filter_and_merges(card, f):
+    """The counting instance gives the same lists, a pass share a pair in
+    (0, 1] and at least one merge a query (the last one, at the end)."""
+    x, mask = (t.to(card) for t in _integer_clouds(f, p=1000))
+    x = x + torch.rand(x.shape, generator=torch.Generator().manual_seed(f)
+                       ).to(card)
+    got, passed, merges = KK.knn_topk_counts(x, mask, 20)
+    assert torch.equal(got, KK.knn_topk(x, mask, 20))
+    assert passed.shape == merges.shape == (3, 1000)
+    share = float(passed.double().sum()) / (3 * 1000 * 1000)
+    assert 0.0 < share <= 1.0
+    assert int(merges.min()) >= 1
+    assert int(passed.min()) >= 20
 
 
 @pytest.mark.card
